@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of hisat2_tpu_torch on one NVIDIA card.
+
+    python3 chip_smoke.py              # the whole run, one card
+    python3 chip_smoke.py --profile    # plus where one batch's time goes:
+                                       # device kernels by name, device busy
+                                       # share, host finish by function
+
+Phases; any failure exits non-zero:
+  1. card      - CUDA must be present; prints the card's name and power
+                 limit as nvidia-smi reports them.
+  2. build     - compiles every CUDA kernel of the SE path with nvcc for
+                 sm_90a and prints the compiler's register/spill report.
+  3. kernels   - each kernel against its plain PyTorch version on the
+                 card, exact int32 equality: random cases with Ns, gaps
+                 and short reads, and a case at the main path's shape.
+  4. main path - builds the index of a seeded synthetic genome of E. coli
+                 K-12 MG1655's length (4,641,652 bp), then aligns 8
+                 batches of 16,384 simulated 100 bp reads (1% mismatches,
+                 5% with a 1-3 bp indel) to SAM through
+                 align.emit.align_and_emit_stream. Asserts the alignment
+                 rate, the placement of the indel-free reads, one primary
+                 record per read, and that every kernel ran. Then the
+                 same 2,048 reads go through the CPU path (plain
+                 versions) and the card: the SAM bytes must be equal.
+  5. report    - the DP kernel's time on the main path's own inputs, its
+                 plain version's time and its bound, as one JSON line;
+                 end-to-end reads/s and peak device memory beside the card
+                 name and power limit; last line {"ok": true, ...}.
+
+The bound of a kernel is the larger of its bytes over the card's memory
+rate and its int32 operations over the card's int32 rate, both from the
+H100 SXM data sheet: 3.35 TB/s, and 16.75 T int32 op/s (the 67 TFLOP/s
+float32 rate counts 2 flops per FMA on 128 lanes per SM; an SM has 64
+int32 lanes, so int32 runs at a quarter of that figure).
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+DP_OPS_PER_CELL = 20          # int32 operations per DP cell (see dp_score.cu)
+
+GENOME_LEN = 4_641_652        # E. coli K-12 MG1655
+BATCH = 16384
+NBATCH = 8
+RDLEN = 100
+PAD_TO = 104                  # ReadBatch pads 100 bp reads to a multiple of 8
+
+
+def check(ok: bool, what: str) -> None:
+    """A failed check of the run: raise, so the script exits non-zero."""
+    if not ok:
+        raise RuntimeError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def make_dp_case(seed, C, L, W):
+    """Random DP inputs: reads cut from their windows with mismatches and
+    Ns, a 1-3 bp deletion on every third row, random lengths, and a few
+    degenerate rows (unrelated read, all-N window, lengths 0 and 1)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, (C, W)).astype(np.int32)
+    rd = np.empty((C, L), np.int32)
+    lens = rng.integers(30, L + 1, C).astype(np.int32)
+    starts = rng.integers(0, W - L + 1, C)
+    for i in range(C):
+        s = starts[i]
+        rd[i] = ref[i, s:s + L]
+        for p in rng.integers(0, lens[i], rng.integers(0, 6)):
+            rd[i, p] = rng.integers(0, 5)
+        if i % 3 == 0:
+            d = int(rng.integers(1, 4))
+            p = int(rng.integers(5, lens[i] - 5))
+            tail = ref[i, s + p + d:min(s + L + d, W)]
+            rd[i, p:p + tail.size] = tail
+    quals = rng.integers(20, 41, (C, L)).astype(np.int32)
+    rd[1] = rng.integers(0, 4, L)
+    ref[2] = 4
+    lens[4] = 0
+    lens[5] = 1
+    return rd, quals, lens, ref
+
+
+def time_cuda(fn, iters: int, warmup: int) -> float:
+    """Mean milliseconds per call from CUDA events over `iters` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def simulate_reads(joined: np.ndarray, n: int, seed: int):
+    """n reads of RDLEN: ~1% mismatches, ~5% with one 1-3 bp indel, half
+    reverse-complemented. Returns (codes (n, RDLEN) uint8, true 0-based
+    start, indel flag)."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, joined.size - RDLEN - 8, n)
+    seqs = joined[starts[:, None] + np.arange(RDLEN)].copy()
+    indel = rng.random(n) < 0.05
+    for i in np.flatnonzero(indel):
+        s, d, p = int(starts[i]), int(rng.integers(1, 4)), \
+            int(rng.integers(20, 80))
+        if rng.random() < 0.5:       # deletion from the read
+            seqs[i] = np.concatenate([joined[s:s + p],
+                                      joined[s + p + d:s + RDLEN + d]])
+        else:                        # insertion into the read
+            seqs[i] = np.concatenate([joined[s:s + p],
+                                      rng.integers(0, 4, d).astype(np.uint8),
+                                      joined[s + p:s + RDLEN - d]])
+    mm = rng.random(seqs.shape) < 0.01
+    seqs[mm] = (seqs[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
+    rc = rng.random(n) < 0.5
+    seqs[rc] = 3 - seqs[rc, ::-1]
+    return seqs.astype(np.uint8), starts, indel
+
+
+def make_batches(seqs, first: int, batch: int):
+    from hisat2_tpu_torch.io.reads import Read, batchify
+    q = np.full(RDLEN, 40, np.int8)
+    out = []
+    for b0 in range(0, seqs.shape[0], batch):
+        rows = range(b0, min(b0 + batch, seqs.shape[0]))
+        out.append(batchify([Read(f"s{first + i}", seqs[i], q, first + i)
+                             for i in rows], pad_to=PAD_TO))
+    return out
+
+
+def run_stream(al, batches, ref):
+    from hisat2_tpu_torch.align.emit import align_and_emit_stream
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    writer = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                             no_head=True)
+    stats = align_and_emit_stream(al, batches, writer)
+    return buf.getvalue(), stats
+
+
+def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray):
+    """One primary record per read; alignment rate; true placement of the
+    indel-free reads (POS minus the leading soft clip is the read's
+    start on the reference)."""
+    seen = np.zeros(n, np.int64)
+    aligned = np.zeros(n, bool)
+    placed = np.zeros(n, bool)
+    for ln in text.splitlines():
+        f = ln.split("\t", 6)
+        flag = int(f[1])
+        if flag & 256:
+            continue
+        i = int(f[0][1:])
+        seen[i] += 1
+        if flag & 4:
+            continue
+        aligned[i] = True
+        clip = re.match(r"(\d+)S", f[5])
+        lead = int(clip.group(1)) if clip else 0
+        placed[i] = int(f[3]) - 1 - lead == starts[i]
+    check((seen == 1).all(),
+          f"reads emitted != once: {int((seen != 1).sum())}")
+    rate = float(aligned.mean())
+    ok = ~indel
+    true_rate = float(placed[ok].mean())
+    check(rate >= 0.90, f"aligned {rate:.4f} < 0.90")
+    check(true_rate >= 0.95, f"indel-free reads placed {true_rate:.4f}")
+    return rate, true_rate, float(aligned[indel].mean())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one batch with torch.profiler")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.index.fm_index import build_fm_index
+    from hisat2_tpu_torch.io.reference import reference_from_seqs
+    from hisat2_tpu_torch.ops import dp_cuda
+    from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
+    from hisat2_tpu_torch.utils import alphabet
+    from hisat2_tpu_torch.utils.metrics import Metrics
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[card] {card}", flush=True)
+    t_start = time.perf_counter()
+
+    # -- build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    _, report = dp_cuda.build()
+    regs = [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "spill" in ln]
+    print(f"[build] dp_score.cu ({time.perf_counter() - t0:.1f} s): "
+          + " | ".join(regs), flush=True)
+
+    # -- kernels against their plain versions --------------------------
+    sc = Scoring()
+    consts = sc.dp_consts()
+    sctab = sc.device_tables(dev)
+    max_err = 0
+
+    def check_dp(rd, pen, lens, ref, scp_cum, what):
+        nonlocal max_err
+        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, **consts)
+        want = dp_fill_plain(rd, pen, lens, ref, scp_cum, **consts)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"dp_score != plain ({what})")
+        print(f"[kernels] dp_score == plain on {what}: C={rd.shape[0]} "
+              f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
+
+    for seed, C, L, W in ((0, 24, 60, 92), (1, 24, 60, 92),
+                          (2, 8192, 104, 136)):
+        rd, quals, lens, ref = make_dp_case(seed, C, L, W)
+        t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+        pen, scp_cum = dp_inputs(sctab, t[1], t[2])
+        check_dp(t[0], pen.contiguous(), t[2], t[3], scp_cum.contiguous(),
+                 f"random case {seed}")
+
+    # -- main path -------------------------------------------------------
+    t0 = time.perf_counter()
+    grng = np.random.default_rng(20240501)
+    genome = alphabet.decode(grng.integers(0, 4, GENOME_LEN).astype(np.uint8))
+    fm = build_fm_index(reference_from_seqs({"NC_000913.3_synthetic":
+                                             genome}))
+    t_index = time.perf_counter() - t0
+    print(f"[main] index of {fm.n} bp built in {t_index:.1f} s, kt="
+          f"{fm.st_k}", flush=True)
+    check(fm.st_k == 13 and fm.n == GENOME_LEN, "index geometry")
+    al = Aligner(fm, device="cuda")
+    check("st_pairs" not in al.idx,   # kt = 13: the two-gather seed branch
+          "a kt = 13 bundle must not carry st_pairs")
+
+    n = BATCH * NBATCH
+    seqs, starts, indel = simulate_reads(fm.ref.joined, n + BATCH, seed=7)
+    batches = make_batches(seqs[:n], 0, BATCH)
+    warm = make_batches(seqs[n:], n, BATCH)
+
+    # first-call set-up on a batch of its own; it also records the DP
+    # kernel's inputs as the main path builds them, for phase 5
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording_dp
+    try:
+        run_stream(al, warm, fm.ref)
+    finally:
+        tpipe.dp_score = real_dp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in dp_cuda.launches:
+        dp_cuda.launches[k] = 0
+    al.metrics = Metrics()
+    t0 = time.perf_counter()
+    text, stats = run_stream(al, batches, fm.ref)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(dp_cuda.launches)
+    peak_mb = torch.cuda.max_memory_allocated() / (1 << 20)
+    rps = n / dt
+    for name, cnt in launches.items():
+        check(cnt > 0, f"kernel {name} was not launched on the main path")
+    rate, true_rate, indel_rate = check_sam(text, n, starts[:n], indel[:n])
+    print(f"[main] {n} reads in {dt:.3f} s = {rps:.1f} reads/s end to end; "
+          f"aligned {rate:.4f}, indel-free at true position {true_rate:.4f}, "
+          f"indel reads aligned {indel_rate:.4f}; stats {stats}; "
+          f"dp_score launches {launches['dp_score']}; peak device memory "
+          f"{peak_mb:.1f} MiB [{card}]", flush=True)
+    m = al.metrics
+    print(f"[main] host time summed over batches: queue the device step "
+          f"{m.t_pack:.3f} s, wait for results {m.t_fetch:.3f} s, finish "
+          f"in 3 worker threads {m.t_host:.3f} s", flush=True)
+
+    # the card against the CPU path (plain versions) on 2,048 reads
+    small = make_batches(seqs[:2048], 0, 2048)
+    cpu_al = Aligner(fm, device="cpu")
+    text_cpu, _ = run_stream(cpu_al, small, fm.ref)
+    text_gpu, _ = run_stream(al, small, fm.ref)
+    check(text_gpu == text_cpu, "SAM from the card != SAM from the CPU path")
+    print(f"[main] SAM bytes on the card == CPU path on 2048 reads "
+          f"({len(text_gpu)} bytes)", flush=True)
+
+    if args.profile:
+        profile_batch(al, batches[0])
+
+    # -- report ----------------------------------------------------------
+    rd, pen, rl, ref, scp_cum = captured[0]
+    check_dp(rd, pen, rl, ref, scp_cum, "the main path's inputs")
+    C, L = rd.shape
+    W = ref.shape[1]
+    ms = time_cuda(lambda: dp_cuda.dp_score(rd, pen, rl, ref, scp_cum,
+                                            **consts), iters=200, warmup=20)
+    plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
+                                               **consts), iters=5, warmup=2)
+    rows = int(rl.clamp(0, L).sum())
+    nbytes = 4 * (rd.numel() + pen.numel() + rl.numel() + ref.numel()
+                  + scp_cum.numel() + C)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * (W + 1) * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    kernels = [dict(
+        name="dp_score", route="cuda",
+        source="hisat2_tpu_torch/csrc/dp_score.cu",
+        replaces="hisat2_tpu/ops/dp_pallas.py:113",
+        launches=launches["dp_score"], max_abs_err=max_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None)]
+    print(f"[report] dp_score at C={C} L={L} W={W}, {rows} read rows: "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, "
+          f"{rows * (W + 1)} cells) [{card}]", flush=True)
+    print(f"[report] end to end {rps:.1f} reads/s, peak device memory "
+          f"{peak_mb:.1f} MiB, whole run {time.perf_counter() - t_start:.1f}"
+          f" s [{card}]", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_batch(al, batch):
+    """Where one batch's time goes, run alone (no pipelining): the host
+    time to queue the device step, the device kernels by name and their
+    busy share of the batch's wall time (torch.profiler), and the host
+    finish's functions by cumulative time (cProfile)."""
+    import cProfile
+    import pstats
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hisat2_tpu_torch.align import emit
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle = emit.submit_se(al, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        hp = cProfile.Profile()
+        hp.enable()
+        emit.finish_se(al, handle, emit._TextShim())
+        hp.disable()
+        t3 = time.perf_counter()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    wall_ms = (t3 - t0) * 1e3
+    print(f"[profile] one batch of {len(batch)} alone: wall {wall_ms:.1f} "
+          f"ms = queue the device step {(t1 - t0) * 1e3:.1f} ms + wait for "
+          f"the device {(t2 - t1) * 1e3:.1f} ms + host finish "
+          f"{(t3 - t2) * 1e3:.1f} ms; device busy {dev_us / 1e3:.2f} ms "
+          f"({dev_us / 1e3 / wall_ms:.4f} of wall), {len(kern)} kernel "
+          f"names, {sum(e.count for e in kern)} launches", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<5d} {e.key[:80]}", flush=True)
+    rows = [(ct, nc, fn) for (path, _, fn), (_, nc, _, ct, _)
+            in pstats.Stats(hp).stats.items() if "hisat2_tpu_torch" in path]
+    for ct, nc, fn in sorted(rows, reverse=True)[:10]:
+        print(f"[profile]   host finish {ct * 1e3:8.2f} ms cumulative x{nc:<6d}"
+              f" {fn}", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

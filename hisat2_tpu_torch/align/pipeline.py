@@ -1,0 +1,912 @@
+"""Single-end DNA alignment pipeline (PyTorch port of hisat2_tpu's).
+
+Equivalent role to the reference's HI_Aligner::go (hi_aligner.h:4048), as
+batched tensor stages over a read wavefront; one call per batch
+(_stage_align_packed) runs them all on the aligner's device:
+
+  1. unpack the 2-bit reads, add reverse complements  _unpack_reads,
+                                                      _with_revcomp
+  2. seed from the k-mer table                        ops/search.table_lookup
+  3. dedup candidates, rank them by seed votes        _stage_candidates
+  4. clip-aware ungapped verify                       ops/extend.verify_ungapped
+  5. dense re-seed of reads that failed               _se_core
+  6. gapped DP rescue (the CUDA kernel)               _stage_dp
+  7. fw/rc merge, top-K2                              _stage_merge
+  8. finalize rows into the int16 fastpack            _stage_fin_rows,
+                                                      _stage_fastpack
+  9. host: SAM through native/samfmt.cpp (align/emit.py); slow reads
+     through the Aligner's host finalizers and the native DP traceback.
+
+The fastpack layout is the JAX package's, so the same native finisher
+turns it into the same SAM bytes.
+
+Ties: every top-k of the JAX version is a stable sort here (descending
+0/1 masks and ascending negated scores keep ties in ascending index
+order, as lax.top_k and the stable lax.sort do). Index tensors are
+clamped explicitly wherever the JAX code relied on clamping gathers.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..index.fm_index import FMIndex
+from ..io.reads import ReadBatch
+from ..io import sam as samio
+from ..ops import extend as _extend, rank as _rank, search as _search
+from ..ops import sw as _sw
+from ..ops.dp_cuda import dp_score
+from ..ops.extend import NEG_INF
+from ..utils import alphabet
+from ..utils.metrics import Metrics
+from .scoring import DEFAULT_SCORING, Scoring, mm_pen_of, sc_pen_of
+
+I32 = torch.int32
+BIG = 0x7FFFFFFF           # invalid-candidate position sentinel
+
+# dense re-seed width for the table fallback: offsets 0,4,8,... cover a
+# 100bp read end to end (the sensitive pass for reads whose stride seeds
+# all carry errors)
+FB_TABLE_SEEDS = 24
+
+
+def _filter_reason(batch, i: int, lens) -> str:
+    """YF code for a filtered read: NS (N-ceiling), LN (length 0), QC
+    (QSEQ filter field, --qc-filter) — reference filter codes."""
+    if lens[i]:
+        return "NS"
+    rds = getattr(batch, "reads", None)
+    if rds and i < len(rds) and not getattr(rds[i], "qc_ok", True):
+        return "QC"
+    return "LN"
+
+
+@dataclass
+class AlignerOpts:
+    khits: int = 5                 # -k: max alignments reported per read
+    n_seeds: int = 8               # seeds per orientation
+    locs_per_seg: int = 8          # positions expanded per seed
+    top_cands: int = 16            # candidates kept after ungapped ranking
+    verify_cands: int = 16         # vote-ranked loci verified per orientation
+    dp_pad: int = 16               # ref-window padding each side for DP
+    no_dp: bool = False            # disable gapped rescue
+    nofw: bool = False             # --nofw: skip forward orientation
+    norc: bool = False             # --norc: skip reverse-complement
+    omit_sec_seq: bool = False     # --omit-sec-seq: '*' SEQ/QUAL on
+    #                                secondary records (sam.h)
+    # not ported yet: each raises NotImplementedError when set
+    spliced: bool = False          # spliced (RNA) alignment
+    seed_mode: bool = True         # False = FM segment seeding
+    tmo: bool = False              # --tmo: transcriptome-mapping only
+    zs_tags: bool = False          # Zs:Z SNP tags (graph indexes)
+
+
+@dataclass
+class Alignment:
+    """One resolved alignment on the joined text (host-side)."""
+    joined_pos: int
+    fw: bool
+    score: int
+    cigar: list[tuple[str, int]] = field(default_factory=list)
+    nmm: int = 0
+    gap_opens: int = 0
+    gap_exts: int = 0
+    md: str = ""
+    nm: int = 0
+    n_refns: int = 0
+    tidx: int = -1
+    toff: int = -1
+    xs_strand: str | None = None   # splice strand (XS:A)
+    zs_snps: str | None = None     # SNP edits (Zs:Z)
+    rname_override: str | None = None
+    nh_override: int | None = None
+
+    @property
+    def ref_span(self) -> int:
+        return sum(n for op, n in self.cigar if op in ("M", "D", "N", "=", "X"))
+
+
+@dataclass
+class ReadResult:
+    """Alignment outcome for one read: primary + secondaries + MAPQ info."""
+    alns: list[Alignment] = field(default_factory=list)   # best first
+    best: int = NEG_INF
+    secbest: int | None = None
+    filtered: str | None = None    # YF:Z code (e.g. 'NS')
+
+    @property
+    def aligned(self) -> bool:
+        return bool(self.alns)
+
+
+# ---------------------------------------------------------------------------
+# Device stages
+# ---------------------------------------------------------------------------
+
+def _topk01(mask: torch.Tensor, k: int):
+    """lax.top_k over a 0/1 mask: (values, indices) of the first k rows
+    with the 1s first, ties in ascending index order."""
+    v, ix = torch.sort(mask.to(I32), descending=True, stable=True)
+    return v[:k], ix[:k].to(I32)
+
+
+def _sort_desc(key: torch.Tensor, *vals: torch.Tensor, k: int):
+    """Stable descending sort of `key` along dim 1, first k columns of key
+    and of each of `vals` carried along (lax.sort((-key, *vals),
+    num_keys=1) sliced to k)."""
+    order = torch.sort(-key, dim=1, stable=True).indices[:, :k]
+    return [torch.gather(a, 1, order) for a in (key, *vals)]
+
+
+def _min_scores(minsc_i: float, minsc_s: float, lens: torch.Tensor):
+    """ceil(I + S * len) in float32, as the device computes it (the host
+    uses float64: emit._finish_fastpack)."""
+    f32 = torch.float32
+    i = torch.tensor(minsc_i, dtype=f32, device=lens.device)
+    s = torch.tensor(minsc_s, dtype=f32, device=lens.device)
+    return torch.ceil(i + s * lens.to(f32)).to(I32)
+
+
+def _with_revcomp(seqs: torch.Tensor, quals: torch.Tensor,
+                  lens: torch.Tensor):
+    """(B, L) -> (2B, L): rows [0:B) forward, [B:2B) reverse-complement."""
+    B, L = seqs.shape
+    dev = seqs.device
+    lens = lens.to(I32)
+    in_read = torch.arange(L, dtype=I32, device=dev)[None, :] < lens[:, None]
+    s = torch.where(in_read, seqs.to(I32).clamp(max=4), 4)
+    q = torch.where(in_read, quals.to(I32), 0)
+    sr = s.flip(1)
+    rev = torch.where(sr < 4, 3 - sr, 4)
+    dbl = torch.cat([rev, torch.full((B, L), 4, dtype=I32, device=dev)], 1)
+    dblq = torch.cat([q.flip(1), torch.zeros((B, L), dtype=I32, device=dev)],
+                     1)
+    sh = L - lens
+    rc = _rank._shift_words(dbl, sh, L)
+    rq = _rank._shift_words(dblq, sh, L)
+    return torch.cat([s, rc]), torch.cat([q, rq]), torch.cat([lens, lens])
+
+
+def _stage_candidates(idx: dict, sctab: dict, seqs, quals, lens,
+                      n_seeds: int, locs_per_seg: int, top_cands: int,
+                      stride: int = 0, verify_cands: int = 0) -> dict:
+    """Orientations, table seeding, dedup, vote ranking, ungapped verify,
+    top-T. stride 0 spreads n_seeds seeds over the read (the throughput
+    pass); stride 4 is the dense re-seed.
+
+    Returns per orientation-row (R = 2B): top candidate positions (R, T),
+    scores (R, T), nmm (R, T), exhausted flags (R,) — True when no seed
+    bucket overflowed locs_per_seg — and the oriented reads."""
+    seqs2, quals2, lens2 = _with_revcomp(seqs, quals, lens)
+    R, L = seqs2.shape
+    dev = seqs2.device
+    th = _search.table_lookup(idx, seqs2, lens2, n_seeds=n_seeds,
+                              locs_per_seg=locs_per_seg, stride=stride)
+    cand = (th["locs"] - th["off"][:, :, None]).reshape(R, -1)
+    valid = th["lvalid"].reshape(R, -1)
+
+    # dedup identical positions (sort asc; invalid -> +inf sentinel), then
+    # rank distinct loci by seed votes (how many seeds landed on the same
+    # diagonal) and verify only the top `verify_cands`
+    key = torch.where(valid, cand, BIG)
+    C = key.shape[1]
+    skey = torch.sort(key, dim=1).values
+    first = torch.cat([torch.ones((R, 1), dtype=torch.bool, device=dev),
+                       skey[:, 1:] != skey[:, :-1]], 1) & (skey < BIG)
+    arc = torch.arange(C, dtype=I32, device=dev)[None, :]
+    ar = torch.where(first, arc, C)
+    # votes per run of equal positions: next run-start index minus own
+    nxt = torch.cat([ar[:, 1:], torch.full((R, 1), C, dtype=I32, device=dev)],
+                    1)
+    nxt = torch.cummin(nxt.flip(1), dim=1).values.flip(1)
+    vote_key = torch.where(first, nxt - arc, -1)
+    verify_cands = min(verify_cands or max(top_cands, 16), C)
+    vk, vcand = _sort_desc(vote_key, skey, k=verify_cands)
+    vvalid = vk > 0
+    vcand = torch.where(vvalid, vcand, BIG)
+
+    res = _extend.verify_ungapped(idx, sctab, seqs2, quals2, lens2,
+                                  vcand, vvalid)
+    T = top_cands
+    Tv = min(T, verify_cands)
+    sc_top, pos_top, nmm_top = _sort_desc(res["score"], vcand, res["nmm"],
+                                          k=Tv)
+    if Tv < T:
+        # pad back to the standard T columns
+        def pad(a, v):
+            return torch.cat([a, torch.full((R, T - Tv), v, dtype=a.dtype,
+                                            device=dev)], 1)
+        pos_top, sc_top, nmm_top = (pad(pos_top, BIG), pad(sc_top, NEG_INF),
+                                    pad(nmm_top, 0))
+    return dict(pos=pos_top, score=sc_top, nmm=nmm_top,
+                exhausted=th["exhausted"], seqs2=seqs2, quals2=quals2,
+                lens2=lens2)
+
+
+def _stage_dp(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
+              dp_rows, dp_pad: int, sc_const: dict):
+    """Gapped DP scores for the top candidates of (pre-compacted) rows:
+    pos_top (R', T), dp_rows (R',) bool mask. Returns (R', T) scores.
+    The fill is ops/dp_cuda.dp_score (the CUDA kernel on a CUDA tensor);
+    sc_const holds its six scoring integers (Scoring.dp_consts)."""
+    R, L = seqs2.shape
+    T = pos_top.shape[1]
+    W = L + 2 * dp_pad
+    wstart = pos_top - dp_pad
+    ref = _rank.text_window(idx, wstart.reshape(-1), W)          # (R*T, W)
+    rd = seqs2.repeat_interleave(T, dim=0).contiguous()
+    q = quals2.repeat_interleave(T, dim=0)
+    rl = lens2.repeat_interleave(T).contiguous()
+    pen, scp_cum = _sw.dp_inputs(sctab, q, rl)
+    score = dp_score(rd, pen.contiguous(), rl, ref.contiguous(),
+                     scp_cum.contiguous(), **sc_const).reshape(R, T)
+    # sentinel (invalid) candidates must stay invalid: their all-N windows
+    # would otherwise "score" better than real but poor placements
+    ok = dp_rows[:, None] & (pos_top < BIG - (1 << 20)) & (pos_top >= 0)
+    return torch.where(ok, score, NEG_INF)
+
+
+def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
+                    ppos, pfw, read_of, B: int, max_mm: int = 8):
+    """Finalization of one ungapped candidate per output row: optimal
+    clips (max-subarray), score, penalized-mismatch count, and the first
+    max_mm (col, refchar) mismatch pairs for MD construction. ppos/pfw/
+    read_of are (N,), read_of the read index in [0, B) each row
+    finalizes. Returns (N, 5 + 2*max_mm) int32:
+    [c5, c3, score, nmm, nmm_all, cols.., chars..]."""
+    L = seqs2.shape[1]
+    dev = seqs2.device
+    rowidx = (read_of + torch.where(pfw, 0, B)).long()
+    rd = seqs2[rowidx]
+    q = quals2[rowidx].clamp(0, 63)
+    ln = lens2[read_of.long()]
+    win = _rank.text_window(idx, ppos, L)
+    ar = torch.arange(L, dtype=I32, device=dev)[None, :]
+    in_read = ar < ln[:, None]
+    rd = torch.where(in_read, rd, 4)
+    isn = ((rd >= 4) | (win >= 4)) & in_read
+    mm = (rd != win) & ~isn & in_read
+    s = torch.where(mm, -mm_pen_of(sctab, q), 0)
+    s = torch.where(isn, -sctab["n_pen"], s)
+    s = s + torch.where(~mm & ~isn & in_read, sctab["match_bonus"], 0)
+    scp = torch.where(in_read, sc_pen_of(sctab, q), 0)
+    N = rd.shape[0]
+    P = torch.cat([torch.zeros((N, 1), dtype=I32, device=dev),
+                   torch.cumsum(s + scp, dim=1, dtype=I32)], 1)
+    ends = P[:, 1:] - torch.cummin(P, dim=1).values[:, :-1]
+    ends_m = torch.where(in_read, ends, NEG_INF)
+    # last maximum of ends (fewest clipped bases), first minimum of P
+    k = (L - 1) - torch.argmax(ends_m.flip(1), dim=1).to(I32)
+    arp = torch.arange(L + 1, dtype=I32, device=dev)[None, :]
+    Pm = torch.where(arp <= k[:, None], P, 1 << 30)
+    c5 = torch.argmin(Pm, dim=1).to(I32)
+    best = torch.gather(ends_m, 1, k[:, None].long())[:, 0]
+    score = best - scp.sum(dim=1, dtype=I32)
+    c3 = ln - (k + 1)
+    amask = (ar >= c5[:, None]) & (ar <= k[:, None])
+    mm_all = (mm | isn) & amask
+    nmm = mm_all.sum(dim=1, dtype=I32)
+    # first max_mm mismatch columns (ascending) + their ref chars
+    colkey = torch.where(mm_all, ar, 1 << 20)
+    mcols = torch.sort(colkey, dim=1).values[:, :max_mm]
+    onehot = ar[:, None, :] == mcols[:, :, None]           # (N, max_mm, L)
+    mchars = torch.where(onehot, win[:, None, :], 0).sum(dim=2, dtype=I32)
+    # without an SNV overlay every mismatch is penalized: nmm == nmm_all
+    return torch.cat([c5[:, None], c3[:, None], score[:, None], nmm[:, None],
+                      nmm[:, None], mcols, mchars], 1)
+
+
+def _unpack_reads(seq_words, n_words, quals, qual_const: int, lens, L: int):
+    """Unpack the transfer-packed read batch (io/reads.ReadBatch.packed):
+    2-bit codes + N bitmask (+ optional per-base quals; constant-qual
+    batches send none). seq_words and n_words are int64 tensors holding
+    the uint32 words, so the shifts are logical."""
+    B = seq_words.shape[0]
+    dev = seq_words.device
+    sh = 2 * torch.arange(16, dtype=torch.int64, device=dev)
+    chars = ((seq_words[:, :, None] >> sh) & 3).to(I32)
+    seqs = chars.reshape(B, -1)[:, :L]
+    shn = torch.arange(32, dtype=torch.int64, device=dev)
+    nb = (n_words[:, :, None] >> shn) & 1
+    isn = nb.reshape(B, -1)[:, :L] == 1
+    seqs = torch.where(isn, 4, seqs)
+    if quals is None:
+        q = torch.full((B, L), qual_const, dtype=I32, device=dev)
+    else:
+        q = quals.to(I32)
+    return seqs, q
+
+
+# fastpack layout: int16 lanes per read —
+#   [0] nvalid  [1] best  [2] secbest (-32768 = none)
+#   [3] flags: (fw_k << 2k | gapped_k << 2k+1) for reports k, exh << 14
+#   per report k at base 4 + 11*k:
+#     [+0] pos lo16  [+1] pos hi16  [+2] c5  [+3] c3  [+4] nmm
+#     [+5] nmm_all  [+6] score  [+7..10] 4 x (mmcol << 3 | refchar)
+FASTPACK_MM = 4
+FASTPACK_REP = 7 + FASTPACK_MM
+
+
+def fastpack_width(kf: int) -> int:
+    return 4 + FASTPACK_REP * kf
+
+
+def _stage_fastpack(idx, sctab, merged, st, minsc, B: int, K2: int,
+                    KF: int, khits: int | None = None,
+                    omit_sec: bool = False, MB: int = 0):
+    """Compress what the host fast path needs into fastpack_width(KF)
+    int16 lanes per read: distinct-placement dedup and top-KF report
+    selection, finalized rows. With MB > 0 and KF > 1 the base pack
+    carries report slot 0 only; report 1 ships for the first
+    min(max(4*MB, B//4), B) reads with >= 2 distinct placements (tier 0)
+    and reports 2..KF-1 for the first min(max(MB, B//8), B) reads with
+    >= 3 (tier 1), as extras smrows{t}/smrep{t}.
+    Returns (fastpack (B, W) int16, need (B,) bool — rows the host fast
+    path will reject, extras dict)."""
+    dev = merged.device
+    sc = merged[:, :, 0]
+    pos = merged[:, :, 1]
+    fl = merged[:, :, 2]
+    fw = (fl & 1) == 1
+    valid = sc >= minsc[:, None]
+    dup = [torch.zeros(B, dtype=torch.bool, device=dev)]
+    for t in range(1, K2):
+        eq = (pos[:, :t] == pos[:, t:t + 1]) & (fw[:, :t] == fw[:, t:t + 1])
+        dup.append(eq.any(dim=1))
+    pvalid = valid & ~torch.stack(dup, 1)
+    nvalid = pvalid.sum(dim=1, dtype=I32)
+    vrank = torch.where(pvalid, torch.cumsum(pvalid, dim=1, dtype=I32) - 1,
+                        K2 + 1)
+
+    def rank_col(k):
+        # column of the k-th distinct valid placement (0 when absent)
+        return torch.argmax((vrank == k).to(I32), dim=1)
+
+    def take(a, col):
+        return torch.gather(a, 1, col[:, None])[:, 0]
+
+    best = sc[:, 0]
+    secb = torch.where(nvalid >= 2, take(sc, rank_col(1)), -32768)
+    ridx = torch.arange(B, dtype=I32, device=dev)
+    exh = st["exhausted"][:B] & st["exhausted"][B:]
+    flags = exh.to(I32) << 14
+    KFB = 1 if (MB > 0 and KF > 1) else KF
+    sels, fws, poss, gaps = [], [], [], []
+    for k in range(KF):
+        selk = (torch.zeros(B, dtype=torch.int64, device=dev) if k == 0
+                else rank_col(k))
+        fk = take(fw, selk)
+        gk = (take(fl, selk) & 2) > 0
+        flags = flags | (fk.to(I32) << (2 * k)) | (gk.to(I32) << (2 * k + 1))
+        sels.append(selk)
+        fws.append(fk)
+        poss.append(take(pos, selk))
+        gaps.append(gk)
+
+    fin = _stage_fin_rows(
+        idx, sctab, st["seqs2"], st["quals2"], st["lens2"],
+        torch.cat(poss[:KFB]), torch.cat(fws[:KFB]), ridx.repeat(KFB), B,
+        FASTPACK_MM)
+    D = fin.shape[1]
+    fin = fin.reshape(KFB, B, D)
+
+    def rep_lanes(f, posk, sck):
+        # [pos lo, pos hi, c5, c3, nmm, nmm_all, score, mm x4]
+        mm = f[:, 5:5 + FASTPACK_MM]
+        mch = f[:, 5 + FASTPACK_MM:]
+        mmp = mm.clamp(0, 4095) << 3 | mch.clamp(0, 7)
+        return [posk & 0xFFFF, (posk >> 16) & 0xFFFF, f[:, 0], f[:, 1],
+                f[:, 3], f[:, 4], sck.clamp(-32768, 32767)] + \
+            [mmp[:, j] for j in range(FASTPACK_MM)]
+
+    def contain_ok(f, posk, lens_k, gk):
+        c5k, c3k = f[:, 0], f[:, 1]
+        astart = posk + c5k
+        span = lens_k - c5k - c3k
+        fj = idx["frag_joined"]
+        fr = _rank.searchsorted_right(fj, astart) - 1
+        fc = fr.clamp(0, fj.shape[0] - 1).long()
+        return ((fr >= 0) & (span > 0)
+                & (astart + span <= idx["frag_end"][fc])
+                & ~gk & (f[:, 4] <= FASTPACK_MM))
+
+    cols = [nvalid, best.clamp(-32768, 32767), secb.clamp(-32768, 32767),
+            flags]
+    # mirror the HOST fast-read criteria so the slow rows' merged grids
+    # can ship with the fastpack
+    nrep = nvalid.clamp(max=K2 if khits is None else khits)
+    fast_dev = (nvalid >= 1) & (nrep <= KF)
+    if omit_sec:
+        fast_dev &= nrep <= 1
+    lens_b = st["lens2"][:B].to(I32)
+    for k in range(KFB):
+        f = fin[k]
+        cols += rep_lanes(f, poss[k], take(sc, sels[k]))
+        fast_dev &= (nrep <= k) | contain_ok(f, poss[k], lens_b, gaps[k])
+    out = torch.stack(cols, dim=1).to(torch.int16)
+
+    bex = {}
+    # tiered multi-report buckets: tier t carries reports k0..k1-1 for
+    # the first MBt reads with >= k0+1 distinct placements
+    tiers = []
+    if KFB < KF:
+        tiers.append((KFB, KFB + 1, min(max(4 * MB, B // 4), B)))
+        if KF > KFB + 1:
+            tiers.append((KFB + 1, KF, min(max(MB, B // 8), B)))
+    for t, (k0, k1, MBs) in enumerate(tiers):
+        NB2 = k1 - k0
+        multi = nvalid >= (k0 + 1)
+        mv, mrs = _topk01(multi, MBs)
+        mrows = mrs.clamp(0, B - 1).long()
+        bfin = _stage_fin_rows(
+            idx, sctab, st["seqs2"], st["quals2"], st["lens2"],
+            torch.cat([poss[k][mrows] for k in range(k0, k1)]),
+            torch.cat([fws[k][mrows] for k in range(k0, k1)]),
+            mrows.to(I32).repeat(NB2), B, FASTPACK_MM).reshape(NB2, MBs, D)
+        mcols = []
+        lens_mb = lens_b[mrows]
+        # tier slots are the multi rows in ascending index order, so a
+        # rank gather maps them back to full-B lanes
+        rank = torch.cumsum(multi.to(I32), dim=0) - 1
+        in_t = multi & (rank < MBs)
+        for k in range(k0, k1):
+            f = bfin[k - k0]
+            posk = poss[k][mrows]
+            mcols += rep_lanes(f, posk, take(sc, sels[k])[mrows])
+            okb = contain_ok(f, posk, lens_mb, gaps[k][mrows]) & (mv > 0)
+            ok_full = in_t & okb[rank.clamp(0, MBs - 1).long()]
+            fast_dev &= (nrep <= k) | ok_full
+        bex[f"smrows{t}"] = torch.where(mv > 0, mrs, -1)
+        bex[f"smrep{t}"] = torch.stack(mcols, dim=1).to(torch.int16)
+    need = (nvalid >= 1) & ~fast_dev
+    return out, need, bex
+
+
+def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
+                        qual_const: int, lens, minsc_i: float,
+                        minsc_s: float, gap1: int, B: int, L: int,
+                        n_seeds: int, locs_per_seg: int, top_cands: int,
+                        K2: int, KF: int, fb_bucket: int, dp_bucket: int,
+                        dp_pad: int, no_dp: bool, nofw: bool, norc: bool,
+                        sc_const: dict, khits: int | None = None,
+                        SB: int = 0, omit_sec: bool = False, MB: int = 0,
+                        VC: int = 0):
+    """SE path with transfer-packed I/O: unpack 2-bit reads, run the
+    core, and compress results to the int16 fastpack. Returns
+    (fastpack (B, W) int16, merged (B, K2, 3) int32); with SB > 0 or
+    tier buckets also an extras dict: srows (SB,) int32 and smerged
+    (SB, K2, 2) — the packed merged grids of the reads the host fast path
+    will reject — plus the tier buckets."""
+    seqs, quals = _unpack_reads(seq_words, n_words, quals, qual_const,
+                                lens, L)
+    merged, st = _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s,
+                          gap1, B, n_seeds, locs_per_seg, top_cands, K2,
+                          fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
+                          sc_const, verify_cands=VC)
+    minsc = _min_scores(minsc_i, minsc_s, lens)
+    fastpack, need, bex = _stage_fastpack(idx, sctab, merged, st, minsc,
+                                          B, K2, KF, khits, omit_sec, MB)
+    if SB == 0 and not bex:
+        return fastpack, merged
+    extras = dict(bex)
+    if SB:
+        sv, sr = _topk01(need, min(SB, B))
+        extras["srows"] = torch.where(sv > 0, sr, -1)
+        # packed grid rows: [pos, score<<8 | flags] — the host unpacks
+        # (emit._unpack_smerged); scores below -2^22 all mean "dead
+        # candidate" so the clamp loses nothing
+        sm = merged[sr.clamp(0, B - 1).long()]
+        scpk = sm[:, :, 0].clamp(min=-(1 << 22))
+        extras["smerged"] = torch.stack(
+            [sm[:, :, 1], (scpk << 8) | (sm[:, :, 2] & 0xFF)], dim=2)
+    return fastpack, merged, extras
+
+
+def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
+             n_seeds, locs_per_seg, top_cands, K2, fb_bucket, dp_bucket,
+             dp_pad, no_dp, nofw, norc, sc_const, verify_cands: int = 0):
+    """Candidates + dense fallback + DP rescue + fw/rc merge for one read
+    batch. Returns (merged (B, K2, 3) packed [score, pos, flags], st)."""
+    st = _stage_candidates(idx, sctab, seqs, quals, lens, n_seeds,
+                           locs_per_seg, top_cands,
+                           verify_cands=verify_cands)
+    if nofw:
+        st["score"][:B] = NEG_INF
+    if norc:
+        st["score"][B:] = NEG_INF
+    pos, score = st["pos"], st["score"]
+    min_scs = _min_scores(minsc_i, minsc_s, lens)
+    row_best = score.amax(dim=1)
+    read_best = torch.maximum(row_best[:B], row_best[B:])
+
+    if fb_bucket > 0:
+        # compaction by a stable 0/1 top-k: a selected row's bucket SLOT
+        # equals its rank among selected rows, so the merge-back is a rank
+        # gather; overflow beyond fb_bucket drops the highest-index rows
+        fbmask = read_best < min_scs
+        rank = torch.cumsum(fbmask.to(I32), dim=0) - 1
+        use = fbmask & (rank < fb_bucket)
+        sel = _topk01(fbmask, fb_bucket)[1].long()
+        st2 = _stage_candidates(idx, sctab, seqs[sel], quals[sel], lens[sel],
+                                FB_TABLE_SEEDS, locs_per_seg, top_cands,
+                                stride=4)
+        slot = rank.clamp(0, fb_bucket - 1).long()
+        for k in ("pos", "score", "nmm"):
+            fw_new = torch.where(use[:, None], st2[k][slot], st[k][:B])
+            rc_new = torch.where(use[:, None], st2[k][slot + fb_bucket],
+                                 st[k][B:])
+            st[k] = torch.cat([fw_new, rc_new])
+        exh_fw = torch.where(use, st2["exhausted"][slot], st["exhausted"][:B])
+        exh_rc = torch.where(use, st2["exhausted"][slot + fb_bucket],
+                             st["exhausted"][B:])
+        st["exhausted"] = torch.cat([exh_fw, exh_rc])
+        pos, score = st["pos"], st["score"]
+        row_best = score.amax(dim=1)
+        read_best = torch.maximum(row_best[:B], row_best[B:])
+
+    dp_sc = None
+    if not no_dp:
+        # gapped rescue for reads whose best ungapped score one gap could
+        # beat, compacted into a fixed dp_bucket of reads
+        dpmask = read_best < -gap1
+        rankd = torch.cumsum(dpmask.to(I32), dim=0) - 1
+        used = dpmask & (rankd < dp_bucket)
+        sel = _topk01(dpmask, dp_bucket)[1].long()
+        rows = torch.cat([sel, sel + B])
+        m2 = torch.cat([used[sel], used[sel]])
+        Tdp = min(2, pos.shape[1])
+        dpv = _stage_dp(idx, sctab, st["seqs2"][rows], st["quals2"][rows],
+                        st["lens2"][rows], pos[rows, :Tdp], m2, dp_pad,
+                        sc_const)
+        slotd = rankd.clamp(0, dp_bucket - 1).long()
+        fw_dp = torch.where(used[:, None], dpv[slotd], NEG_INF)
+        rc_dp = torch.where(used[:, None], dpv[slotd + dp_bucket], NEG_INF)
+        T = score.shape[1]
+        dp_sc = torch.cat(
+            [torch.cat([fw_dp, rc_dp]),
+             torch.full((2 * B, T - Tdp), NEG_INF, dtype=I32,
+                        device=score.device)], 1)
+
+    merged = _stage_merge(pos, score, dp_sc, B, K2)
+    return merged, st
+
+
+def _stage_merge(pos, score, dp_score, B: int, K2: int):
+    """Merge fw/rc candidate grids and keep the per-read top-K2:
+    (B, K2, 3) [score, pos, flags (1 = fw, 2 = gapped)]."""
+    T = pos.shape[1]
+    sc = score if dp_score is None else torch.maximum(score, dp_score)
+    gap = (torch.zeros_like(sc, dtype=torch.bool) if dp_score is None
+           else dp_score > score)
+
+    def cat(a):
+        return torch.cat([a[:B], a[B:]], 1)
+    sc2, pos2, gap2 = cat(sc), cat(pos), cat(gap)
+    fw2 = torch.cat([torch.ones((B, T), dtype=I32, device=sc.device),
+                     torch.zeros((B, T), dtype=I32, device=sc.device)], 1)
+    fl2 = fw2 | (gap2.to(I32) << 1)
+    return torch.stack(_sort_desc(sc2, pos2, fl2, k=K2), dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Aligner: device orchestration + host-side finalization
+# ---------------------------------------------------------------------------
+
+class Aligner:
+    """Batched SE DNA aligner over a built FM index that carries a k-mer
+    seed table. `device` holds the index bundle and runs the batched
+    stages ("cuda" unless the caller asks for "cpu")."""
+
+    def __init__(self, fm: FMIndex, scoring: Scoring = DEFAULT_SCORING,
+                 opts: AlignerOpts | None = None, device="cuda"):
+        self.fm = fm
+        self.scoring = scoring
+        self.opts = opts or AlignerOpts()
+        o = self.opts
+        for flag, what in ((o.spliced, "spliced alignment"),
+                           (not o.seed_mode, "FM segment seeding"),
+                           (o.tmo, "--tmo"), (o.zs_tags, "Zs:Z SNP tags"),
+                           (scoring.local, "local mode")):
+            if flag:
+                raise NotImplementedError(f"{what} is not ported")
+        if not (fm.st_k and fm.st_starts is not None):
+            raise NotImplementedError(
+                "indexes without a k-mer seed table need FM-path seeding, "
+                "which is not ported")
+        self.device = torch.device(device)
+        self.idx = fm.device_bundle(self.device)
+        self.sctab = scoring.device_tables(self.device)
+        self.sc_const = scoring.dp_consts()
+        self.metrics = Metrics()
+
+    # ---- device orchestration ----
+
+    def device_align_fast(self, batch: ReadBatch):
+        """Upload the transfer-packed batch, run _stage_align_packed, and
+        start the result copies to the host. Returns (fastpack, merged,
+        extras, ready): fastpack and extras are host tensors that are
+        complete once `ready` (a CUDA event, None on the CPU) has been
+        waited on; merged (B, K2, 3) stays on the device for slow-row
+        gathers (gather_merged_async)."""
+        t0 = time.perf_counter()
+        o = self.opts
+        B = len(batch)
+        L = batch.seqs.shape[1]
+        m = self.metrics
+        m.reads += B
+        m.bases += int(batch.lens.sum())
+        m.batches += 1
+        m.seeds += 2 * B * o.n_seeds
+        m.table_probes += 2 * B * o.n_seeds
+        m.candidates += 2 * B * o.verify_cands
+        seq_w, n_w, quals, qconst, lens = batch.packed()
+        dev = self.device
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+        sc = self.scoring
+        K2 = min(2 * o.top_cands, max(8, o.khits + 3))
+        fp, merged, extras = _stage_align_packed(
+            self.idx, self.sctab,
+            up(seq_w.astype(np.int64), torch.int64),
+            up(n_w.astype(np.int64), torch.int64),
+            None if quals is None else up(quals, I32), qconst,
+            up(lens, I32), float(sc.score_min.I), float(sc.score_min.S),
+            min(sc.read_gap_open(), sc.ref_gap_open()),
+            B, L, o.n_seeds, o.locs_per_seg, o.top_cands, K2,
+            max(1, min(o.khits, 5)), min(B, max(32, B // 8)),
+            min(B, max(64, B // 8)), o.dp_pad, o.no_dp, o.nofw, o.norc,
+            self.sc_const, khits=o.khits, SB=min(B, max(64, B // 16)),
+            omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)),
+            VC=o.verify_cands)
+        host, ready = _to_host_async({"fp": fp, **extras})
+        m.t_pack += time.perf_counter() - t0
+        return host.pop("fp"), merged, host, ready
+
+    def gather_merged_async(self, merged_dev, rows: np.ndarray):
+        """Start the gather + host copy of the merged rows of slow reads;
+        returns a closure that waits for and returns them (numpy)."""
+        if rows.size == 0:
+            empty = np.zeros((0,) + tuple(merged_dev.shape[1:]), np.int32)
+            return lambda: empty
+        ix = torch.from_numpy(rows.astype(np.int64)).to(merged_dev.device)
+        got, ready = _to_host_async({"g": merged_dev[ix]})
+
+        def wait():
+            if ready is not None:
+                ready.synchronize()
+            return got["g"].numpy()
+        return wait
+
+    # ---- host finalization ----
+
+    def _ungapped_arrays(self, batch, rows, pos, fw, rdlens) -> dict:
+        """Vectorized clips + mismatch extraction + coordinate mapping for
+        ungapped placements. Returns column arrays over the `rows` subset
+        (ok marks fragment-contained alignments) plus mismatch (row, col,
+        refchar) triples for MD construction."""
+        sc = self.scoring
+        ref = self.fm.ref
+        R = rows.size
+        L = batch.seqs.shape[1]
+        # read in alignment orientation
+        seqs = batch.seqs[rows].astype(np.int64)
+        quals = np.clip(batch.quals[rows].astype(np.int64), 0, 63)
+        ar = np.arange(L)
+        rcidx = np.clip(rdlens[:, None] - 1 - ar[None, :], 0, L - 1)
+        comp = np.array([3, 2, 1, 0, 4], np.int64)
+        rd = np.where(fw[:, None], seqs,
+                      comp[np.take_along_axis(seqs, rcidx, 1)])
+        q = np.where(fw[:, None], quals, np.take_along_axis(quals, rcidx, 1))
+        in_read = ar[None, :] < rdlens[:, None]
+        rd = np.where(in_read, rd, 4)
+        joined = ref.joined
+        wpos = pos[:, None] + ar[None, :]
+        inb = (wpos >= 0) & (wpos < joined.size)
+        win = np.where(inb, joined[np.clip(wpos, 0, joined.size - 1)], 4
+                       ).astype(np.int64)
+        isn = ((rd >= 4) | (win >= 4)) & in_read
+        mm = (rd != win) & ~isn & in_read
+        s = np.where(mm, -sc.mm_pens()[q], 0)
+        s = np.where(isn, -sc.n_pen, s)
+        s = s + np.where(~mm & ~isn & in_read, sc.match_bonus, 0)
+        scp = np.where(in_read, sc.sc_pens()[q], 0)
+        P = np.concatenate([np.zeros((R, 1), np.int64),
+                            np.cumsum(s + scp, axis=1)], axis=1)
+        prefmin = np.minimum.accumulate(P, axis=1)
+        ends = P[:, 1:] - prefmin[:, :-1]
+        ends_m = np.where(in_read, ends, np.int64(-1) << 40)
+        k = (L - 1) - np.argmax(ends_m[:, ::-1], axis=1)
+        Pm = np.where(np.arange(L + 1)[None, :] <= k[:, None], P,
+                      np.int64(1) << 40)
+        c5 = np.argmin(Pm, axis=1)
+        best = ends_m[np.arange(R), k]
+        score = best - scp.sum(axis=1)
+        c3 = rdlens - (k + 1)
+        amask = (ar[None, :] >= c5[:, None]) & (ar[None, :] <= k[:, None])
+        mm_all = (mm | isn) & amask
+        nmm = mm_all.sum(axis=1)
+        # coordinates: fragment containment
+        astart = pos + c5
+        span = rdlens - c5 - c3
+        f = np.searchsorted(ref.frag_joined, astart, side="right") - 1
+        ok = (f >= 0) & (span > 0)
+        fc = np.clip(f, 0, len(ref.frag_joined) - 1)
+        ok &= astart + span <= ref.frag_joined[fc] + ref.frag_len[fc]
+        tidx = ref.frag_tidx[fc]
+        toff = ref.frag_toff[fc] + astart - ref.frag_joined[fc]
+        mm_rows, mm_cols = np.nonzero(mm_all)
+        return dict(rd=rd, q=q, win=win, c5=c5, c3=c3, k=k, score=score,
+                    nmm=nmm, ok=ok, tidx=tidx, toff=toff, astart=astart,
+                    in_read=in_read, mm_rows=mm_rows, mm_cols=mm_cols,
+                    mm_ref=win[mm_rows, mm_cols])
+
+    def _finalize_ungapped_list(self, batch, rows, pos, fw, rdlens) -> list:
+        """One vectorized pass over (rows may repeat a read index): an
+        Alignment, or None for a fragment-crossing placement, per row."""
+        A = self._ungapped_arrays(batch, rows, pos, fw, rdlens)
+        mm_rows, mm_cols, win = A["mm_rows"], A["mm_cols"], A["win"]
+        out: list = []
+        ptr = 0
+        for r in range(rows.size):
+            if not A["ok"][r]:
+                out.append(None)
+                continue
+            rl, cc5, cc3 = int(rdlens[r]), int(A["c5"][r]), int(A["c3"][r])
+            mid = rl - cc5 - cc3
+            cigar = ([("S", cc5)] if cc5 else []) + [("M", mid)] \
+                + ([("S", cc3)] if cc3 else [])
+            while ptr < mm_rows.size and mm_rows[ptr] < r:
+                ptr += 1
+            md_parts = []
+            last = cc5 - 1
+            p2 = ptr
+            while p2 < mm_rows.size and mm_rows[p2] == r:
+                cpos = int(mm_cols[p2])
+                md_parts.append(str(cpos - last - 1))
+                md_parts.append("ACGTN"[int(win[r, cpos])])
+                last = cpos
+                p2 += 1
+            md_parts.append(str(cc5 + mid - 1 - last))
+            out.append(Alignment(
+                joined_pos=int(A["astart"][r]), fw=bool(fw[r]),
+                score=int(A["score"][r]), cigar=cigar, nmm=int(A["nmm"][r]),
+                md="".join(md_parts), nm=int(A["nmm"][r]),
+                tidx=int(A["tidx"][r]), toff=int(A["toff"][r])))
+        return out
+
+    def _ranked_candidates(self, merged, i, min_sc, limit=None):
+        """Candidate tuples for read i, best-first, scores >= min_sc,
+        deduped by (pos, fw)."""
+        limit = limit or (self.opts.khits + 2)
+        out = []
+        seen = set()
+        sc = merged["score"][i]
+        for t in range(sc.shape[0]):
+            s = int(sc[t])
+            if s < min_sc:
+                break  # sorted desc
+            key = (int(merged["pos"][i, t]), bool(merged["fw"][i, t]))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append((s, key[0], key[1], bool(merged["gapped"][i, t]), i, t))
+            if len(out) >= limit:
+                break
+        return out
+
+    def _finalize(self, i, batch, score, pos, fw, gapped, rdlen
+                  ) -> Alignment | None:
+        """Build CIGAR/MD for one winning candidate (host, NumPy; gapped
+        ones through the native DP traceback)."""
+        ref = self.fm.ref
+        rd = batch.seqs[i, :rdlen].astype(np.uint8)
+        q = batch.quals[i, :rdlen].astype(np.int32)
+        if not fw:
+            rd = alphabet.revcomp(rd)
+            q = q[::-1].copy()
+        if not gapped:
+            window = ref.get_stretch(pos, rdlen)
+            c5, c3, sub_score = _best_clip(self.scoring, rd, q, window)
+            mid = rdlen - c5 - c3
+            if mid <= 0:
+                return None
+            cigar = ([("S", c5)] if c5 else []) + [("M", mid)] \
+                + ([("S", c3)] if c3 else [])
+            md, _ = samio.make_md(rd[c5:rdlen - c3], window[c5:rdlen - c3],
+                                  [("M", mid)])
+            a_rd, a_rf = rd[c5:rdlen - c3], window[c5:rdlen - c3]
+            nd = int(((a_rd != a_rf) | (a_rd >= 4) | (a_rf >= 4)).sum())
+            aln = Alignment(joined_pos=pos + c5, fw=fw, score=sub_score,
+                            cigar=cigar, nmm=nd, md=md, nm=nd)
+        else:
+            pad = self.opts.dp_pad
+            wstart = pos - pad
+            window = ref.get_stretch(wstart, rdlen + 2 * pad)
+            s, ref_start, cigar, mds = _sw.dp_traceback(
+                self.scoring, rd, q, window)
+            span = sum(n for op, n in cigar if op in ("M", "D"))
+            md, nm = samio.make_md(rd, window[ref_start:ref_start + span],
+                                   cigar)
+            aln = Alignment(
+                joined_pos=wstart + ref_start, fw=fw, score=s, cigar=cigar,
+                nmm=len(mds),
+                gap_opens=sum(1 for op, n in cigar if op in ("I", "D")),
+                gap_exts=sum(n - 1 for op, n in cigar if op in ("I", "D")),
+                md=md, nm=nm)
+        loc = ref.joined_to_text(aln.joined_pos, aln.ref_span)
+        if loc is None:
+            return None
+        aln.tidx, aln.toff = loc
+        return aln
+
+
+def _to_host_async(tensors: dict):
+    """Start device->host copies of `tensors` into pinned buffers.
+    Returns (host dict, ready): `ready` is a CUDA event to wait on before
+    reading the host tensors, None when they lie on the CPU."""
+    if all(t.device.type == "cpu" for t in tensors.values()):
+        return dict(tensors), None
+    out = {}
+    for k, t in tensors.items():
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out[k] = h
+    ready = torch.cuda.Event()
+    ready.record()
+    return out, ready
+
+
+def _dedup_alns(res: ReadResult, khits: int | None = None) -> None:
+    """Redundant-alignment dedup after finalization (reference
+    RedundantAlns, hi_aligner.h:6282): alignments of the same orientation
+    sharing a read-anchor coordinate (start or end of the aligned span)
+    are the same placement. Keeps the best; re-derives best/secbest from
+    the survivors."""
+    starts = set()
+    ends = set()
+    out = []
+    for a in sorted(res.alns, key=lambda a: -a.score):
+        ks = (a.joined_pos, a.fw)
+        ke = (a.joined_pos + a.ref_span, a.fw)
+        if ks in starts or ke in ends:
+            continue
+        starts.add(ks)
+        ends.add(ke)
+        out.append(a)
+    res.alns = out
+    if out:
+        res.best = out[0].score
+        res.secbest = out[1].score if len(out) > 1 else None
+    if khits is not None:
+        res.alns = res.alns[:khits]
+
+
+def _best_clip(scoring, rd: np.ndarray, q: np.ndarray, window: np.ndarray
+               ) -> tuple[int, int, int]:
+    """Optimal 5'/3' soft-clip lengths for an ungapped placement (host
+    mirror of the max-subarray scorer in ops/extend.py). Returns (clip5,
+    clip3, score)."""
+    L = rd.size
+    mm_pens = scoring.mm_pens()
+    scp = scoring.sc_pens()[np.clip(q, 0, 63)].astype(np.int64)
+    isn = (rd >= 4) | (window >= 4)
+    mm = (rd != window) & ~isn
+    s = np.where(mm, -mm_pens[np.clip(q, 0, 63)], 0)
+    s = np.where(isn, -scoring.n_pen, s)
+    s = s + np.where(~mm & ~isn, scoring.match_bonus, 0)
+    P = np.concatenate([[0], np.cumsum(s + scp)])
+    pref_min = np.minimum.accumulate(P)
+    ends = P[1:] - pref_min[:-1]
+    # ties broken toward fewer clipped bases
+    k = L - 1 - int(np.argmax(ends[::-1]))
+    best = int(ends[k])
+    if best <= 0:   # fully-clipped degenerate
+        return 0, 0, int(s.sum())
+    start = int(np.argmin(P[:k + 1]))
+    score = best - int(scp.sum())
+    return start, L - (k + 1), score

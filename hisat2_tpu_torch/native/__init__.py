@@ -1,0 +1,131 @@
+"""Native (C++) host-side components, built on demand with g++ and loaded
+via ctypes (no pybind dependency):
+
+  sais.cpp      — linear-time SA-IS suffix array construction
+  kmersort.cpp  — threaded counting sort behind the k-mer seed table
+  samfmt.cpp    — batched SAM record formatting (finish_se_native)
+  dpkernel.cpp  — single-pair affine-gap DP traceback
+
+The sources are copies of the JAX package's, so both packages format SAM
+and trace back gapped alignments with the same code. Libraries build into
+the package's own `_build/native/` directory (git-ignored). A failed
+build raises: the aligner has no slower path to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+
+import numpy as np
+from numpy.ctypeslib import ndpointer
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "native")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _build(name: str, src: str) -> str:
+    """Compile <src> to BUILD_DIR/<name>.so unless an up-to-date one
+    exists; returns its path. The library is written under a temporary
+    name and renamed into place, so concurrent test workers never load a
+    half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src_path = os.path.join(_DIR, src)
+    so_path = os.path.join(BUILD_DIR, name + ".so")
+    if (os.path.exists(so_path)
+            and os.path.getmtime(so_path) >= os.path.getmtime(src_path)):
+        return so_path
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            ["g++", "-O3", "-march=native", "-std=c++17", "-pthread",
+             "-shared", "-fPIC", "-o", tmp, src_path],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {src}:\n{proc.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so_path
+
+
+def load(name: str, src: str) -> ctypes.CDLL:
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(_build(name, src))
+    return _libs[name]
+
+
+_i16 = ndpointer(np.int16, flags="C_CONTIGUOUS")
+_i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
+_u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_c_i32, _c_i64, _c_f64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
+
+
+def samfmt_lib() -> ctypes.CDLL:
+    lib = load("samfmt", "samfmt.cpp")
+    if not getattr(lib, "_configured", False):
+        lib.finish_se_native.restype = _c_i64
+        lib.finish_se_native.argtypes = [
+            _c_i32, _c_i64, _c_i32,      # B, Lp, nthreads
+            _i16, _c_i32, _c_i32,        # fp, fpw, KFB
+            _i32, _i16, _c_i32, _c_i32, _c_i32,  # tier0
+            _i32, _i16, _c_i32, _c_i32, _c_i32,  # tier1
+            _u8, _u8, _c_i32,            # seq codes, quals, qconst
+            _i64, _u8,                   # lens, yf_qc
+            _i64, _i64, _i64, _i32, _c_i32,  # frag tables, nfrag
+            _u8, _i64,                   # refname buf/off
+            _u8, _i64,                   # name buf/off (per batch row)
+            _c_f64, _c_f64,              # min I/S
+            _c_f64, _c_f64,              # nceil I/S
+            _c_i32, _c_i32, _c_i32, _c_i32,
+            # match_bonus, khits, KF, omit_sec
+            _u8, _i64,                   # fast_out, read_end
+            ctypes.c_char_p, _c_i64, _i64,  # out, cap, stats
+            _i32, _i16, _i64]            # cols, mm_out, rec_ends scratch
+        lib._configured = True
+    return lib
+
+
+def dpkernel_lib() -> ctypes.CDLL:
+    lib = load("dpkernel", "dpkernel.cpp")
+    if not getattr(lib, "_configured", False):
+        p32 = ctypes.POINTER(ctypes.c_int32)
+        lib.dp_traceback_one.restype = _c_i32
+        lib.dp_traceback_one.argtypes = [
+            _u8, _u8, _c_i32,            # rd qual L
+            _u8, _c_i32,                 # ref W
+            _i32, _i32,                  # mm_pens sc_pens
+            _c_i32, _c_i32,              # match_bonus n_pen
+            _c_i32, _c_i32,              # rd_open rd_ext
+            _c_i32, _c_i32,              # rf_open rf_ext
+            p32, p32,                    # out_score, out_ref_start
+            _u8, _i32, p32,              # cigar ops/lens/count
+            _i32, p32]                   # mds buf/count
+        lib._configured = True
+    return lib
+
+
+def sais_lib() -> ctypes.CDLL:
+    lib = load("sais", "sais.cpp")
+    if not getattr(lib, "_configured", False):
+        lib.sais_u8_i32.argtypes = [_u8, _i32, _c_i32, _c_i32]
+        lib.sais_u8_i64.argtypes = [_u8, _i64, _c_i64, _c_i64]
+        lib._configured = True
+    return lib
+
+
+def kmersort_lib() -> ctypes.CDLL:
+    lib = load("kmersort", "kmersort.cpp")
+    if not getattr(lib, "_configured", False):
+        lib.kmer_table.restype = _c_i32
+        lib.kmer_table.argtypes = [
+            _u8, _c_i64, _c_i32, _i32, _i32, _c_i32, _c_i32]
+        lib._configured = True
+    return lib

@@ -46,3 +46,8 @@ def small_index():
     seq = alphabet.decode(r.integers(0, 4, size=20000).astype(np.uint8))
     ref = reference_from_seqs({"chrT": seq})
     return build_fm_index(ref, ftab_k=6)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips where CUDA is absent")

@@ -1,0 +1,144 @@
+"""The port's DP fill (hisat2_tpu_torch/ops/sw.dp_fill_plain, the plain
+version of the CUDA kernel) against the JAX package's lax.scan DP
+(ops/sw.dp_score_batch) and its Pallas kernel in interpret mode
+(ops/dp_pallas.dp_score_pallas): exact int32 equality on random batches
+with soft clips, gaps, Ns and short reads, at the test_dp_pallas.py shape
+and at the main-path shape (L = 104, W = L + 2*16). The CUDA kernel
+itself is compared with the plain version by the gpu-marked tests, which
+skip where no card is present."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hisat2_tpu.align.scoring import Scoring as JScoring
+from hisat2_tpu.ops.dp_pallas import dp_score_pallas
+from hisat2_tpu.ops.sw import dp_score_batch as j_dp_score_batch
+from hisat2_tpu.ops.sw import dp_traceback as j_dp_traceback
+
+from chip_smoke import make_dp_case as make_case
+from hisat2_tpu_torch.align.scoring import Scoring
+from hisat2_tpu_torch.ops import dp_cuda
+from hisat2_tpu_torch.ops.sw import (dp_fill_plain, dp_inputs,
+                                     dp_score_batch, dp_traceback)
+
+torch.set_num_threads(1)
+
+
+def kernel_inputs(sc, rd, quals, lens):
+    qc = np.clip(quals, 0, 63)
+    pen = sc.mm_pens()[qc].astype(np.int32)
+    in_read = np.arange(rd.shape[1])[None, :] < lens[:, None]
+    scp = np.where(in_read, sc.sc_pens()[qc], 0)
+    scp_cum = np.concatenate([np.zeros((rd.shape[0], 1), np.int64),
+                              np.cumsum(scp, axis=1)], axis=1)
+    return pen, scp_cum.astype(np.int32)
+
+
+def consts(sc):
+    return dict(match_bonus=int(sc.match_bonus), n_pen=int(sc.n_pen),
+                rd_open=int(sc.read_gap_open()),
+                rd_ext=int(sc.read_gap_extend()),
+                rf_open=int(sc.ref_gap_open()),
+                rf_ext=int(sc.ref_gap_extend()))
+
+
+CASES = [(0, 24, 60, 92), (1, 24, 60, 92), (2, 48, 104, 136)]
+
+
+@pytest.mark.parametrize("seed,C,L,W", CASES)
+def test_plain_dp_matches_jax(seed, C, L, W):
+    rd, quals, lens, ref = make_case(seed, C, L, W)
+    jsc = JScoring()
+    want = np.asarray(j_dp_score_batch(
+        jsc.device_tables(), jnp.asarray(rd), jnp.asarray(quals),
+        jnp.asarray(lens), jnp.asarray(ref)))
+    pen, scp_cum = kernel_inputs(jsc, rd, quals, lens)
+    pallas = np.asarray(dp_score_pallas(
+        jnp.asarray(rd), jnp.asarray(pen), jnp.asarray(lens),
+        jnp.asarray(ref), jnp.asarray(scp_cum), interpret=True,
+        **consts(jsc)))
+    assert (pallas == want).all()
+
+    sc = Scoring()
+    t = torch.from_numpy
+    got = dp_fill_plain(t(rd), t(pen), t(lens), t(ref), t(scp_cum),
+                        **consts(sc))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the batch entry point builds the same pen / scp_cum itself
+    got2 = dp_score_batch(sc.device_tables("cpu"), t(rd), t(quals),
+                          t(lens), t(ref))
+    np.testing.assert_array_equal(got2.numpy(), want)
+    pen_t, scp_t = dp_inputs(sc.device_tables("cpu"), t(quals), t(lens))
+    np.testing.assert_array_equal(pen_t.numpy(), pen)
+    np.testing.assert_array_equal(scp_t.numpy(), scp_cum)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    rd, quals, lens, ref = make_case(3, 8, 60, 92)
+    sc = Scoring()
+    pen, scp_cum = kernel_inputs(sc, rd, quals, lens)
+    t = torch.from_numpy
+    before = dp_cuda.launches["dp_score"]
+    got = dp_cuda.dp_score(t(rd), t(pen), t(lens), t(ref), t(scp_cum),
+                           **consts(sc))
+    assert dp_cuda.launches["dp_score"] == before
+    want = dp_fill_plain(t(rd), t(pen), t(lens), t(ref), t(scp_cum),
+                         **consts(sc))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_traceback_matches_jax(seed):
+    rd, quals, lens, ref = make_case(seed, 12, 60, 92)
+    sc, jsc = Scoring(), JScoring()
+    for i in range(rd.shape[0]):
+        if lens[i] == 0 or (ref[i] >= 4).all():
+            continue
+        r = rd[i, :lens[i]].astype(np.uint8)
+        q = quals[i, :lens[i]]
+        assert dp_traceback(sc, r, q, ref[i].astype(np.uint8)) == \
+            j_dp_traceback(jsc, r, q, ref[i].astype(np.uint8))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,C,L,W", [(0, 24, 60, 92), (1, 24, 60, 92),
+                                        (2, 48, 104, 136), (3, 8192, 104, 136),
+                                        (4, 70, 150, 246), (5, 33, 40, 41)])
+def test_dp_kernel_matches_plain(seed, C, L, W):
+    _need_card()
+    rd, quals, lens, ref = make_case(seed, C, L, W)
+    sc = Scoring()
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+    pen, scp_cum = dp_inputs(sc.device_tables(dev), t[1], t[2])
+    args = (t[0], pen.contiguous(), t[2], t[3], scp_cum.contiguous())
+    before = dp_cuda.launches["dp_score"]
+    got = dp_cuda.dp_score(*args, **sc.dp_consts())
+    torch.cuda.synchronize()
+    assert dp_cuda.launches["dp_score"] == before + 1
+    want = dp_fill_plain(*args, **sc.dp_consts())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_dp_kernel_refuses_bad_inputs():
+    _need_card()
+    sc = Scoring()
+    z = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    lens = torch.full((4,), 8, dtype=torch.int32, device="cuda")
+    scp = torch.zeros((4, 9), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        dp_cuda.dp_score(z.long(), z, lens, z, scp, **sc.dp_consts())
+    with pytest.raises(ValueError):
+        dp_cuda.dp_score(z, z, lens, z, scp[:, :8], **sc.dp_consts())
+    wide = torch.zeros((4, 300), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        dp_cuda.dp_score(z, z, lens, wide, scp, **sc.dp_consts())
