@@ -9,24 +9,40 @@
 Phases; any failure exits non-zero:
   1. card      - CUDA must be present; prints the card's name and power
                  limit as nvidia-smi reports them.
-  2. build     - compiles every CUDA kernel of the SE path with nvcc for
-                 sm_90a and prints the compiler's register/spill report.
+  2. build     - compiles the CUDA source of the DP kernels (the one-warp
+                 kernel of the SE windows and the one-block kernel of the
+                 PE rescue's wide windows) with nvcc for sm_90a and prints
+                 the compiler's register/spill report for each variant.
   3. kernels   - each kernel against its plain PyTorch version on the
                  card, exact int32 equality: random cases with Ns, gaps
-                 and short reads, and a case at the main path's shape.
-  4. main path - builds the index of a seeded synthetic genome of E. coli
+                 and short reads, at the SE main path's shape, and at wide
+                 windows (W + 1 = 257, the rescue's 1105, the maximum 2048).
+  4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
                  5% with a 1-3 bp indel) to SAM through
                  align.emit.align_and_emit_stream. Asserts the alignment
                  rate, the placement of the indel-free reads, one primary
-                 record per read, and that every kernel ran. Then the
+                 record per read, and that the DP kernel ran. Then the
                  same 2,048 reads go through the CPU path (plain
                  versions) and the card: the SAM bytes must be equal.
-  5. report    - the DP kernel's time on the main path's own inputs, its
+  5. PE path   - aligns 4 batches of 16,384 simulated pairs (131,072
+                 reads of 100 bp, quality 40, fragments of 200-500 bp, half
+                 with mates swapped, 1% mismatches, 2% of mates with a 1-3
+                 bp indel) to SAM through align.emit.align_and_emit_pe_stream
+                 on the same index. Asserts one primary record per mate,
+                 the proper-pair share, the placement of mate 1 of
+                 indel-free pairs, that both DP kernels ran (the wide one
+                 at least once a batch, in the mate rescue) and that a
+                 rescue lane passed its minimum score. Then 2,048
+                 constant-quality pairs (the packed step) and 512 pairs with
+                 per-base qualities (the fused step) go through the CPU path
+                 and the card: the SAM bytes must be equal.
+  6. report    - each DP kernel's time on its main path's own inputs, its
                  plain version's time and its bound, as one JSON line;
-                 end-to-end reads/s and peak device memory beside the card
-                 name and power limit; last line {"ok": true, ...}.
+                 end-to-end reads/s (SE) and pairs/s (PE) and peak device
+                 memory beside the card name and power limit; last line
+                 {"ok": true, ...}.
 
 The bound of a kernel is the larger of its bytes over the card's memory
 rate and its int32 operations over the card's int32 rate, both from the
@@ -57,6 +73,8 @@ BATCH = 16384
 NBATCH = 8
 RDLEN = 100
 PAD_TO = 104                  # ReadBatch pads 100 bp reads to a multiple of 8
+PE_BATCH = 16384              # pairs per batch
+PE_NBATCH = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -114,6 +132,31 @@ def time_cuda(fn, iters: int, warmup: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def kernel_of(W: int) -> str:
+    """Which DP kernel dp_cuda.dp_score launches for a window of W."""
+    from hisat2_tpu_torch.ops import dp_cuda
+    return "dp_score_wide" if W + 1 > dp_cuda.warp_max_cols() \
+        else "dp_score"
+
+
+def ptxas_by_kernel(report: str):
+    """(kernel variant, 'registers ... | spills ...') pairs from nvcc's
+    -Xptxas -v report."""
+    out, name, regs = [], None, []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function .*?"
+                      r"(dp_score_(?:wide_)?kernel)ILi(\d+)E", ln)
+        if m:
+            if name:
+                out.append((name, " | ".join(regs)))
+            name, regs = f"{m.group(1)}<CPL={m.group(2)}>", []
+        elif name and ("registers" in ln or "spill" in ln):
+            regs.append(ln.split(":", 1)[-1].strip())
+    if name:
+        out.append((name, " | ".join(regs)))
+    return out
 
 
 def simulate_reads(joined: np.ndarray, n: int, seed: int):
@@ -192,6 +235,110 @@ def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray):
     return rate, true_rate, float(aligned[indel].mean())
 
 
+def _with_indel(rng, joined, s, d, p, insert):
+    """RDLEN bases read forward from joined[s]: a d bp deletion after p
+    read bases, or (insert) d random bases inserted there."""
+    if insert:
+        return np.concatenate([joined[s:s + p],
+                               rng.integers(0, 4, d).astype(np.uint8),
+                               joined[s + p:s + RDLEN - d]])
+    return np.concatenate([joined[s:s + p], joined[s + p + d:s + RDLEN + d]])
+
+
+def simulate_pairs(joined: np.ndarray, n: int, seed: int):
+    """n FR pairs of RDLEN reads from fragments of 200-500 bp: mate 1 the
+    fragment's start, mate 2 the reverse complement of its end; ~1%
+    mismatches, ~2% of mates with one 1-3 bp indel, and half the pairs
+    with mates swapped. Returns (mate-1 codes, mate-2 codes, mate 1's true
+    leftmost 0-based position, whether either mate has an indel)."""
+    rng = np.random.default_rng(seed)
+    frag = rng.integers(200, 501, n)
+    starts = rng.integers(0, joined.size - 520, n)
+    ends = starts + frag - RDLEN           # mate 2's leftmost base
+    ar = np.arange(RDLEN)
+    r1 = joined[starts[:, None] + ar].copy()
+    r2 = joined[ends[:, None] + ar].copy()
+    indel = rng.random((n, 2)) < 0.02
+    for i, m in zip(*np.nonzero(indel)):
+        d, p = int(rng.integers(1, 4)), int(rng.integers(20, 80))
+        s = int(starts[i] if m == 0 else ends[i])
+        (r1 if m == 0 else r2)[i] = _with_indel(rng, joined, s, d, p,
+                                                rng.random() < 0.5)
+    for r in (r1, r2):
+        mm = rng.random(r.shape) < 0.01
+        r[mm] = (r[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
+    r2 = np.where(r2 < 4, 3 - r2, 4)[:, ::-1]   # reverse complement
+    swap = rng.random(n) < 0.5
+    r1[swap], r2[swap] = r2[swap], r1[swap].copy()
+    m1_true = np.where(swap, ends, starts)
+    return (r1.astype(np.uint8), r2.astype(np.uint8), m1_true,
+            indel.any(axis=1))
+
+
+def make_pair_batches(r1, r2, first: int, batch: int, quals=None):
+    """(mate-1 batch, mate-2 batch) tuples of `batch` pairs, both padded
+    to PAD_TO; quality 40 unless `quals` gives (n, 2, RDLEN) per-base
+    qualities."""
+    from hisat2_tpu_torch.io.reads import Read, batchify
+    q40 = np.full(RDLEN, 40, np.int8)
+    out = []
+    for b0 in range(0, r1.shape[0], batch):
+        rows = range(b0, min(b0 + batch, r1.shape[0]))
+        mates = []
+        for m, r in enumerate((r1, r2)):
+            mates.append(batchify(
+                [Read(f"p{first + i}", r[i],
+                      q40 if quals is None else quals[i, m], first + i)
+                 for i in rows], pad_to=PAD_TO))
+        out.append(tuple(mates))
+    return out
+
+
+def run_pe_stream(al, pair_batches, ref):
+    from hisat2_tpu_torch.align.emit import align_and_emit_pe_stream
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    writer = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                             no_head=True)
+    stats = align_and_emit_pe_stream(al, pair_batches, writer)
+    return buf.getvalue(), stats
+
+
+def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
+                 indel: np.ndarray):
+    """One primary record per mate; proper-pair share (flag 2); mate 1 of
+    the indel-free pairs at its true position (POS minus the leading soft
+    clip)."""
+    seen = np.zeros((n, 2), np.int64)
+    proper = np.zeros(n, bool)
+    placed = np.zeros(n, bool)
+    aligned = np.zeros((n, 2), bool)
+    for ln in text.splitlines():
+        f = ln.split("\t", 6)
+        flag = int(f[1])
+        if flag & 256:
+            continue
+        i = int(f[0][1:])
+        mate = 0 if flag & 64 else 1
+        seen[i, mate] += 1
+        if flag & 4:
+            continue
+        aligned[i, mate] = True
+        if mate == 0:
+            proper[i] = bool(flag & 2)
+            clip = re.match(r"(\d+)S", f[5])
+            lead = int(clip.group(1)) if clip else 0
+            placed[i] = int(f[3]) - 1 - lead == m1_true[i]
+    check((seen == 1).all(),
+          f"mates emitted != once: {int((seen != 1).sum())}")
+    share = float(proper.mean())
+    true_rate = float(placed[~indel].mean())
+    check(share >= 0.90, f"proper pairs {share:.4f} < 0.90")
+    check(true_rate >= 0.95, f"mate 1 of indel-free pairs placed "
+                             f"{true_rate:.4f}")
+    return share, true_rate, float(aligned.mean())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -223,31 +370,32 @@ def main() -> int:
     # -- build ----------------------------------------------------------
     t0 = time.perf_counter()
     _, report = dp_cuda.build()
-    regs = [ln.strip() for ln in report.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"[build] dp_score.cu ({time.perf_counter() - t0:.1f} s): "
-          + " | ".join(regs), flush=True)
+    print(f"[build] dp_score.cu in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for variant, regs in ptxas_by_kernel(report):
+        print(f"[build]   {variant}: {regs}", flush=True)
 
     # -- kernels against their plain versions --------------------------
     sc = Scoring()
     consts = sc.dp_consts()
     sctab = sc.device_tables(dev)
-    max_err = 0
+    max_err = {"dp_score": 0, "dp_score_wide": 0}
 
     def check_dp(rd, pen, lens, ref, scp_cum, what):
-        nonlocal max_err
+        name = kernel_of(ref.shape[1])
         got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, **consts)
         want = dp_fill_plain(rd, pen, lens, ref, scp_cum, **consts)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"dp_score != plain ({what})")
-        print(f"[kernels] dp_score == plain on {what}: C={rd.shape[0]} "
+        max_err[name] = max(max_err[name], err)
+        check(torch.equal(got, want), f"{name} != plain ({what})")
+        print(f"[kernels] {name} == plain on {what}: C={rd.shape[0]} "
               f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
 
     for seed, C, L, W in ((0, 24, 60, 92), (1, 24, 60, 92),
-                          (2, 8192, 104, 136)):
+                          (2, 8192, 104, 136), (3, 37, 104, 256),
+                          (4, 512, 104, 1104), (5, 19, 104, 2047)):
         rd, quals, lens, ref = make_dp_case(seed, C, L, W)
         t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
         pen, scp_cum = dp_inputs(sctab, t[1], t[2])
@@ -274,7 +422,7 @@ def main() -> int:
     warm = make_batches(seqs[n:], n, BATCH)
 
     # first-call set-up on a batch of its own; it also records the DP
-    # kernel's inputs as the main path builds them, for phase 5
+    # kernel's inputs as the main path builds them, for the report
     captured = []
     real_dp = tpipe.dp_score
 
@@ -299,8 +447,8 @@ def main() -> int:
     launches = dict(dp_cuda.launches)
     peak_mb = torch.cuda.max_memory_allocated() / (1 << 20)
     rps = n / dt
-    for name, cnt in launches.items():
-        check(cnt > 0, f"kernel {name} was not launched on the main path")
+    check(launches["dp_score"] > 0,
+          "kernel dp_score was not launched on the SE main path")
     rate, true_rate, indel_rate = check_sam(text, n, starts[:n], indel[:n])
     print(f"[main] {n} reads in {dt:.3f} s = {rps:.1f} reads/s end to end; "
           f"aligned {rate:.4f}, indel-free at true position {true_rate:.4f}, "
@@ -321,38 +469,139 @@ def main() -> int:
     print(f"[main] SAM bytes on the card == CPU path on 2048 reads "
           f"({len(text_gpu)} bytes)", flush=True)
 
+    # -- PE main path ----------------------------------------------------
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import paired as tpaired
+    pe_n = PE_BATCH * PE_NBATCH
+    r1, r2, m1_true, pe_indel = simulate_pairs(fm.ref.joined,
+                                               pe_n + PE_BATCH, seed=11)
+    pe_batches = make_pair_batches(r1[:pe_n], r2[:pe_n], 0, PE_BATCH)
+    pe_warm = make_pair_batches(r1[pe_n:], r2[pe_n:], pe_n, PE_BATCH)
+    # first-call set-up on a batch pair of its own; it records the wide
+    # kernel's inputs as the mate rescue builds them, for the report
+    captured_wide = []
+    real_pe_dp = tpaired.dp_score
+
+    def recording_pe_dp(*a, **kw):
+        if not captured_wide and kernel_of(a[3].shape[1]) == "dp_score_wide":
+            captured_wide.append([x.clone() for x in a])
+        return real_pe_dp(*a, **kw)
+    tpaired.dp_score = recording_pe_dp
+    try:
+        run_pe_stream(al, pe_warm, fm.ref)
+    finally:
+        tpaired.dp_score = real_pe_dp
+    check(bool(captured_wide), "the PE warm-up launched no wide DP")
+    # the rescue rows of the timed run (host tensors, kept by reference)
+    rescue_rows = []
+    real_stage = tpaired.stage_pe_packed
+
+    def keeping_stage(*a, **kw):
+        out = real_stage(*a, **kw)
+        if out is not None:
+            rescue_rows.append(out[4]["rescue"])
+        return out
+    tpaired.stage_pe_packed = keeping_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in dp_cuda.launches:
+        dp_cuda.launches[k] = 0
+    al.metrics = Metrics()
+    try:
+        t0 = time.perf_counter()
+        pe_text, pe_stats = run_pe_stream(al, pe_batches, fm.ref)
+        torch.cuda.synchronize()
+        pe_dt = time.perf_counter() - t0
+    finally:
+        tpaired.stage_pe_packed = real_stage
+    pe_launches = dict(dp_cuda.launches)
+    pe_peak_mb = torch.cuda.max_memory_allocated() / (1 << 20)
+    pps = pe_n / pe_dt
+    check(pe_launches["dp_score"] > 0,
+          "kernel dp_score was not launched on the PE main path")
+    check(pe_launches["dp_score_wide"] >= PE_NBATCH,
+          f"wide DP launched {pe_launches['dp_score_wide']} times for "
+          f"{PE_NBATCH} batches")
+    resc = np.concatenate([r.numpy() for r in rescue_rows])
+    min_sc = sc.min_score(RDLEN)
+    n_resc = int(((resc[:, 0] >= 0) & (resc[:, 2] >= min_sc)).sum())
+    check(n_resc >= 1, "no rescue lane reached its minimum score")
+    share, m1_rate, mate_rate = check_pe_sam(pe_text, pe_n, m1_true[:pe_n],
+                                             pe_indel[:pe_n])
+    print(f"[pe] {pe_n} pairs ({2 * pe_n} reads) in {pe_dt:.3f} s = "
+          f"{pps:.1f} pairs/s, {2 * pps:.1f} reads/s end to end; proper "
+          f"pairs {share:.4f}, mate 1 of indel-free pairs at true position "
+          f"{m1_rate:.4f}, mates aligned {mate_rate:.4f}; rescue lanes at "
+          f"or above the minimum {n_resc} of {int((resc[:, 0] >= 0).sum())};"
+          f" stats {pe_stats}; launches {pe_launches}; peak device memory "
+          f"{pe_peak_mb:.1f} MiB [{card}]", flush=True)
+    m = al.metrics
+    print(f"[pe] host time summed over batches: queue the device step "
+          f"{m.t_pack:.3f} s, wait for results {m.t_fetch:.3f} s, finish "
+          f"in 3 worker threads {m.t_host:.3f} s", flush=True)
+
+    # the card against the CPU path on both PE steps
+    qrng = np.random.default_rng(12)
+    perbase = qrng.integers(2, 42, (512, 2, RDLEN)).astype(np.int8)
+    for what, pb in (
+            ("2048 constant-quality pairs (packed step)",
+             make_pair_batches(r1[:2048], r2[:2048], 0, 2048)),
+            ("512 per-base-quality pairs (fused step)",
+             make_pair_batches(r1[:512], r2[:512], 0, 512, perbase))):
+        text_cpu, _ = run_pe_stream(cpu_al, pb, fm.ref)
+        text_gpu, _ = run_pe_stream(al, pb, fm.ref)
+        check(text_gpu == text_cpu,
+              f"PE SAM from the card != CPU path on {what}")
+        print(f"[pe] SAM bytes on the card == CPU path on {what} "
+              f"({len(text_gpu)} bytes)", flush=True)
+
     if args.profile:
-        profile_batch(al, batches[0])
+        profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
+                      "SE batch of 16384 reads")
+        profile_batch(al, temit.submit_pe, temit.finish_pe, pe_batches[0],
+                      "PE batch of 16384 pairs")
 
     # -- report ----------------------------------------------------------
-    rd, pen, rl, ref, scp_cum = captured[0]
-    check_dp(rd, pen, rl, ref, scp_cum, "the main path's inputs")
-    C, L = rd.shape
-    W = ref.shape[1]
-    ms = time_cuda(lambda: dp_cuda.dp_score(rd, pen, rl, ref, scp_cum,
-                                            **consts), iters=200, warmup=20)
-    plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
-                                               **consts), iters=5, warmup=2)
-    rows = int(rl.clamp(0, L).sum())
-    nbytes = 4 * (rd.numel() + pen.numel() + rl.numel() + ref.numel()
-                  + scp_cum.numel() + C)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = rows * (W + 1) * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
-    kernels = [dict(
-        name="dp_score", route="cuda",
-        source="hisat2_tpu_torch/csrc/dp_score.cu",
-        replaces="hisat2_tpu/ops/dp_pallas.py:113",
-        launches=launches["dp_score"], max_abs_err=max_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None)]
-    print(f"[report] dp_score at C={C} L={L} W={W}, {rows} read rows: "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, "
-          f"{rows * (W + 1)} cells) [{card}]", flush=True)
-    print(f"[report] end to end {rps:.1f} reads/s, peak device memory "
-          f"{peak_mb:.1f} MiB, whole run {time.perf_counter() - t_start:.1f}"
-          f" s [{card}]", flush=True)
+    kernels = []
+    for name, cap, cnt, path in (
+            ("dp_score", captured[0], launches["dp_score"]
+             + pe_launches["dp_score"], "SE main path (and the PE path's "
+             "SE cores, same shape)"),
+            ("dp_score_wide", captured_wide[0], pe_launches["dp_score_wide"],
+             "PE mate rescue")):
+        rd, pen, rl, ref, scp_cum = cap
+        check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs")
+        C, L = rd.shape
+        W = ref.shape[1]
+        ms = time_cuda(lambda: dp_cuda.dp_score(rd, pen, rl, ref, scp_cum,
+                                                **consts), iters=200,
+                       warmup=20)
+        plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
+                                                   **consts), iters=5,
+                             warmup=2)
+        rows = int(rl.clamp(0, L).sum())
+        nbytes = 4 * (rd.numel() + pen.numel() + rl.numel() + ref.numel()
+                      + scp_cum.numel() + C)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = rows * (W + 1) * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="hisat2_tpu_torch/csrc/dp_score.cu",
+            replaces="hisat2_tpu/ops/dp_pallas.py:113", shape=f"C={C} "
+            f"L={L} W={W}", launches=cnt, max_abs_err=max_err[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None))
+        print(f"[report] {name} ({path}) at C={C} L={L} W={W}, {rows} read "
+              f"rows: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, "
+              f"{rows * (W + 1)} cells), {cnt} launches [{card}]",
+              flush=True)
+    print(f"[report] SE end to end {rps:.1f} reads/s, peak device memory "
+          f"{peak_mb:.1f} MiB [{card}]", flush=True)
+    print(f"[report] PE end to end {pps:.1f} pairs/s = {2 * pps:.1f} "
+          f"reads/s, peak device memory {pe_peak_mb:.1f} MiB; whole run "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -361,7 +610,7 @@ def main() -> int:
     return 0
 
 
-def profile_batch(al, batch):
+def profile_batch(al, submit, finish, args, label):
     """Where one batch's time goes, run alone (no pipelining): the host
     time to queue the device step, the device kernels by name and their
     busy share of the batch's wall time (torch.profiler), and the host
@@ -376,25 +625,25 @@ def profile_batch(al, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handle = emit.submit_se(al, batch)
+        handle = submit(al, *args)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         hp = cProfile.Profile()
         hp.enable()
-        emit.finish_se(al, handle, emit._TextShim())
+        finish(al, handle, emit._TextShim())
         hp.disable()
         t3 = time.perf_counter()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kern)
     wall_ms = (t3 - t0) * 1e3
-    print(f"[profile] one batch of {len(batch)} alone: wall {wall_ms:.1f} "
-          f"ms = queue the device step {(t1 - t0) * 1e3:.1f} ms + wait for "
-          f"the device {(t2 - t1) * 1e3:.1f} ms + host finish "
-          f"{(t3 - t2) * 1e3:.1f} ms; device busy {dev_us / 1e3:.2f} ms "
-          f"({dev_us / 1e3 / wall_ms:.4f} of wall), {len(kern)} kernel "
-          f"names, {sum(e.count for e in kern)} launches", flush=True)
+    print(f"[profile] one {label} alone: wall {wall_ms:.1f} ms = queue the "
+          f"device step {(t1 - t0) * 1e3:.1f} ms + wait for the device "
+          f"{(t2 - t1) * 1e3:.1f} ms + host finish {(t3 - t2) * 1e3:.1f} "
+          f"ms; device busy {dev_us / 1e3:.2f} ms "
+          f"({dev_us / 1e3 / wall_ms:.4f} of wall), {len(kern)} kernel names, "
+          f"{sum(e.count for e in kern)} launches", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:80]}", flush=True)

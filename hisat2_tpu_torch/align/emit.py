@@ -16,11 +16,15 @@ import ctypes
 import time
 
 import numpy as np
+import torch
 
 from ..io.reads import ReadBatch
 from ..io import sam as samio
 from ..native import samfmt_lib
+from ..ops import wire as _wire
 from . import mapq as _mapq
+from . import paired as _paired
+from .paired import PEPACK_MM, PEPACK_REP
 from .pipeline import (FASTPACK_MM, FASTPACK_REP, NEG_INF, Aligner,
                        ReadResult, _dedup_alns, _filter_reason)
 
@@ -161,13 +165,7 @@ def _native_fast_se(al, batch, fp, ex, KFB, lens, L):
             tk01, tk11 = KF, KF + nb1
             KF += nb1
 
-    nb = np.array(batch.names, dtype="S255")
-    name_lens = np.char.str_len(nb).astype(np.int64)
-    name_off = np.zeros(B + 1, np.int64)
-    np.cumsum(name_lens, out=name_off[1:])
-    wide = nb.view(np.uint8).reshape(B, -1)
-    name_buf = np.ascontiguousarray(
-        wide[np.arange(wide.shape[1])[None, :] < name_lens[:, None]])
+    name_buf, name_off, _ = _name_buf(batch.names)
 
     rn_buf, rn_off, rn_lens = _refname_cache(al)
     yf_qc = np.zeros(B, np.uint8)
@@ -176,13 +174,9 @@ def _native_fast_se(al, batch, fp, ex, KFB, lens, L):
                            for r in batch.reads), bool, B)
         yf_qc[qcf & (lens == 0)] = 1
 
-    q = batch.quals
-    qconst = int(q.flat[0]) if q.size and bool((q == q.flat[0]).all()) \
-        else -1
+    qconst = _batch_qconst(batch)
     seqs = batch.seqs if batch.seqs.dtype == np.uint8 \
         else batch.seqs.astype(np.uint8)
-    quals_u8 = q.view(np.uint8) if q.dtype == np.int8 \
-        else np.ascontiguousarray(q.astype(np.uint8))
 
     capr = B * max(KF, 1)
     maxrn = int(rn_lens.max()) if rn_lens.size else 1
@@ -200,7 +194,7 @@ def _native_fast_se(al, batch, fp, ex, KFB, lens, L):
         np.ascontiguousarray(fp), np.int32(fp.shape[1]), np.int32(KFB),
         t0r, t0p, np.int32(tn0), np.int32(tk00), np.int32(tk10),
         t1r, t1p, np.int32(tn1), np.int32(tk01), np.int32(tk11),
-        np.ascontiguousarray(seqs), np.ascontiguousarray(quals_u8),
+        np.ascontiguousarray(seqs), np.ascontiguousarray(_u8(batch.quals)),
         np.int32(qconst), np.ascontiguousarray(lens), yf_qc,
         np.ascontiguousarray(ref.frag_joined),
         np.ascontiguousarray(ref.frag_len.astype(np.int64)),
@@ -334,24 +328,7 @@ def _finish_slow_and_stitch(al, batch, ex, merged_dev, writer, fast,
                 stats["uniq"] += 1
             slow_out[i] = lines
 
-    w = writer.out.write
-    if not slow_out:
-        if fbuf:
-            w(fbuf.decode("ascii"))
-        return stats
-    text = fbuf.decode("ascii") if fbuf else ""
-    last_end = np.maximum.accumulate(np.where(fast, read_end, 0))
-    prev_end = 0
-    for i in sorted(slow_out):
-        if text and i > 0:
-            end = int(last_end[i - 1])
-            if end > prev_end:
-                w(text[prev_end:end])
-                prev_end = end
-        for ln in slow_out[i]:
-            w(ln)
-    if text and prev_end < len(text):
-        w(text[prev_end:])
+    _write_in_order(writer, fbuf, fast, read_end, slow_out)
     return stats
 
 
@@ -420,3 +397,947 @@ def _format_slow(al, batch, i, res: ReadResult, sc) -> list[str]:
         lines.append(samio.format_aligned(name, seq, qual, rec,
                                           omit_sec_seq=omit))
     return lines
+
+
+# ---------------------------------------------------------------------------
+# Paired-end
+# ---------------------------------------------------------------------------
+
+_DEC_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
+# ASCII complement table for reverse-complementing SEQ strings directly
+_COMP_ASCII = np.arange(256, dtype=np.uint8)
+for _a, _b in ((65, 84), (67, 71), (71, 67), (84, 65)):  # A<->T C<->G
+    _COMP_ASCII[_a] = _b
+INT32_MIN = np.int32(-(1 << 31))
+MAX_FAST_MM = 8
+NEG_INF_HALF = -(1 << 29)
+
+
+def align_and_emit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch,
+                      writer) -> dict:
+    """Align one PE batch pair (two batchify'd mate batches with the same
+    pad_to) and emit SAM; returns the summary-stats dict."""
+    return finish_pe(al, submit_pe(al, b1, b2), writer)
+
+
+def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
+    """Queue one PE batch pair's device step: the packed step for
+    constant-quality batches, else the fused step at finish time. Pair
+    with finish_pe."""
+    out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, al.opts.khits + 3))
+    if out is None:                      # per-base qualities
+        return ("legacy", b1, b2)
+    return ("fast", b1, b2, out)
+
+
+def finish_pe(al: Aligner, handle, writer) -> dict:
+    if handle[0] == "legacy":
+        return _align_and_emit_pe_legacy(al, handle[1], handle[2], writer)
+    _, b1, b2, out = handle
+    ready = out[5]
+    t0 = time.perf_counter()
+    if ready is not None:
+        ready.synchronize()
+    al.metrics.t_fetch += time.perf_counter() - t0
+    st = _finish_pe_pack(al, b1, b2, out, writer)
+    al.metrics.t_host += time.perf_counter() - t0
+    return st
+
+
+def align_and_emit_pe_stream(al: Aligner, pair_batches, writer,
+                             on_batch=None, depth: int = 4,
+                             workers: int = 3) -> dict:
+    """Pipelined PE loop over (mate-1 batch, mate-2 batch) tuples, the
+    same overlap structure as the SE stream: finish halves run in
+    `workers` threads, output replays in submit order; depth = max
+    queued-but-unfinished batch pairs."""
+    return _stream(al, iter(pair_batches), writer, submit_pe, finish_pe,
+                   on_batch, depth, workers)
+
+
+def _batch_qconst(batch) -> int:
+    q = batch.quals
+    return int(q.flat[0]) if q.size and bool((q == q.flat[0]).all()) else -1
+
+
+def _name_buf(names):
+    """Concatenated ASCII names + offsets for the native formatters."""
+    nb = np.array(names, dtype="S255")
+    name_lens = np.char.str_len(nb).astype(np.int64)
+    name_off = np.zeros(len(names) + 1, np.int64)
+    np.cumsum(name_lens, out=name_off[1:])
+    wide = nb.view(np.uint8).reshape(len(names), -1)
+    name_buf = np.ascontiguousarray(
+        wide[np.arange(wide.shape[1])[None, :] < name_lens[:, None]])
+    return name_buf, name_off, name_lens
+
+
+def _u8(a):
+    return a.view(np.uint8) if a.dtype == np.int8 else \
+        np.ascontiguousarray(a.astype(np.uint8))
+
+
+def _native_fast_pe(al, b1, b2, fp, ex, NRB):
+    """One-call native PE fast path (finish_pe_native): pair-pack ->
+    fast-pair mask + interleaved concordant records + SAM bytes + stats
+    with the GIL released. Returns (fast, fbuf, pair_end, stats)."""
+    lib = samfmt_lib()
+    B = len(b1)
+    o = al.opts
+    sc = al.scoring
+    ref = al.fm.ref
+
+    z_i32 = np.zeros(0, np.int32)
+    z_i16 = np.zeros(0, np.int16)
+    t0r, t0p, tn0, tk00, tk10 = z_i32, z_i16, 0, NRB, NRB
+    t1r, t1p, tn1, tk01, tk11 = z_i32, z_i16, 0, NRB, NRB
+    NR = NRB
+    if ex is not None and "mrep0" in ex:
+        t0r = np.ascontiguousarray(ex["mrows0"].astype(np.int32))
+        t0p = np.ascontiguousarray(ex["mrep0"].astype(np.int16))
+        tn0 = t0r.size
+        nb0 = t0p.shape[1] // PEPACK_REP if t0p.ndim == 2 else 0
+        tk00, tk10 = NR, NR + nb0
+        NR += nb0
+        if "mrep1" in ex:
+            t1r = np.ascontiguousarray(ex["mrows1"].astype(np.int32))
+            t1p = np.ascontiguousarray(ex["mrep1"].astype(np.int16))
+            tn1 = t1r.size
+            nb1 = t1p.shape[1] // PEPACK_REP if t1p.ndim == 2 else 0
+            tk01, tk11 = NR, NR + nb1
+            NR += nb1
+
+    name_buf, name_off, _ = _name_buf(b1.names)
+    rn_buf, rn_off, rn_lens = _refname_cache(al)
+    qc1, qc2 = _batch_qconst(b1), _batch_qconst(b2)
+    qconst = qc1 if (qc1 >= 0 and qc1 == qc2) else -1
+    s1 = b1.seqs if b1.seqs.dtype == np.uint8 else b1.seqs.astype(np.uint8)
+    s2 = b2.seqs if b2.seqs.dtype == np.uint8 else b2.seqs.astype(np.uint8)
+    L1, L2 = s1.shape[1], s2.shape[1]
+
+    # scratch is per call: finishes run concurrently in worker threads
+    capr = B * 2 * max(NR, 1)
+    maxrn = int(rn_lens.max()) if rn_lens.size else 1
+    cap = int(capr * (252 + maxrn + 2 * max(L1, L2) + 12 * PEPACK_MM + 255)
+              + 4096)
+    cols = np.zeros(14 * capr, np.int32)
+    mm_out = np.zeros(capr * PEPACK_MM, np.int16)
+    rec_ends = np.zeros(capr, np.int64)
+    outbuf = ctypes.create_string_buffer(cap)
+
+    fast_u8 = np.zeros(B, np.uint8)
+    pair_end = np.zeros(B, np.int64)
+    stats_a = np.zeros(4, np.int64)
+    total = lib.finish_pe_native(
+        np.int32(B), np.int64(L1), np.int64(L2), np.int32(3),
+        np.ascontiguousarray(fp), np.int32(fp.shape[1]), np.int32(NRB),
+        t0r, t0p, np.int32(tn0), np.int32(tk00), np.int32(tk10),
+        t1r, t1p, np.int32(tn1), np.int32(tk01), np.int32(tk11),
+        np.ascontiguousarray(s1), _u8(b1.quals),
+        np.ascontiguousarray(b1.lens.astype(np.int64)),
+        np.ascontiguousarray(s2), _u8(b2.quals),
+        np.ascontiguousarray(b2.lens.astype(np.int64)),
+        np.int32(qconst),
+        np.ascontiguousarray(ref.frag_joined),
+        np.ascontiguousarray(ref.frag_len.astype(np.int64)),
+        np.ascontiguousarray(ref.frag_toff),
+        np.ascontiguousarray(ref.frag_tidx.astype(np.int32)),
+        np.int32(ref.frag_joined.size),
+        rn_buf, rn_off, name_buf, name_off,
+        float(sc.score_min.I), float(sc.score_min.S),
+        np.int32(sc.match_bonus), np.int32(o.khits), np.int32(NR),
+        np.int32(1 if o.omit_sec_seq else 0), np.zeros(B, np.uint8),
+        fast_u8, pair_end, outbuf, np.int64(cap), stats_a,
+        cols, mm_out, rec_ends)
+    if total < 0:
+        raise RuntimeError("finish_pe_native: SAM buffer overflow")
+    stats = _paired.new_pair_stats()
+    stats["pairs"] += int(stats_a[0])
+    stats["mates_al"] += 2 * int(stats_a[0])
+    stats["conc_uniq"] += int(stats_a[1])
+    stats["conc_multi"] += int(stats_a[2])
+    fbuf = ctypes.string_at(ctypes.addressof(outbuf), int(total))
+    return fast_u8.astype(bool), fbuf, pair_end, stats
+
+
+def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
+                    writer) -> dict:
+    """Host half of the packed PE step: decode the wire-coded pack,
+    format the fast pairs natively, run the slow pairs' ladder, and stitch
+    output in pair order."""
+    pack, _m1, _m2, _pt, extras, _ready = out
+    fp = pack.numpy()
+    ex = {k: v.numpy() for k, v in extras.items() if k != "_wire"}
+    if pack.dtype == torch.int32:
+        # wire-coded copy (ops/wire.py): expand to int16 lanes
+        fp = _wire.as_words(fp)
+        Lw, nvb = extras["_wire"]
+        fp = _wire.pe_pack_decode(fp, Lw, Lw, nvb)
+        NWr = _wire.n_words(_wire.pe_rep_table(Lw, Lw))
+        t = 0
+        while f"mrep{t}" in ex:
+            wr = _wire.as_words(ex[f"mrep{t}"])
+            ex[f"mrep{t}"] = _wire.pe_rep_decode(wr, Lw, Lw,
+                                                 wr.shape[1] // NWr)
+            t += 1
+    NRB = _paired.pepack_nr(fp.shape[1])     # report slots in the base pack
+    fast, fbuf, pair_end, stats = _native_fast_pe(al, b1, b2, fp, ex, NRB)
+    return _finish_pe_slow_and_stitch(
+        al, b1, b2, ex, out, writer, fast, fp[:, -1].astype(np.int64),
+        fp[:, 0].astype(np.int64), b1.lens.astype(np.int64),
+        b2.lens.astype(np.int64), fbuf, pair_end, stats)
+
+
+def _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h, m2h, l1, l2, ex, stats):
+    """Vectorized mixed/unaligned resolution for no-concordant slow
+    pairs: a byte-identical replica of the _pair_result_one ->
+    _mate_result -> pair_lines chain for the two bulk categories:
+
+    * neither mate has a valid candidate  -> two flag-4 records
+    * exactly one mate aligned AND the in-step rescue DP (the rescue
+      extras) provably failed (score below the mate's minimum) AND all
+      reportable candidates are ungapped -> one aligned + one unaligned
+      record (YT:Z:UP), NH/ZS/MAPQ per _dedup_alns semantics
+
+    Everything else (rescue successes, discordant, gapped) stays with the
+    per-pair ladder. Returns ({row: [sam_text]}, remaining_slow_rows).
+    """
+    o = al.opts
+    sc = al.scoring
+    if o.no_mixed or slow.size == 0:
+        return {}, slow
+    S = slow[nvalid[slow] == 0]
+    if S.size == 0:
+        return {}, slow
+
+    def minv(lens):
+        u, inv = np.unique(lens, return_inverse=True)
+        vals = np.array([sc.min_score(int(x)) for x in u], np.int64)
+        return vals[inv]
+
+    min1 = minv(l1[S])
+    min2 = minv(l2[S])
+    v1 = m1h["score"][S] >= min1[:, None]
+    v2 = m2h["score"][S] >= min2[:, None]
+    has1 = v1.any(1)
+    has2 = v2.any(1)
+
+    # ---- both mates unaligned ----
+    unal_rows = S[~has1 & ~has2]
+    # ---- one mate aligned: rescue-failure proof via the rescue extras ----
+    rmap = np.full(len(b1), -1, np.int64)
+    rr = None
+    if ex is not None and "rescue" in ex:
+        rr = np.asarray(ex["rescue"]).astype(np.int64)
+        rok = rr[:, 0] >= 0
+        rmap[rr[rok, 0]] = np.flatnonzero(rok)
+    L = max(b1.seqs.shape[1], b2.seqs.shape[1])
+    W = _paired.rescue_width(o, L)
+    groups = []          # (rows_global, anchored_mate01, m, batch, lens, minsc)
+    for anch01, om, mh, bb, lm, mn, lo in (
+            (0, has1 & ~has2, m1h, b1, l1, min1, l2),
+            (1, has2 & ~has1, m2h, b2, l2, min2, l1)):
+        rows_l = np.flatnonzero(om)          # indices into S
+        if rows_l.size == 0 or rr is None:
+            continue
+        rg = S[rows_l]
+        v = (v1 if anch01 == 0 else v2)[rows_l]
+        k0 = np.argmax(v, axis=1)
+        pos0 = mh["pos"][rg, k0]
+        fw0 = mh["fw"][rg, k0]
+        g0 = mh["gapped"][rg, k0]
+        ext = lm[rg]
+        wstart = np.where(fw0, pos0, pos0 + ext - W)
+        mate_fw = ~fw0
+        j = rmap[rg]
+        ent_ok = j >= 0
+        jj = np.clip(j, 0, max(len(rr) - 1, 0))
+        # rescue row [1] is "mate 1 anchored", i.e. 1 when the anchored
+        # mate's index is 0
+        ent_ok &= (rr[jj, 1] == (1 - anch01)) & (rr[jj, 7] == wstart) \
+            & (rr[jj, 8].astype(bool) == mate_fw)
+        failed = rr[jj, 2] < minv(lo[rg])
+        pick = ent_ok & failed & ~g0
+        if not pick.any():
+            continue
+        groups.append((rg[pick], anch01, mh, bb, lm, mn[rows_l][pick]))
+
+    if unal_rows.size == 0 and not groups:
+        return {}, slow
+
+    # ---- per-group candidate selection (mate_cands replica) ----
+    kcap = min(o.khits + 1, o.top_cands)
+    MMX = 16
+    # per emitted pair, two records as column tuples: (mate, flag, rname,
+    # pos1, mapq, c5, mid, c3, rnext, pn1, score, zs, nmm, nh, cnt, lanes)
+    rec_cols: list[tuple] = []
+    row_order: list[int] = []     # global row per emitted pair, in order
+
+    for rg, anch01, mh, bb, lm, mins in groups:
+        R = rg.size
+        pos = mh["pos"][rg]
+        fw = mh["fw"][rg]
+        gp = mh["gapped"][rg]
+        scg = mh["score"][rg]
+        v = scg >= mins[:, None]
+        K = pos.shape[1]
+        same = (pos[:, :, None] == pos[:, None, :]) \
+            & (fw[:, :, None] == fw[:, None, :])
+        lower = np.tril(np.ones((K, K), bool), -1)[None]
+        dup = (same & v[:, None, :] & lower).any(2)
+        keep = v & ~dup
+        rank = np.cumsum(keep, axis=1)
+        keep &= rank <= o.top_cands
+        sel = keep & (rank <= kcap)
+        # rows needing a gapped finalize go to the ladder
+        bad = (sel & gp).any(1)
+        # flatten items row-major (candidate order preserved)
+        rloc, kidx = np.nonzero(sel & ~bad[:, None])
+        if rloc.size == 0:
+            continue
+        ridx = rg[rloc]
+        upos = pos[rloc, kidx]
+        ufw = fw[rloc, kidx]
+        A = al._ungapped_arrays(bb, ridx, upos, ufw, lm[ridx])
+        mm_rows, mm_cols = A["mm_rows"], A["mm_cols"]
+        mm_ref = A["mm_ref"]
+        cnt_item = np.bincount(mm_rows, minlength=rloc.size)
+        mm_off = np.zeros(rloc.size + 1, np.int64)
+        np.cumsum(cnt_item, out=mm_off[1:])
+        spans = lm[ridx] - A["c5"] - A["c3"]
+        starts_i = np.searchsorted(rloc, np.arange(R))
+        ends_i = np.searchsorted(rloc, np.arange(R), side="right")
+        for rl in range(R):
+            grow = int(rg[rl])
+            if bad[rl]:
+                continue
+            i0, i1 = int(starts_i[rl]), int(ends_i[rl])
+            items = [t for t in range(i0, i1) if A["ok"][t]]
+            if not items or any(cnt_item[t] > MMX for t in items):
+                continue
+            iscore = A["score"]
+            order = sorted(items, key=lambda t: -int(iscore[t]))
+            sset, eset = set(), set()
+            surv = []
+            for t in order:
+                ks = (int(A["astart"][t]), bool(ufw[t]))
+                ke = (int(A["astart"][t] + spans[t]), bool(ufw[t]))
+                if ks in sset or ke in eset:
+                    continue
+                sset.add(ks)
+                eset.add(ke)
+                surv.append(t)
+            best = int(iscore[surv[0]])
+            secbest = int(iscore[surv[1]]) if len(surv) > 1 else None
+            nh = min(len(surv), o.khits)
+            t0 = surv[0]
+            ln = int(lm[grow])
+            mq = _mapq.mapq_v2(best, secbest, sc.perfect_score(ln),
+                               sc.min_score(ln), local=sc.local)
+            tidx = int(A["tidx"][t0])
+            toff = int(A["toff"][t0])
+            afw = bool(ufw[t0])
+            c5v, c3v = int(A["c5"][t0]), int(A["c3"][t0])
+            lanes = ((mm_cols[mm_off[t0]:mm_off[t0 + 1]]
+                      .astype(np.int64) << 3)
+                     | mm_ref[mm_off[t0]:mm_off[t0 + 1]].astype(np.int64))
+            base_fl = 1 | (64 if anch01 == 0 else 128)
+            al_fl = base_fl | 8 | (0 if afw else 16)
+            un_fl = (1 | 4 | (128 if anch01 == 0 else 64))
+            al_rec = (anch01, al_fl, tidx, toff + 1, mq, c5v,
+                      ln - c5v - c3v, c3v, 1, toff + 1, int(A["score"][t0]),
+                      secbest if secbest is not None else INT32_MIN,
+                      int(A["nmm"][t0]), nh, int(cnt_item[t0]),
+                      lanes.astype(np.int16))
+            un_rec = (1 - anch01, un_fl, tidx, toff + 1, 0, 0, 0, 0,
+                      1, toff + 1, 0, INT32_MIN, 0, 1, 0,
+                      np.zeros(0, np.int16))
+            pair_recs = (al_rec, un_rec) if anch01 == 0 else \
+                (un_rec, al_rec)
+            row_order.append(grow)
+            rec_cols.append(pair_recs)
+            stats["pairs"] += 1
+            stats["mixed_al"] += 1
+            stats["mates_al"] += 1
+            stats["mate_un"] += 1
+            if nh > 1 or (secbest is not None and secbest == best):
+                stats["mate_multi"] += 1
+            else:
+                stats["mate_uniq"] += 1
+
+    for grow in unal_rows.tolist():
+        un1 = (0, 1 | 4 | 8 | 64, -1, 0, 0, 0, 0, 0, 0, 0, 0,
+               INT32_MIN, 0, 1, 0, np.zeros(0, np.int16))
+        un2 = (1, 1 | 4 | 8 | 128, -1, 0, 0, 0, 0, 0, 0, 0, 0,
+               INT32_MIN, 0, 1, 0, np.zeros(0, np.int16))
+        row_order.append(int(grow))
+        rec_cols.append((un1, un2))
+        stats["pairs"] += 1
+        stats["unal"] += 1
+        stats["mate_un"] += 2
+
+    if not rec_cols:
+        return {}, slow
+
+    # ---- native formatting (subset buffers, local pair indices) ----
+    rows_np = np.asarray(row_order, np.int64)
+    name_buf, name_off, name_lens = _name_buf(
+        [b1.names[int(i)] for i in row_order])
+    if name_buf.size == 0:
+        name_buf = np.zeros(1, np.uint8)
+    s1 = np.ascontiguousarray(b1.seqs[rows_np].astype(np.uint8))
+    s2 = np.ascontiguousarray(b2.seqs[rows_np].astype(np.uint8))
+    q1 = np.ascontiguousarray(_u8(b1.quals)[rows_np])
+    q2 = np.ascontiguousarray(_u8(b2.quals)[rows_np])
+    le1 = np.ascontiguousarray(l1[rows_np].astype(np.int32))
+    le2 = np.ascontiguousarray(l2[rows_np].astype(np.int32))
+    qc1, qc2 = _batch_qconst(b1), _batch_qconst(b2)
+    qconst = qc1 if (qc1 >= 0 and qc1 == qc2) else -1
+    rn_buf, rn_off, rn_lens = _refname_cache(al)
+
+    NRECS = 2 * len(rec_cols)
+    names = ("pair", "mate", "flag", "rname", "pos1", "mapq", "c5", "mid",
+             "c3", "rnext", "pn1", "score", "zs", "nmm", "nh", "cnt")
+    carr = {k: np.zeros(NRECS, np.int32) for k in names}
+    mm_arr = np.zeros((NRECS, MMX), np.int16)
+    n = 0
+    for pl, recs in enumerate(rec_cols):
+        for rec in recs:
+            carr["pair"][n] = pl
+            for k, v in zip(names[1:], rec[:-1]):
+                carr[k][n] = v
+            lanes = rec[-1]
+            if lanes.size:
+                mm_arr[n, :lanes.size] = lanes
+            n += 1
+    maxrn = int(rn_lens.max()) if rn_lens.size else 1
+    Lp1, Lp2 = s1.shape[1], s2.shape[1]
+    cap = int(NRECS * (260 + maxrn + 2 * max(Lp1, Lp2) + 12 * MMX)
+              + int(name_lens.sum()) + 4096)
+    outbuf = ctypes.create_string_buffer(cap)
+    rec_ends = np.zeros(NRECS, np.int64)
+    total = samfmt_lib().format_pe_mix(
+        np.int32(NRECS), *(carr[k] for k in names),
+        np.ascontiguousarray(mm_arr), np.int32(MMX),
+        name_buf, name_off,
+        s1, q1, np.int64(Lp1), le1,
+        s2, q2, np.int64(Lp2), le2, np.int32(qconst),
+        rn_buf, rn_off,
+        outbuf, np.int64(cap), rec_ends)
+    if total < 0:
+        raise RuntimeError("format_pe_mix: SAM buffer overflow")
+    text = ctypes.string_at(ctypes.addressof(outbuf), int(total)) \
+        .decode("ascii")
+    vec_lines: dict[int, list[str]] = {}
+    for pl, grow in enumerate(row_order):
+        a0 = int(rec_ends[2 * pl - 1]) if pl > 0 else 0
+        vec_lines[grow] = [text[a0:int(rec_ends[2 * pl + 1])]]
+    remaining = np.asarray([int(x) for x in slow if int(x) not in vec_lines],
+                           np.int64)
+    return vec_lines, remaining
+
+
+def _write_in_order(writer, fbuf: bytes, fast, pair_end, slow_out: dict):
+    """Replay the native text of the fast rows and the ladder's lines of
+    the slow rows in row order."""
+    w = writer.out.write
+    if not slow_out:
+        if fbuf:
+            w(fbuf.decode("ascii"))
+        return
+    text = fbuf.decode("ascii") if fbuf else ""
+    last_end = np.maximum.accumulate(np.where(fast, pair_end, 0))
+    prev_end = 0
+    for i in sorted(slow_out):
+        if text and i > 0:
+            end = int(last_end[i - 1])
+            if end > prev_end:
+                w(text[prev_end:end])
+                prev_end = end
+        for ln in slow_out[i]:
+            w(ln)
+    if text and prev_end < len(text):
+        w(text[prev_end:])
+
+
+def _finish_pe_slow_and_stitch(al, b1, b2, ex, out, writer, fast, aux,
+                               nvalid, l1, l2, fbuf, pair_end,
+                               stats) -> dict:
+    """Slow-pair ladder and ordered stitch of the native PE fast path
+    (per-pair ladder: _pair_result_one / mate rescue / pair_lines)."""
+    _, m1_dev, m2_dev, pt_dev, _, _ = out
+    B = len(b1)
+    o = al.opts
+    sc = al.scoring
+
+    slow = np.flatnonzero(~fast)
+    grows = slow[aux[slow] != 0]
+    # device-predicted slow pairs (the SB extras) shipped their grid rows
+    # with the pack: gather only the mispredictions
+    pred_j: dict[int, int] = {}
+    if ex is not None and "srows" in ex:
+        for j, r in enumerate(ex["srows"]):
+            if r >= 0:
+                pred_j[int(r)] = j
+    if grows.size and pred_j:
+        hit = np.fromiter((int(r) in pred_j for r in grows), bool,
+                          grows.size)
+    else:
+        hit = np.zeros(grows.size, bool)
+    miss = grows[~hit]
+    g_fut = _paired._gather_pe_slow(m1_dev, m2_dev, pt_dev, miss)
+
+    slow_out: dict[int, list] = {}
+    if slow.size:
+        K2 = int(m1_dev.shape[1])
+        KP2 = int(pt_dev.shape[1])
+        msc1 = np.full((B, K2), NEG_INF, np.int64)
+        msc2 = np.full((B, K2), NEG_INF, np.int64)
+        mpos1 = np.zeros((B, K2), np.int64)
+        mpos2 = np.zeros((B, K2), np.int64)
+        mfw1 = np.zeros((B, K2), bool)
+        mfw2 = np.zeros((B, K2), bool)
+        mg1 = np.zeros((B, K2), bool)
+        mg2 = np.zeros((B, K2), bool)
+        ptf = np.zeros((B, KP2, 3), np.int64)
+        ptf[:, :, 0] = NEG_INF
+
+        def fill(rows, ga, gb):
+            msc1[rows] = ga[:, :, 0]
+            mpos1[rows] = ga[:, :, 1]
+            mfw1[rows] = (ga[:, :, 2] & 1) > 0
+            mg1[rows] = (ga[:, :, 2] & 2) > 0
+            msc2[rows] = gb[:, :, 0]
+            mpos2[rows] = gb[:, :, 1]
+            mfw2[rows] = (gb[:, :, 2] & 1) > 0
+            mg2[rows] = (gb[:, :, 2] & 2) > 0
+        if g_fut is not None:
+            ga, gb, gp = g_fut()
+            fill(miss, ga, gb)
+            ptf[miss] = gp
+        hrows = grows[hit]
+        if hrows.size:
+            js = np.fromiter((pred_j[int(r)] for r in hrows), np.int64,
+                             hrows.size)
+            fill(hrows, ex["sm1"][js], ex["sm2"][js])
+            ptf[hrows] = ex["spt"][js]
+        m1h = dict(score=msc1, pos=mpos1, fw=mfw1, gapped=mg1)
+        m2h = dict(score=msc2, pos=mpos2, fw=mfw2, gapped=mg2)
+        grid = _paired._grid_from_pairtop(ptf, m1h, m2h)
+
+        # vectorized mixed/unal resolution: the dominant slow category is
+        # "no concordant pair, one mate aligned, in-step rescue DP
+        # failed"; only rescued/discordant/gapped/alt rows are left to the
+        # per-pair ladder below
+        vec_lines, slow = _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h,
+                                        m2h, l1, l2, ex, stats)
+        slow_out.update(vec_lines)
+
+        def mate_cands(m, batch, i, min_sc, rdlen):
+            cs = []
+            seen = set()
+            for s, p, f, g in zip(*(m[x][i] for x in
+                                    ("score", "pos", "fw", "gapped"))):
+                key = (int(p), bool(f))
+                if s >= min_sc and key not in seen:
+                    seen.add(key)
+                    cs.append(dict(score=int(s), pos=key[0], fw=key[1],
+                                   kind="reg", gapped=bool(g),
+                                   extent=rdlen))
+            return cs[:o.top_cands]
+
+        # finalize every ungapped slow-pair candidate in one vectorized
+        # pass per mate
+        fin_cache: dict[tuple, object] = {}
+        items = {0: [], 1: []}
+        for i in slow:
+            i = int(i)
+            for mi, (mh, bb, lm) in enumerate(((m1h, b1, l1),
+                                               (m2h, b2, l2))):
+                min_i = sc.min_score(int(lm[i]))
+                for c in mate_cands(mh, bb, i, min_i, int(lm[i])):
+                    if not c["gapped"]:
+                        items[mi].append((i, c["pos"], c["fw"]))
+        for mi, bb, lm in ((0, b1, l1), (1, b2, l2)):
+            if not items[mi]:
+                continue
+            ridx = np.asarray([x[0] for x in items[mi]])
+            upos = np.asarray([x[1] for x in items[mi]])
+            ufw = np.asarray([x[2] for x in items[mi]])
+            alns = al._finalize_ungapped_list(bb, ridx, upos, ufw, lm[ridx])
+            for (i, p, f), a in zip(items[mi], alns):
+                fin_cache[(mi, i, p, f)] = a
+
+        def finalize(batch, i, c, rdlen):
+            mi = 0 if batch is b1 else 1
+            key = (mi, i, c["pos"], c["fw"])
+            if not c["gapped"] and key in fin_cache:
+                return fin_cache[key]
+            return al._finalize(i, batch, c["score"], c["pos"], c["fw"],
+                                c["gapped"], rdlen)
+
+        rescue: list[tuple] = []
+        prs: dict[int, object] = {}
+        for i in slow:
+            i = int(i)
+            prs[i] = _paired._pair_result_one(
+                al, i, b1, b2, m1h, m2h, grid, mate_cands, finalize,
+                rescue)
+        if rescue:
+            dev_resc = None
+            if ex is not None and "rescue" in ex:
+                dev_resc = {int(row[0]): row for row in ex["rescue"]
+                            if int(row[0]) >= 0}
+            _paired._rescue_mates(al, b1, b2, prs, rescue, finalize,
+                                  dev_cache=dev_resc)
+        for i, pr in prs.items():
+            slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
+
+    _write_in_order(writer, fbuf, fast, pair_end, slow_out)
+    return stats
+
+
+def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
+                              writer) -> dict:
+    """Fused paired-end align + SAM emission for batches with per-base
+    qualities.
+
+    One device call (paired.stage_pe_fused: both mates' cores, the
+    concordance grid, record finalization), then a vectorized host fast
+    path for concordant pairs, -k secondary pairs included, through the
+    native formatter. Discordant / mixed / rescued pairs take the
+    per-pair ladder (paired._pair_result_one). Output order matches
+    pairs_to_sam (pair order, mate 1 then mate 2 per reported pair)."""
+    o = al.opts
+    B = len(b1)
+    sc = al.scoring
+    khits = o.khits
+    KP = max(8, khits + 3)
+    m1, m2, pt, finp1, finp2, _sfin1, _sfin2 = _paired.stage_pe_fused(
+        al, b1, b2, KP=KP, KF=1)
+
+    l1 = b1.lens.astype(np.int64)
+    l2 = b2.lens.astype(np.int64)
+    total = pt[:, :, 0].astype(np.int64)
+    t1 = pt[:, :, 1].astype(np.int64)
+    t2 = pt[:, :, 2].astype(np.int64)
+    KPr = total.shape[1]
+    valid = total > NEG_INF_HALF
+    has_conc = valid[:, 0]
+
+    rows = np.arange(B)[:, None]
+    cp1 = m1["pos"][rows, t1]
+    cp2 = m2["pos"][rows, t2]
+    cf1 = m1["fw"][rows, t1]
+    cf2 = m2["fw"][rows, t2]
+    cg1 = m1["gapped"][rows, t1]
+    cg2 = m2["gapped"][rows, t2]
+    cs1 = m1["score"][rows, t1].astype(np.int64)
+    cs2 = m2["score"][rows, t2].astype(np.int64)
+
+    # distinct-placement dedup across combos
+    dup = np.zeros((B, KPr), bool)
+    for k in range(1, KPr):
+        eq = ((cp1[:, :k] == cp1[:, k:k + 1])
+              & (cf1[:, :k] == cf1[:, k:k + 1])
+              & (cp2[:, :k] == cp2[:, k:k + 1])
+              & (cf2[:, :k] == cf2[:, k:k + 1]))
+        dup[:, k] = eq.any(axis=1)
+    pvalid = valid & ~dup
+    nvalid = pvalid.sum(axis=1)
+    nrep = np.minimum(nvalid, khits)
+    vrank = np.where(pvalid, np.cumsum(pvalid, axis=1) - 1, KPr + 1)
+    KFu = min(KPr, khits)
+    sel = np.full((B, KFu), KPr, np.int64)
+    for j in range(KFu):
+        hit = vrank == j
+        has = hit.any(axis=1)
+        sel[has, j] = np.argmax(hit[has], axis=1)
+    hit2 = vrank == 1
+    sec_total = np.where(hit2.any(axis=1),
+                         total[np.arange(B), np.argmax(hit2, axis=1)],
+                         np.int64(NEG_INF))
+
+    # fast eligibility
+    selc = np.minimum(sel, KPr - 1)
+    in_rep = np.arange(KFu)[None, :] < nrep[:, None]
+    F1 = {n: np.take_along_axis(finp1[:, :, c], selc, 1)
+          for n, c in (("c5", 0), ("c3", 1), ("nmm", 3), ("nmm_all", 4))}
+    F2 = {n: np.take_along_axis(finp2[:, :, c], selc, 1)
+          for n, c in (("c5", 0), ("c3", 1), ("nmm", 3), ("nmm_all", 4))}
+    fast = has_conc.copy()
+    fast &= ~(in_rep & (np.take_along_axis(cg1, selc, 1)
+                        | np.take_along_axis(cg2, selc, 1))).any(axis=1)
+    fast &= ~(in_rep & ((F1["nmm_all"] > MAX_FAST_MM)
+                        | (F2["nmm_all"] > MAX_FAST_MM))).any(axis=1)
+
+    # fragment containment + coordinates for every reported record
+    ref = al.fm.ref
+    ok1, fc1, ast1 = _contain(ref, np.take_along_axis(cp1, selc, 1),
+                              F1["c5"], F1["c3"], l1)
+    ok2, fc2, ast2 = _contain(ref, np.take_along_axis(cp2, selc, 1),
+                              F2["c5"], F2["c3"], l2)
+    tidx1 = ref.frag_tidx[fc1]
+    tidx2 = ref.frag_tidx[fc2]
+    fast &= ~(in_rep & ~(ok1 & ok2 & (tidx1 == tidx2))).any(axis=1)
+
+    stats = _paired.new_pair_stats()
+
+    fbuf = b""
+    pair_end = np.zeros(B, np.int64)
+    frows = np.flatnonzero(fast)
+    if frows.size:
+        nr = nrep[frows]
+        rec_pair = np.repeat(frows, nr)                 # one per combo
+        rec_k = np.arange(rec_pair.size) - np.repeat(
+            np.concatenate([[0], np.cumsum(nr)[:-1]]), nr)
+        col = sel[rec_pair, rec_k]
+
+        toff1 = (ref.frag_toff[fc1] + ast1 - ref.frag_joined[fc1]
+                 )[rec_pair, rec_k]
+        toff2 = (ref.frag_toff[fc2] + ast2 - ref.frag_joined[fc2]
+                 )[rec_pair, rec_k]
+        cc51 = F1["c5"][rec_pair, rec_k]
+        cc31 = F1["c3"][rec_pair, rec_k]
+        cc52 = F2["c5"][rec_pair, rec_k]
+        cc32 = F2["c3"][rec_pair, rec_k]
+        mid1 = l1[rec_pair] - cc51 - cc31
+        mid2 = l2[rec_pair] - cc52 - cc32
+        fw1 = cf1[rec_pair, col]
+        fw2 = cf2[rec_pair, col]
+        # TLEN over the unclipped fragment
+        left = np.minimum(toff1 - cc51, toff2 - cc52)
+        right = np.maximum(toff1 + mid1 + cc31, toff2 + mid2 + cc32)
+        tl = right - left
+        tl1 = np.where(toff1 <= toff2, tl, -tl)
+        # MAPQ per pair
+        bt = total[frows, 0]
+        st2_ = sec_total[frows]
+        hs = st2_ > NEG_INF_HALF
+        need_tab = hs & (st2_ == bt)
+        mapq_pair = np.full(frows.size, 60, np.int32)
+        for j in np.flatnonzero(need_tab):
+            i = frows[j]
+            mapq_pair[j] = _mapq.mapq_v2(
+                int(bt[j]), int(st2_[j]),
+                sc.perfect_score(int(l1[i])) + sc.perfect_score(int(l2[i])),
+                sc.min_score(int(l1[i])) + sc.min_score(int(l2[i])),
+                local=sc.local)
+        pairloc = np.zeros(int(frows.max()) + 1, np.int64)
+        pairloc[frows] = np.arange(frows.size)
+        mq_rec = np.where(rec_k == 0, mapq_pair[pairloc[rec_pair]],
+                          255).astype(np.int32)
+
+        nrec = rec_pair.size
+        flag1 = (1 | 64 | 2 | np.where(fw1, 0, 16) | np.where(fw2, 0, 32)
+                 | np.where(rec_k > 0, 256, 0)).astype(np.int32)
+        flag2 = (1 | 128 | 2 | np.where(fw2, 0, 16) | np.where(fw1, 0, 32)
+                 | np.where(rec_k > 0, 256, 0)).astype(np.int32)
+        nh = np.repeat(nr, nr).astype(np.int32)
+
+        def mate_mm(finp, cc5):
+            finc = finp[rec_pair, col]
+            mc = finc[:, 5:5 + MAX_FAST_MM].astype(np.int32)
+            mch = finc[:, 5 + MAX_FAST_MM:].astype(np.int64)
+            cnt = finc[:, 4].astype(np.int64)
+            off = np.zeros(nrec + 1, np.int64)
+            np.cumsum(cnt, out=off[1:])
+            selm = np.arange(MAX_FAST_MM)[None, :] < cnt[:, None]
+            cols = (mc[selm] - np.repeat(cc5, cnt)).astype(np.int32)
+            refs = np.ascontiguousarray(
+                _DEC_ASCII[np.clip(mch[selm], 0, 4)])
+            return cols, refs, off, cnt
+
+        mm1 = mate_mm(finp1, cc51)
+        mm2 = mate_mm(finp2, cc52)
+
+        # interleave mate1/mate2 records: 2*nrec records total
+        def ilv(a1, a2):
+            out = np.empty(2 * nrec, a1.dtype)
+            out[0::2] = a1
+            out[1::2] = a2
+            return out
+
+        iread = ilv(rec_pair.astype(np.int32) * 2,
+                    rec_pair.astype(np.int32) * 2 + 1)
+        iflag = ilv(flag1, flag2)
+        irname = ilv(tidx1[rec_pair, rec_k].astype(np.int32),
+                     tidx2[rec_pair, rec_k].astype(np.int32))
+        ipos = ilv((toff1 + 1).astype(np.int32), (toff2 + 1).astype(np.int32))
+        ipnext = ilv((toff2 + 1).astype(np.int32),
+                     (toff1 + 1).astype(np.int32))
+        itlen = ilv(tl1.astype(np.int32), (-tl1).astype(np.int32))
+        ic5 = ilv(cc51.astype(np.int32), cc52.astype(np.int32))
+        ic3 = ilv(cc31.astype(np.int32), cc32.astype(np.int32))
+        imid = ilv(mid1.astype(np.int32), mid2.astype(np.int32))
+        iscore = ilv(cs1[rec_pair, col].astype(np.int32),
+                     cs2[rec_pair, col].astype(np.int32))
+        inmm = ilv(F1["nmm"][rec_pair, rec_k].astype(np.int32),
+                   F2["nmm"][rec_pair, rec_k].astype(np.int32))
+        imapq = ilv(mq_rec, mq_rec)
+        inh = ilv(nh, nh)
+        izs = np.full(2 * nrec, INT32_MIN, np.int32)
+        iyt = np.full(2 * nrec, 1, np.int32)        # CP
+        immoff = np.zeros(2 * nrec + 1, np.int64)
+        immoff[1::2] = mm1[3]
+        immoff[2::2] = mm2[3]
+        np.cumsum(immoff, out=immoff)
+        immcols, immref = _interleave_runs(mm1, mm2, nrec)
+
+        fbuf, rec_ends = _format_pe_records(
+            al, b1, b2, frows, iread, iflag, irname, ipos, imapq,
+            ic5, imid, ic3, ipnext, itlen, iyt, iscore, inmm, izs, inh,
+            immcols, immref, immoff)
+        last_rec = 2 * np.cumsum(nr) - 1
+        pair_end[frows] = rec_ends[last_rec]
+
+        stats["pairs"] += int(frows.size)
+        stats["mates_al"] += 2 * int(frows.size)
+        multi = nvalid[frows] >= 2
+        stats["conc_multi"] += int(multi.sum())
+        stats["conc_uniq"] += int((~multi).sum())
+
+    # ---- slow pairs ----
+    slow = np.flatnonzero(~fast)
+    slow_out: dict[int, list] = {}
+    if slow.size:
+        grid = _paired._grid_from_pairtop(pt, m1, m2)
+
+        def mate_cands(m, batch, i, min_sc, rdlen):
+            return [dict(score=s, pos=p, fw=fw, kind="reg", gapped=gapped,
+                         extent=rdlen)
+                    for s, p, fw, gapped, *_ in al._ranked_candidates(
+                        m, i, min_sc, limit=o.top_cands)][:o.top_cands]
+
+        def finalize(batch, i, c, rdlen):
+            return al._finalize(i, batch, c["score"], c["pos"], c["fw"],
+                                c["gapped"], rdlen)
+
+        rescue: list[tuple] = []
+        prs: dict[int, object] = {}
+        for i in slow:
+            i = int(i)
+            prs[i] = _paired._pair_result_one(
+                al, i, b1, b2, m1, m2, grid, mate_cands, finalize, rescue)
+        if rescue:
+            _paired._rescue_mates(al, b1, b2, prs, rescue, finalize)
+        for i, pr in prs.items():
+            slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
+
+    _write_in_order(writer, fbuf, fast, pair_end, slow_out)
+    return stats
+
+
+def _contain(ref, pos, c5, c3, lens):
+    astart = pos + c5
+    span = lens[:, None] - c5 - c3
+    f = np.searchsorted(ref.frag_joined, astart, side="right") - 1
+    ok = (f >= 0) & (span > 0)
+    fc = np.clip(f, 0, len(ref.frag_joined) - 1)
+    ok &= astart + span <= ref.frag_joined[fc] + ref.frag_len[fc]
+    return ok, fc, astart
+
+
+def _interleave_runs(src1, src2, nrec):
+    """Interleave per-record variable-length (cols, refs) runs of two
+    parallel record streams into mate1/mate2 alternating order."""
+    cols1, refs1, off1, cnt1 = src1
+    cols2, refs2, off2, cnt2 = src2
+    n1 = cols1.size
+    n2 = cols2.size
+    out_cols = np.empty(n1 + n2, np.int32)
+    out_refs = np.empty(n1 + n2, np.uint8)
+    # output start offset of each mate-1 run: off1[i] + off2[i]
+    # (everything from earlier records of both streams precedes it)
+    start1 = off1[:-1] + off2[:-1]
+    start2 = off1[1:] + off2[:-1]
+    idx1 = np.repeat(start1 - off1[:-1], cnt1) + np.arange(n1)
+    idx2 = np.repeat(start2 - off2[:-1], cnt2) + np.arange(n2)
+    out_cols[idx1] = cols1
+    out_refs[idx1] = refs1
+    out_cols[idx2] = cols2
+    out_refs[idx2] = refs2
+    return out_cols, np.ascontiguousarray(out_refs)
+
+
+def _format_pe_records(al, b1, b2, frows, read_of, flag, rname, pos1, mapq,
+                       c5, mid, c3, pnext, tlen, yt, score, nmm, zs, nh,
+                       mm_cols, mm_ref, mm_off):
+    """Per-read name/seq buffers hold mate 1 and mate 2 of each fast pair
+    as consecutive rows (read_of = 2*pair + mate)."""
+    Nf = frows.size
+    lens = np.empty(2 * Nf, np.int64)
+    lens[0::2] = b1.lens.astype(np.int64)[frows]
+    lens[1::2] = b2.lens.astype(np.int64)[frows]
+
+    name_buf, name_off, name_lens = _name_buf(
+        [b1.names[int(i)] for i in frows for _mate in (1, 2)])
+
+    Lp = max(b1.seqs.shape[1], b2.seqs.shape[1])
+
+    def pad_to(x, L):
+        if x.shape[1] == L:
+            return x
+        return np.pad(x, ((0, 0), (0, L - x.shape[1])))
+
+    raw = np.empty((2 * Nf, Lp), b1.seqs.dtype)
+    raw[0::2] = pad_to(b1.seqs, Lp)[frows]
+    raw[1::2] = pad_to(b2.seqs, Lp)[frows]
+    quals = np.empty((2 * Nf, Lp), b1.quals.dtype)
+    quals[0::2] = pad_to(b1.quals, Lp)[frows]
+    quals[1::2] = pad_to(b2.quals, Lp)[frows]
+
+    ar = np.arange(Lp)
+    in_read = ar[None, :] < lens[:, None]
+    seq_f = _DEC_ASCII[np.clip(raw, 0, 4)]
+    qual_f = (np.clip(quals, 0, 93) + 33).astype(np.uint8)
+    if Nf and (lens == lens[0]).all():
+        # uniform read length (the common batch): reversal is a plain flip
+        l0 = int(lens[0])
+        seq_r = np.zeros_like(seq_f)
+        qual_r = np.zeros_like(qual_f)
+        seq_r[:, :l0] = _COMP_ASCII[seq_f[:, l0 - 1::-1]]
+        qual_r[:, :l0] = qual_f[:, l0 - 1::-1]
+    else:
+        rcidx = np.clip(lens[:, None] - 1 - ar[None, :], 0, Lp - 1)
+        seq_r = _COMP_ASCII[np.take_along_axis(seq_f, rcidx, 1)]
+        qual_r = np.take_along_axis(qual_f, rcidx, 1)
+    seq_off = np.zeros(2 * Nf + 1, np.int64)
+    np.cumsum(lens, out=seq_off[1:])
+    sf = np.ascontiguousarray(seq_f[in_read])
+    qf = np.ascontiguousarray(qual_f[in_read])
+    sr = np.ascontiguousarray(seq_r[in_read])
+    qr = np.ascontiguousarray(qual_r[in_read])
+
+    # read_of is 2*global_pair + mate; remap to the local row
+    l_of = np.zeros(2 * (int(frows.max()) + 1) if Nf else 2, np.int64)
+    l_of[2 * frows] = 2 * np.arange(Nf)
+    l_of[2 * frows + 1] = 2 * np.arange(Nf) + 1
+    read_local = l_of[read_of].astype(np.int32)
+
+    rn_buf, rn_off, rn_lens = _refname_cache(al)
+    nrec = read_of.size
+    per_rec = (280 + name_lens[read_local] + rn_lens[rname]
+               + 2 * lens[read_local] + 12 * np.diff(mm_off))
+    cap = int(per_rec.sum()) + 1024
+
+    z = np.zeros(nrec, np.int32)
+    out = ctypes.create_string_buffer(cap)
+    ends = np.zeros(nrec, np.int64)
+    total = samfmt_lib().format_pe_batch(
+        np.int32(nrec), read_local, np.ascontiguousarray(flag),
+        np.ascontiguousarray(rname), np.ascontiguousarray(pos1),
+        np.ascontiguousarray(mapq), np.ascontiguousarray(c5),
+        np.ascontiguousarray(mid), np.ascontiguousarray(c3),
+        np.ascontiguousarray(pnext), np.ascontiguousarray(tlen),
+        np.ascontiguousarray(yt), np.ascontiguousarray(score),
+        np.ascontiguousarray(nmm), np.ascontiguousarray(nmm),
+        np.ascontiguousarray(zs), np.ascontiguousarray(nh),
+        name_buf, name_off,
+        sf, qf, sr, qr, seq_off,
+        np.ascontiguousarray(mm_cols), mm_ref, mm_off,
+        np.ascontiguousarray(rn_buf), rn_off,
+        out, np.int64(cap), ends, z, z, z)
+    if total < 0:
+        raise RuntimeError("format_pe_batch: SAM buffer overflow")
+    return out.raw[:total], ends

@@ -74,6 +74,17 @@ class AlignerOpts:
     verify_cands: int = 16         # vote-ranked loci verified per orientation
     dp_pad: int = 16               # ref-window padding each side for DP
     no_dp: bool = False            # disable gapped rescue
+    minins: int = 0                # -I: minimum fragment length (PE)
+    maxins: int = 1000             # -X: maximum fragment length (PE)
+    fr: str = "fr"                 # --fr/--rf/--ff mate orientations
+    no_mixed: bool = False         # --no-mixed
+    no_discordant: bool = False    # --no-discordant
+    # PE mate-extent geometry (pe.h PE_ALS_* classes): dovetailed pairs
+    # are non-concordant unless --dovetail; --no-contain/--no-overlap
+    # reject containment/overlap
+    dovetail: bool = False
+    no_contain: bool = False
+    no_overlap: bool = False
     nofw: bool = False             # --nofw: skip forward orientation
     norc: bool = False             # --norc: skip reverse-complement
     omit_sec_seq: bool = False     # --omit-sec-seq: '*' SEQ/QUAL on

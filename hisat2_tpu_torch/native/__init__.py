@@ -3,7 +3,8 @@ via ctypes (no pybind dependency):
 
   sais.cpp      — linear-time SA-IS suffix array construction
   kmersort.cpp  — threaded counting sort behind the k-mer seed table
-  samfmt.cpp    — batched SAM record formatting (finish_se_native)
+  samfmt.cpp    — batched SAM record formatting (finish_se_native;
+                  finish_pe_native, format_pe_mix, format_pe_batch)
   dpkernel.cpp  — single-pair affine-gap DP traceback
 
 The sources are copies of the JAX package's, so both packages format SAM
@@ -89,6 +90,54 @@ def samfmt_lib() -> ctypes.CDLL:
             _u8, _i64,                   # fast_out, read_end
             ctypes.c_char_p, _c_i64, _i64,  # out, cap, stats
             _i32, _i16, _i64]            # cols, mm_out, rec_ends scratch
+        lib.finish_pe_native.restype = _c_i64
+        lib.finish_pe_native.argtypes = [
+            _c_i32, _c_i64, _c_i64, _c_i32,  # B, Lp1, Lp2, nthreads
+            _i16, _c_i32, _c_i32,        # fp, fpw, NRB
+            _i32, _i16, _c_i32, _c_i32, _c_i32,  # tier0
+            _i32, _i16, _c_i32, _c_i32, _c_i32,  # tier1
+            _u8, _u8, _i64,              # seq1, qual1, lens1
+            _u8, _u8, _i64,              # seq2, qual2, lens2
+            _c_i32,                      # qconst
+            _i64, _i64, _i64, _i32, _c_i32,  # frag tables, nfrag
+            _u8, _i64,                   # refname buf/off
+            _u8, _i64,                   # name buf/off (per pair)
+            _c_f64, _c_f64,              # min I/S
+            _c_i32, _c_i32, _c_i32, _c_i32,
+            # match_bonus, khits, NR, omit_sec
+            _u8,                         # force_slow
+            _u8, _i64,                   # fast_out, pair_end
+            ctypes.c_char_p, _c_i64, _i64,  # out, cap, stats
+            _i32, _i16, _i64]            # cols, mm_out, rec_ends scratch
+        lib.format_pe_mix.restype = _c_i64
+        lib.format_pe_mix.argtypes = [
+            _c_i32,                      # nrec
+            _i32, _i32, _i32,            # pair mate flag
+            _i32, _i32, _i32,            # rname pos1 mapq
+            _i32, _i32, _i32,            # c5 mid c3
+            _i32, _i32,                  # rnext pnext1
+            _i32, _i32, _i32, _i32, _i32,  # score zs nmm nh cnt
+            _i16, _c_i32,                # mm lanes, MMX
+            _u8, _i64,                   # name buf/off (per pair)
+            _u8, _u8, _c_i64, _i32,      # seq1 qual1 Lp1 lens1
+            _u8, _u8, _c_i64, _i32,      # seq2 qual2 Lp2 lens2
+            _c_i32,                      # qconst
+            _u8, _i64,                   # refname buf/off
+            ctypes.c_char_p, _c_i64, _i64]  # out, cap, rec_ends
+        lib.format_pe_batch.restype = _c_i64
+        lib.format_pe_batch.argtypes = [
+            _c_i32,
+            _i32, _i32,                  # read_of flag
+            _i32, _i32, _i32,            # rname pos1 mapq
+            _i32, _i32, _i32,            # c5 mid c3
+            _i32, _i32, _i32,            # pnext tlen yt_code
+            _i32, _i32, _i32, _i32, _i32,  # score nmm nm zs nh
+            _u8, _i64,                   # name buf/off (per read)
+            _u8, _u8, _u8, _u8, _i64,    # seq_f qual_f seq_r qual_r off
+            _i32, _u8, _i64,             # mm cols/ref/off (per record)
+            _u8, _i64,                   # refname buf/off
+            ctypes.c_char_p, _c_i64, _i64,  # out, cap, rec_ends
+            _i32, _i32, _i32]            # m1, gapN, xs (spliced records)
         lib._configured = True
     return lib
 

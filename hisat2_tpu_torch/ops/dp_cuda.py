@@ -3,9 +3,13 @@
 Counterpart of hisat2_tpu/ops/dp_pallas.py. The kernel is
 csrc/dp_score.cu (CUDA C++ for sm_90a), built with nvcc on first use into
 the package's git-ignored `_build/kernels/` directory and bound through
-ctypes to a plain C entry point. A CUDA tensor always goes through the
+ctypes to a plain C entry point. A CUDA tensor always goes through a
 kernel; a CPU tensor always goes through the plain version,
-ops/sw.dp_fill_plain. `launches["dp_score"]` counts kernel launches.
+ops/sw.dp_fill_plain. Windows of up to 256 columns (W + 1 <= 256, the SE
+path) take the one-warp-per-candidate kernel, counted in
+`launches["dp_score"]`; wider ones, up to 2,048 columns (the paired-end
+mate rescue), the one-block-per-candidate kernel, counted in
+`launches["dp_score_wide"]`. A window wider than that raises.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {"dp_score": 0}
+launches = {"dp_score": 0, "dp_score_wide": 0}
 _state: dict = {}
 
 
@@ -69,10 +73,17 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dp_score_launch.restype = ci
         lib.dp_score_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
-        lib.dp_score_max_cols.restype = ci
-        lib.dp_score_max_cols.argtypes = []
+        for fn in (lib.dp_score_max_cols, lib.dp_score_warp_max_cols):
+            fn.restype = ci
+            fn.argtypes = []
         _state["lib"] = lib
     return lib
+
+
+def warp_max_cols() -> int:
+    """Widest window (W + 1 columns) of the one-warp kernel; wider ones
+    take the one-block kernel. Builds the library on first use."""
+    return _lib().dp_score_warp_max_cols()
 
 
 def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
@@ -120,5 +131,6 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
             rd_open, rd_ext, rf_open, rf_ext, stream)
     if err != 0:
         raise RuntimeError(f"dp_score kernel launch failed: CUDA error {err}")
-    launches["dp_score"] += 1
+    wide = W + 1 > warp_max_cols()
+    launches["dp_score_wide" if wide else "dp_score"] += 1
     return out

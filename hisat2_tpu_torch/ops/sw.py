@@ -116,6 +116,81 @@ def dp_score_batch(sctab: dict, rd: torch.Tensor, quals: torch.Tensor,
         rf_ext=int(sctab["rf_ext"]))
 
 
+def ungapped_place_batch(sctab: dict, rd: torch.Tensor, quals: torch.Tensor,
+                         rdlens: torch.Tensor, ref: torch.Tensor):
+    """Best ungapped (single-diagonal) placement per lane.
+
+    Scores every diagonal placement of the read in its window with the
+    same substitution/soft-clip model as dp_fill_plain: per diagonal the
+    best clip pair is a max-subarray over A[i] = SCP(i) + cumsum(sub).
+    Where the returned best equals the affine DP score, the optimum is
+    ungapped and no host traceback is needed.
+
+    rd (C, L) codes 0..4, quals (C, L), rdlens (C,), ref (C, W).
+    Returns (best, t0, i1, i2) each (C,) int32: score, window offset of
+    read position 0 (may be negative: clipped ends can overhang), and the
+    aligned read span [i1, i2).
+    """
+    from ..align.scoring import mm_pen_of, sc_pen_of
+    C, L = rd.shape
+    W = ref.shape[1]
+    T = W + L + 1
+    dev = rd.device
+    i32 = torch.int32
+    BAD = -(10 ** 6)
+    rd = rd.to(i32)
+    q = quals.to(i32).clamp(0, 63)
+    rdlens = rdlens.to(i32)
+    in_read = (torch.arange(L, dtype=i32, device=dev)[None, :]
+               < rdlens[:, None])
+    pens = mm_pen_of(sctab, q)
+    scp = torch.where(in_read, sc_pen_of(sctab, q), 0)
+    scp_total = scp.sum(dim=1, dtype=i32)
+    # sentinel (code 5) pad: L columns each side so overhanging clipped
+    # ends stay representable without any aligned base landing outside
+    wp = torch.full((C, W + 2 * L), 5, dtype=i32, device=dev)
+    wp[:, L:L + W] = ref.to(i32)
+
+    # streaming Kadane over read positions: per (lane, diagonal) the
+    # prefix sum A, its running first minimum (value and index), and the
+    # best gain A[i2] - min_{j<i2} A[j]. Strict comparisons keep the first
+    # maximum and the first minimum.
+    A = torch.zeros((C, T), dtype=i32, device=dev)
+    runmin = A
+    rm_idx = torch.zeros((C, T), dtype=i32, device=dev)
+    best = torch.full((C, T), -(1 << 30), dtype=i32, device=dev)
+    b_i1 = torch.zeros((C, T), dtype=i32, device=dev)
+    b_i2 = torch.ones((C, T), dtype=i32, device=dev)
+    rdn = rd >= 4
+    mbonus = sctab["match_bonus"]
+    npen = sctab["n_pen"]
+    for i in range(L):
+        sv = wp[:, i:i + T]
+        mm = sv != rd[:, i:i + 1]
+        isn = (sv >= 4) | rdn[:, i:i + 1]
+        sub = torch.where(mm & ~isn, -pens[:, i:i + 1], 0)
+        sub = sub + torch.where(~mm & ~isn, mbonus, 0)
+        sub = torch.where(isn, -npen, sub)
+        sub = torch.where(sv == 5, BAD, sub)
+        sub = torch.where(in_read[:, i:i + 1], sub, BAD)
+        A2 = A + sub + scp[:, i:i + 1]         # A[i+1] = A[i] + sub + scp
+        cand = A2 - runmin
+        upd = cand > best                      # strict: first max wins
+        best = torch.where(upd, cand, best)
+        b_i2 = torch.where(upd, i + 1, b_i2)
+        b_i1 = torch.where(upd, rm_idx, b_i1)
+        newmin = A2 < runmin                   # strict: first min wins
+        runmin = torch.where(newmin, A2, runmin)
+        rm_idx = torch.where(newmin, i + 1, rm_idx)
+        A = A2
+    ti = torch.argmax(best, dim=1).to(i32)         # first max
+
+    def take(a):
+        return torch.gather(a, 1, ti[:, None].long())[:, 0]
+    return ((take(best) - scp_total).to(i32), ti - L, take(b_i1),
+            take(b_i2))
+
+
 def dp_traceback(scoring, rd: np.ndarray, qual: np.ndarray, ref: np.ndarray):
     """Full DP + traceback for one (read, ref window) pair on the host,
     through native/dpkernel.cpp.

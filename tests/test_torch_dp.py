@@ -139,6 +139,7 @@ def test_dp_kernel_refuses_bad_inputs():
         dp_cuda.dp_score(z.long(), z, lens, z, scp, **sc.dp_consts())
     with pytest.raises(ValueError):
         dp_cuda.dp_score(z, z, lens, z, scp[:, :8], **sc.dp_consts())
-    wide = torch.zeros((4, 300), dtype=torch.int32, device="cuda")
+    # W + 1 = 2049 columns: past the wide kernel's maximum
+    wide = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         dp_cuda.dp_score(z, z, lens, wide, scp, **sc.dp_consts())

@@ -37,7 +37,9 @@ def test_port_modules_import_without_jax():
         hisat2_tpu_torch.__path__, "hisat2_tpu_torch.")]
     assert got["modules"] == expected
     for mod in ("hisat2_tpu_torch.ops.dp_cuda",
+                "hisat2_tpu_torch.ops.wire",
                 "hisat2_tpu_torch.align.emit",
+                "hisat2_tpu_torch.align.paired",
                 "hisat2_tpu_torch.index.fm_index"):
         assert mod in expected
 

@@ -34,6 +34,55 @@ def test_main_path_checks_on_cpu():
     assert rate >= 0.9 and true_rate >= 0.95 and indel_rate > 0.5
 
 
+def test_pe_main_path_checks_on_cpu():
+    """The PE phase's pair simulator, batches and SAM checks, and the
+    wide-window DP case generator, on a 60 kb genome."""
+    g = np.random.default_rng(4).integers(0, 4, 60000).astype(np.uint8)
+    fm = build_fm_index(reference_from_seqs({"chrS": alphabet.decode(g)}))
+    r1, r2, m1_true, indel = chip_smoke.simulate_pairs(fm.ref.joined, 512, 6)
+    assert r1.shape == r2.shape == (512, chip_smoke.RDLEN)
+    assert 5 < indel.sum() < 60
+    # unswapped pairs: mate 1 is the fragment's start, read forward
+    fwd = (r1 == fm.ref.joined[m1_true[:, None]
+                               + np.arange(chip_smoke.RDLEN)]).mean(1)
+    assert 0.3 < (fwd > 0.9).mean() < 0.7
+    quals = np.random.default_rng(1).integers(
+        2, 42, (512, 2, chip_smoke.RDLEN)).astype(np.int8)
+    for q in (None, quals):
+        batches = chip_smoke.make_pair_batches(r1, r2, 0, 256, q)
+        assert [(len(b1), len(b2)) for b1, b2 in batches] == [(256, 256)] * 2
+        assert batches[0][0].names == batches[0][1].names
+        text, stats = chip_smoke.run_pe_stream(Aligner(fm, device="cpu"),
+                                               batches, fm.ref)
+        assert stats["pairs"] == 512
+        share, m1_rate, mate_rate = chip_smoke.check_pe_sam(text, 512,
+                                                            m1_true, indel)
+        assert share >= 0.9 and m1_rate >= 0.95 and mate_rate >= 0.95
+    rd, quals, lens, ref = chip_smoke.make_dp_case(0, 19, 104, 2047)
+    assert rd.shape == (19, 104) and ref.shape == (19, 2047)
+
+
+def test_ptxas_report_by_kernel():
+    """The build phase's per-variant reading of nvcc's -Xptxas -v report:
+    one entry per compiled kernel, the 'Function properties' lines that
+    also name it folded into it."""
+    name = ("_ZN44_GLOBAL__N__ae5ee274_11_dp_score_cu_d4ba99da20dp_score_wide"
+            "_kernelILi5EEEvPKiS2_S2_S2_S2_Piiiiiiiii")
+    report = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 96 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__ae5ee274"
+        "_11_dp_score_cu_d4ba99da15dp_score_kernelILi1EEEvPKi' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 0 barriers"])
+    assert chip_smoke.ptxas_by_kernel(report) == [
+        ("dp_score_wide_kernel<CPL=5>", "0 bytes stack frame, 0 bytes spill "
+         "stores, 0 bytes spill loads | Used 72 registers, used 1 barriers, "
+         "96 bytes smem"),
+        ("dp_score_kernel<CPL=1>", "Used 40 registers, used 0 barriers")]
+
+
 def test_dp_case_generator():
     rd, quals, lens, ref = chip_smoke.make_dp_case(0, 24, 60, 92)
     assert rd.shape == (24, 60) and ref.shape == (24, 92)
