@@ -11,12 +11,17 @@ Phases; any failure exits non-zero:
                  limit as nvidia-smi reports them.
   2. build     - compiles the CUDA source of the DP kernels (the one-warp
                  kernel of the SE windows and the one-block kernel of the
-                 PE rescue's wide windows) with nvcc for sm_90a and prints
-                 the compiler's register/spill report for each variant.
+                 PE rescue's wide windows) with nvcc for sm_90a and prints,
+                 for each variant, the compiler's register/spill report and,
+                 read from the SASS, how many fused add-max and three-way-max
+                 instructions it holds and how many instructions its row
+                 loop spans (--sass DIR also writes the SASS there).
   3. kernels   - each kernel against its plain PyTorch version on the
-                 card, exact int32 equality: random cases with Ns, gaps
-                 and short reads, at the SE main path's shape, and at wide
-                 windows (W + 1 = 257, the rescue's 1105, the maximum 2048).
+                 card, exact int32 equality: random cases with Ns, gaps,
+                 short reads and the stress rows of make_dp_case, at the SE
+                 main path's shape, at the rescue's (W + 1 = 1105), and at
+                 every window where a variant's capacity ends: one column
+                 short of it, exactly at it, and one past it (edge_windows).
   4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
@@ -38,7 +43,9 @@ Phases; any failure exits non-zero:
                  constant-quality pairs (the packed step) and 512 pairs with
                  per-base qualities (the fused step) go through the CPU path
                  and the card: the SAM bytes must be equal.
-  6. report    - each DP kernel's time on its main path's own inputs, its
+  6. report    - the wide kernel's time and bound at W = 604, 1104 and
+                 2047 (-X 500, the default -X 1000, the kernel's maximum);
+                 each DP kernel's time on its main path's own inputs, its
                  plain version's time and its bound, as one JSON line;
                  end-to-end reads/s (SE) and pairs/s (PE) and peak device
                  memory beside the card name and power limit; last line
@@ -49,6 +56,22 @@ rate and its int32 operations over the card's int32 rate, both from the
 H100 SXM data sheet: 3.35 TB/s, and 16.75 T int32 op/s (the 67 TFLOP/s
 float32 rate counts 2 flops per FMA on 128 lanes per SM; an SM has 64
 int32 lanes, so int32 runs at a quarter of that figure).
+
+DP_OPS_PER_CELL is the least number of integer instructions one DP cell
+needs on this card, a fused add-max or three-way max counted as one:
+  substitution score   2   compare window base with read base, select
+                           match or mismatch score (an N is a per-row or
+                           per-column constant, not a per-cell test)
+  F                    1   max(H + (ext - open), F), rows kept with
+                           row * ext added so F itself needs no decrement
+  G                    1   max(Hdiag + s, F)
+  running max          1   max(G + ext * j, run)
+  E and H, clip floor  3   max(G, M[j-1] + e_j, excl + e_j, clip): four
+                           values and two sums cannot fold into two
+                           three-input instructions
+  row maximum          0.5 one three-way max takes two cells
+It counts the recurrence, not what a kernel happens to execute; the per-row
+scan across lanes and the hand-off between warps come on top.
 """
 
 from __future__ import annotations
@@ -58,6 +81,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,7 +90,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
-DP_OPS_PER_CELL = 20          # int32 operations per DP cell (see dp_score.cu)
+DP_OPS_PER_CELL = 8.5         # integer instructions per DP cell (see above)
 
 GENOME_LEN = 4_641_652        # E. coli K-12 MG1655
 BATCH = 16384
@@ -94,11 +118,17 @@ def card_line() -> str:
 def make_dp_case(seed, C, L, W):
     """Random DP inputs: reads cut from their windows with mismatches and
     Ns, a 1-3 bp deletion on every third row, random lengths, and a few
-    degenerate rows (unrelated read, all-N window, lengths 0 and 1)."""
+    degenerate rows (unrelated read, all-N window, lengths 0 and 1). With
+    13 rows or more, the last seven stress the kernels' edges: an all-N
+    read; a read whose first and last base are N; qualities 2 (the
+    smallest clip and mismatch penalties) and 40; a full-length read; a
+    read that hangs one N base over the window's end (a column past the
+    window that leaked into the maximum would score it higher); and an
+    exact match that ends in the window's last column."""
     rng = np.random.default_rng(seed)
     ref = rng.integers(0, 4, (C, W)).astype(np.int32)
     rd = np.empty((C, L), np.int32)
-    lens = rng.integers(30, L + 1, C).astype(np.int32)
+    lens = rng.integers(min(30, max(11, L // 2)), L + 1, C).astype(np.int32)
     starts = rng.integers(0, W - L + 1, C)
     for i in range(C):
         s = starts[i]
@@ -115,7 +145,37 @@ def make_dp_case(seed, C, L, W):
     ref[2] = 4
     lens[4] = 0
     lens[5] = 1
+    if C >= 13:
+        r = C - 7
+        rd[r] = 4
+        rd[r + 1, 0] = rd[r + 1, lens[r + 1] - 1] = 4
+        quals[r + 2] = 2
+        quals[r + 3] = 40
+        lens[r + 4] = L
+        rd[r + 5, :L - 1] = ref[r + 5, W - L + 1:]
+        rd[r + 5, L - 1] = 4
+        rd[r + 6] = ref[r + 6, W - L:]
+        quals[r + 5:] = 40
+        lens[r + 5:] = L
     return rd, quals, lens, ref
+
+
+def edge_windows(kernel: str):
+    """Windows W at which a variant of `kernel` ("dp_score" or
+    "dp_score_wide") ends: W + 1 one short of, at and one past each
+    variant's capacity, and the rescue's default W + 1 = 1105."""
+    from hisat2_tpu_torch.ops import dp_cuda
+    caps = {32 * k for k in range(1, dp_cuda.NARROW_MAX_COLS // 32 + 1)}
+    caps |= {32 * w * k for w, k in dp_cuda.WIDE_VARIANTS}
+    cols = {c + d for c in caps for d in (-1, 0, 1)} | {1105}
+    return [c - 1 for c in sorted(cols) if c <= dp_cuda.MAX_COLS
+            and dp_cuda.dispatch_plan(c - 1).kernel == kernel]
+
+
+def edge_case_shape(W: int):
+    """(C, L) of the random case that checks a window of W: reads no longer
+    than the window, enough rows for make_dp_case's stress rows."""
+    return 16, (104 if W >= 104 else 40 if W >= 40 else 24)
 
 
 def time_cuda(fn, iters: int, warmup: int) -> float:
@@ -137,8 +197,14 @@ def time_cuda(fn, iters: int, warmup: int) -> float:
 def kernel_of(W: int) -> str:
     """Which DP kernel dp_cuda.dp_score launches for a window of W."""
     from hisat2_tpu_torch.ops import dp_cuda
-    return "dp_score_wide" if W + 1 > dp_cuda.warp_max_cols() \
-        else "dp_score"
+    return dp_cuda.dispatch_plan(W).kernel
+
+
+def variant_of(mangled: str):
+    """'dp_score_kernel<CPL=5>' or 'dp_score_wide_kernel<CPL=9>' from a
+    mangled kernel name, or None."""
+    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<CPL={m.group(2)}>" if m else None
 
 
 def ptxas_by_kernel(report: str):
@@ -146,17 +212,67 @@ def ptxas_by_kernel(report: str):
     -Xptxas -v report."""
     out, name, regs = [], None, []
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function .*?"
-                      r"(dp_score_(?:wide_)?kernel)ILi(\d+)E", ln)
-        if m:
+        if "Compiling entry function" in ln and variant_of(ln):
             if name:
                 out.append((name, " | ".join(regs)))
-            name, regs = f"{m.group(1)}<CPL={m.group(2)}>", []
+            name, regs = variant_of(ln), []
         elif name and ("registers" in ln or "spill" in ln):
             regs.append(ln.split(":", 1)[-1].strip())
     if name:
         out.append((name, " | ".join(regs)))
     return out
+
+
+def sass_by_kernel(sass: str):
+    """{kernel variant: (fused add-max count, three-way max count,
+    instructions the row loop spans)} from `cuobjdump -sass` text. The
+    row loop is the widest predicated backward branch of the function
+    (the unconditional ones return from out-of-line code); the span
+    counts both sides of every fork inside it (the window-base-N fix-up
+    and the masked row maximum, which most threads skip), so it is an
+    upper limit of what a row executes."""
+    out, name, ins = {}, None, []
+
+    def close():
+        if not name:
+            return
+        loops = [(a - t, t, a) for a, _, t, pred in ins
+                 if pred and t is not None and t <= a]
+        span = 0
+        if loops:
+            _, t, a = max(loops)
+            span = sum(1 for b, _, _, _ in ins if t <= b <= a)
+        out[name] = (sum(op == "VIADDMNMX" for _, op, _, _ in ins),
+                     sum(op == "VIMNMX3" for _, op, _, _ in ins), span)
+
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            close()
+            name, ins = variant_of(ln), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\d+\s+)?"
+                     r"([A-Z][\w.]*)(.*?);", ln)
+        if m and name:
+            op = m.group(3).split(".")[0]
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(4)) \
+                if m.group(3) == "BRA" else None
+            ins.append((int(m.group(1), 16), op,
+                        int(tgt.group(1), 16) if tgt else None,
+                        bool(m.group(2))))
+    close()
+    return out
+
+
+def read_sass(lib_path: str):
+    """`cuobjdump -sass` of the built library, or None where the toolkit
+    has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    exe = os.path.join(home, "bin", "cuobjdump")
+    exe = exe if os.path.exists(exe) else shutil.which("cuobjdump")
+    if exe is None:
+        return None
+    return subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
 
 
 def simulate_reads(joined: np.ndarray, n: int, seed: int):
@@ -343,6 +459,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one batch with torch.profiler")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="also write the kernels' SASS to DIR/dp_score.sass")
     args = ap.parse_args()
 
     import torch
@@ -369,11 +487,33 @@ def main() -> int:
 
     # -- build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _, report = dp_cuda.build()
-    print(f"[build] dp_score.cu in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    lib_path, report = dp_cuda.build()
+    form = ("fused add-max / three-way-max intrinsics"
+            if dp_cuda.fused_form() else
+            "plain add-then-max form (toolkit without the intrinsics)")
+    print(f"[build] dp_score.cu in {time.perf_counter() - t0:.1f} s; cell "
+          f"update compiled on the {form}", flush=True)
+    sass_text = read_sass(lib_path)
+    sass = sass_by_kernel(sass_text) if sass_text else {}
+    if sass_text is None:
+        print("[build] no cuobjdump in the toolkit: SASS not read",
+              flush=True)
+    elif args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        with open(os.path.join(args.sass, "dp_score.sass"), "w") as f:
+            f.write(sass_text)
     for variant, regs in ptxas_by_kernel(report):
-        print(f"[build]   {variant}: {regs}", flush=True)
+        line = f"[build]   {variant}: {regs}"
+        if variant in sass:
+            am, m3, loop = sass[variant]
+            line += (f" | SASS: {am} VIADDMNMX, {m3} VIMNMX3 (fused "
+                     f"instructions {'' if am or m3 else 'NOT '}emitted), "
+                     f"row loop spans {loop} instructions, every branch "
+                     f"counted")
+        check("spill" not in regs or
+              ("0 bytes spill stores, 0 bytes spill loads" in regs),
+              f"{variant} spills registers: {regs}")
+        print(line, flush=True)
 
     # -- kernels against their plain versions --------------------------
     sc = Scoring()
@@ -393,9 +533,11 @@ def main() -> int:
         print(f"[kernels] {name} == plain on {what}: C={rd.shape[0]} "
               f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
 
-    for seed, C, L, W in ((0, 24, 60, 92), (1, 24, 60, 92),
+    edges = [(100 + W, *edge_case_shape(W), W)
+             for W in edge_windows("dp_score") + edge_windows("dp_score_wide")]
+    for seed, C, L, W in [(0, 24, 60, 92), (1, 24, 60, 92),
                           (2, 8192, 104, 136), (3, 37, 104, 256),
-                          (4, 512, 104, 1104), (5, 19, 104, 2047)):
+                          (4, 512, 104, 1104), (5, 19, 104, 2047)] + edges:
         rd, quals, lens, ref = make_dp_case(seed, C, L, W)
         t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
         pen, scp_cum = dp_inputs(sctab, t[1], t[2])
@@ -562,6 +704,33 @@ def main() -> int:
                       "PE batch of 16384 pairs")
 
     # -- report ----------------------------------------------------------
+    def bound_ms(rd, rl, ref):
+        """(bound, bytes' time, operations' time, bytes, cells) of one
+        launch: every input read once and the scores written once, and
+        DP_OPS_PER_CELL instructions for each cell of a real read row."""
+        C, L = rd.shape
+        W = ref.shape[1]
+        cells = int(rl.clamp(0, L).sum()) * (W + 1)
+        nbytes = 4 * (2 * rd.numel() + rl.numel() + ref.numel()
+                      + C * (L + 1) + C)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = cells * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), t_bytes, t_ops, nbytes, cells
+
+    for W in (604, 1104, 2047):
+        rd, quals, lens, ref = make_dp_case(40 + W, 512, PAD_TO, W)
+        t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+        pen, scp_cum = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+        ms = time_cuda(lambda: dp_cuda.dp_score(t[0], pen, t[2], t[3],
+                                                scp_cum, **consts),
+                       iters=50, warmup=10)
+        bound, _, _, _, cells = bound_ms(t[0], t[2], t[3])
+        plan = dp_cuda.dispatch_plan(W)
+        print(f"[sweep] {plan.kernel} at C=512 L={PAD_TO} W={W} "
+              f"({plan.warps} warps x {plan.cpl} columns a lane, {cells} "
+              f"cells): {ms:.4f} ms, bound {bound:.4f} ms, "
+              f"{bound / ms:.3f} of the bound reached [{card}]", flush=True)
+
     kernels = []
     for name, cap, cnt, path in (
             ("dp_score", captured[0], launches["dp_score"]
@@ -580,23 +749,20 @@ def main() -> int:
                                                    **consts), iters=5,
                              warmup=2)
         rows = int(rl.clamp(0, L).sum())
-        nbytes = 4 * (rd.numel() + pen.numel() + rl.numel() + ref.numel()
-                      + scp_cum.numel() + C)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = rows * (W + 1) * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+        bound, t_bytes, t_ops, nbytes, cells = bound_ms(rd, rl, ref)
         kernels.append(dict(
             name=name, route="cuda",
             source="hisat2_tpu_torch/csrc/dp_score.cu",
             replaces="hisat2_tpu/ops/dp_pallas.py:113", shape=f"C={C} "
             f"L={L} W={W}", launches=cnt, max_abs_err=max_err[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            plain_ms=plain_ms, bound_ms=bound,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
         print(f"[report] {name} ({path}) at C={C} L={L} W={W}, {rows} read "
               f"rows: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, "
-              f"{rows * (W + 1)} cells), {cnt} launches [{card}]",
-              flush=True)
+              f"{bound:.4f} ms ({nbytes} bytes, {cells} cells x "
+              f"{DP_OPS_PER_CELL} instructions), {bound / ms:.3f} of the "
+              f"bound reached, {cnt} launches [{card}]", flush=True)
     print(f"[report] SE end to end {rps:.1f} reads/s, peak device memory "
           f"{peak_mb:.1f} MiB [{card}]", flush=True)
     print(f"[report] PE end to end {pps:.1f} pairs/s = {2 * pps:.1f} "

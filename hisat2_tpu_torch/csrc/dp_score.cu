@@ -14,48 +14,276 @@
 //   * rows past a read's length frozen (the loop simply stops there).
 // The plain PyTorch version is hisat2_tpu_torch/ops/sw.py:dp_fill_plain.
 //
-// What bounds it on the card: operations, not bytes. On the main path
-// one launch fills 8192 candidates x 100 real read rows x 137 columns,
-// about 112 M cells at roughly 20 int32 operations each; its inputs are
-// about 14 MB (read, penalty, clip prefix, window: 4-byte codes). The
-// paired-end mate rescue fills 512 candidates x 100 rows x 1105 columns,
-// about 57 M cells, from about 2.7 MB of inputs.
+// What bounds it on the card: operations, not bytes. The SE path's launch
+// fills 8192 candidates x 100 read rows x 137 columns (112 M cells) from
+// 14.8 MB of inputs, the paired-end mate rescue's 512 x 100 x 1105 (57 M
+// cells) from 2.9 MB; at 8.5 integer instructions a cell (below) the
+// arithmetic takes several times longer than the bytes.
 //
-// Design, windows of up to 256 columns (the SE path): one warp per
-// candidate. The W+1 window columns lie in contiguous runs of
-// CPL = ceil((W+1)/32) columns per lane, H and F in registers. A loop over
-// read rows; the row's diagonal neighbour crosses lanes with
-// __shfl_up_sync, the cummax is a per-lane scan followed by a
-// warp-shuffle inclusive scan, and the row maximum a warp reduction.
-// Read char, penalty and clip prefix of row i are read once per warp
-// (one broadcast address). All DP state stays in registers, so device
-// memory sees each input once and the per-cell integer work is what is
-// left to bound the kernel; a read's loop ends at its own length.
+// The cell update, shared by both kernels (Cols, fill_g, fill_h). All
+// values of row i are kept with i * rf_ext added, so a reference gap
+// extends for free and F needs no decrement; everything that is fixed
+// per column (window base, ext * j, the E cost -open - ext * (j - 1)) or
+// per row (read base, mismatch score, clip floor) is computed once,
+// outside the cell. Each add-then-max is one fused instruction
+// (__viaddmax_s32, __vimax3_s32: VIADDMNMX and VIMNMX3 on sm_90). Per
+// cell that leaves:
+//     s   = window base == read base ? match : mismatch     2 (compare, select)
+//     F'  = max(H + (rf_ext - rf_open), F)                  1
+//     G   = max(Hdiag + s, F')                              1
+//     run = max(G + ext * j, run)                           1
+//     H'  = max(G, max(M[j-1], excl) + e_j, clip floor)     3
+//     row maximum, a three-way max over two cells           0.5
+// 8.5 instructions; a row's lane scan, hand-off and loop come on top
+// (PERF.md has the counts from the SASS). What does not happen in every
+// cell is handled where it occurs: column 0 in thread 0's first column; the columns past the
+// window only in the row maximum (they lie to the right of every real
+// column, so nothing they hold can reach one; they hold ordinary finite
+// scores, never kNeg minus a growing term, so nothing wraps); a window
+// base of N by a per-thread bit mask whose fix-up runs only in warps
+// that hold one; a read base of N by the row's constants.
 //
-// Design, wider windows (the paired-end mate rescue: W = maxins + L, 1104
-// at the defaults, C = 512 candidates): one warp per candidate would need
-// 35 columns per lane, six arrays of them in registers, and would spill;
-// and 512 warps leave most of 132 SMs idle. So one block of kWideWarps
-// warps takes one candidate, with CPL = ceil((W+1)/256) <= 8 columns per
-// lane. Per row, each warp runs the one-warp scheme on its own columns;
-// two values cross warps through shared memory: each warp's inclusive
-// running-max total (its successors' exclusive prefix) and its last
-// column's H (the next row's diagonal neighbour of the next warp's first
-// column), with one barrier after each. The 3' clip maximum needs no
-// barrier: the row's clip cost is the same for every column, so each
-// thread keeps max over rows of (its own row maximum - that cost) and the
-// block reduces once at the end.
+// Windows of up to 256 columns (the SE path): one warp per candidate,
+// CPL = ceil((W+1)/32) columns per lane in registers. The diagonal
+// neighbour crosses lanes by __shfl_up_sync, the running max is a per-lane
+// scan plus a warp-shuffle scan. No barrier; shared memory holds only the
+// staged row constants; each thread keeps its own 3'-clip maximum and the
+// warp reduces once at the end.
+//
+// Wider windows, up to 2048 columns (the mate rescue, W = maxins + L): one
+// block of 4 warps per candidate, 128 * CPL columns, CPL = 3..16 (more
+// warps with fewer columns each were slower at every window measured:
+// the per-row scan and hand-off are paid per warp). The warps are
+// skewed: at step t warp w fills row t - w. What a warp needs from its
+// left neighbour was then produced a step earlier: the neighbour's last
+// column's H of the row above (ring of 4 in shared memory) and the
+// running-max prefix of this row through the neighbour (ring of 2), which
+// each warp publishes with its own total folded in, so the reader takes one
+// value. One block barrier a step, len + 3 steps. As in the one-warp
+// kernel, the row's constants (read base, mismatch score, clip floor) are
+// staged in shared memory once, so no global load sits in the row loop.
+// The wrapper picks CPL by the window (ops/dp_cuda.dispatch_plan) and
+// this file refuses a plan that does not cover it. The widest variant uses 128
+// registers a thread, so four blocks fit an SM and the rescue's 512
+// candidates are resident in one wave on 132 SMs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#if defined(__CUDACC_VER_MAJOR__) && __CUDACC_VER_MAJOR__ >= 12
+#define DP_FUSED 1
+#else
+#define DP_FUSED 0
+#endif
+
 namespace {
 
 constexpr int kNeg = -(1 << 28);
-constexpr int kWarpsPerBlock = 4;
-constexpr int kWideWarps = 8;
-constexpr int kMaxCpl = 8;
+constexpr int kWarpsPerBlock = 4;       // one-warp kernel: candidates a block
+constexpr int kWideWarps = 4;           // one-block kernel: warps a candidate
+constexpr int kRowN = 8;                // read base N: equals no window base
+constexpr int kColPad = 5;              // column 0 and columns past W
 constexpr unsigned kFull = 0xffffffffu;
+
+// Pins a value that is fixed for the whole launch in a register. Without
+// it the compiler recomputes the per-column constants, the N mask and the
+// shared-memory addresses from the thread index in every row (it counts
+// them cheap), which costs more instructions a cell than the recurrence.
+#define DP_KEEP(x) asm volatile("" : "+r"(x))
+
+// max(a + b, c) and max(a, b, c): one instruction each on sm_90
+__device__ __forceinline__ int addmax(int a, int b, int c)
+{
+#if DP_FUSED
+    return __viaddmax_s32(a, b, c);
+#else
+    return max(a + b, c);
+#endif
+}
+
+__device__ __forceinline__ int max3(int a, int b, int c)
+{
+#if DP_FUSED
+    return __vimax3_s32(a, b, c);
+#else
+    return max(max(a, b), c);
+#endif
+}
+
+// What is the same in every cell of read row i. Values of row i carry
+// (i + 1) * rf_ext after the row's update (see the note above).
+struct RowK {
+    int rcx;        // read base, kRowN for N
+    int sx;         // score of a non-matching cell, + rf_ext
+    int clipx;      // 5' clip floor -scp_cum[i + 1], + (i + 1) * rf_ext
+};
+
+__device__ __forceinline__ RowK row_consts(int rc, int pc, int scp_next,
+                                           int i, int n_pen, int rf_ext)
+{
+    RowK r;
+    const bool n = rc >= 4;
+    r.rcx = n ? kRowN : rc;
+    r.sx = (n ? -n_pen : -pc) + rf_ext;
+    r.clipx = (i + 1) * rf_ext - scp_next;
+    DP_KEEP(r.sx);      // or the + rf_ext moves behind every cell's select
+    return r;
+}
+
+// Stages the RowK of a candidate's read rows in shared memory, once, by
+// `nthreads` threads of which this is thread `tid`; the row loop then
+// takes one 16-byte shared load a row and no global load.
+__device__ __forceinline__ void stage_rows(int4* rows, const int32_t* rdc,
+                                           const int32_t* penc,
+                                           const int32_t* scpc, int len,
+                                           int n_pen, int rf_ext, int tid,
+                                           int nthreads)
+{
+    for (int i = tid; i < len; i += nthreads) {
+        const RowK r = row_consts(rdc[i], penc[i], scpc[i + 1], i, n_pen,
+                                  rf_ext);
+        rows[i] = make_int4(r.rcx, r.sx, r.clipx, 0);
+    }
+}
+
+__device__ __forceinline__ RowK staged_row(const int4* rows, int i)
+{
+    const int4 q = rows[i];
+    return RowK{q.x, q.y, q.z};
+}
+
+// A thread's CPL adjacent columns j0 .. j0 + CPL - 1.
+template <int CPL>
+struct Cols {
+    int H[CPL], F[CPL];
+    int rf[CPL];        // window base; kColPad where there is none
+    int ext[CPL];       // rd_ext * j
+    int e[CPL];         // -rd_open - rd_ext * (j - 1)
+    unsigned nmask;     // bit k: the window base of column k is N
+    int nreal;          // how many of the columns are <= W
+};
+
+template <int CPL>
+__device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
+                                          int j0, int W, int rd_open,
+                                          int rd_ext)
+{
+    c.nmask = 0;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+        const int j = j0 + k;
+        c.H[k] = (j <= W) ? 0 : kNeg;   // free leading reference gap
+        c.F[k] = kNeg;
+        const int b = (j >= 1 && j <= W) ? refc[j - 1] : kColPad;
+        c.rf[k] = b;
+        if (b == 4) c.nmask |= 1u << k;
+        c.ext[k] = rd_ext * j;
+        c.e[k] = -rd_open - rd_ext * (j - 1);
+        DP_KEEP(c.ext[k]);
+        DP_KEEP(c.e[k]);
+    }
+    c.nreal = min(max(W + 1 - j0, 0), CPL);
+    DP_KEEP(c.nmask);
+    DP_KEEP(c.nreal);
+}
+
+// First half of a row: F and G of the thread's columns and the running
+// max of G + ext * j, seeded with run0. hleft is the row above's H in
+// column j0 - 1; `first` marks the thread that holds column 0. Returns the
+// thread's inclusive run.
+template <int CPL>
+__device__ __forceinline__ int fill_g(Cols<CPL>& c, int (&G)[CPL],
+                                      int (&M)[CPL], int hleft, const RowK& r,
+                                      int sm, int sn, int cf, bool first,
+                                      int run0)
+{
+    int s[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) s[k] = (c.rf[k] == r.rcx) ? sm : r.sx;
+    if (c.nmask) {                      // a window base of N: rare
+#pragma unroll
+        for (int k = 0; k < CPL; ++k)
+            if (c.nmask & (1u << k)) s[k] = sn;
+    }
+    int run = run0;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+        const int hdiag = (k == 0) ? hleft : c.H[k - 1];
+        int fn = addmax(c.H[k], cf, c.F[k]);
+        int g = addmax(hdiag, s[k], fn);
+        if (k == 0 && first) { g = cf; fn = cf; }   // column 0: all gap
+        G[k] = g;
+        c.F[k] = fn;
+        run = addmax(g, c.ext[k], run);
+        M[k] = run;
+    }
+    return run;
+}
+
+// Maximum of H over the thread's columns inside the window.
+template <int CPL>
+__device__ __forceinline__ int col_max(const Cols<CPL>& c)
+{
+    int m = kNeg;
+    if (c.nreal == CPL) {
+#pragma unroll
+        for (int k = 0; k + 1 < CPL; k += 2) m = max3(m, c.H[k], c.H[k + 1]);
+        if (CPL & 1) m = max(m, c.H[CPL - 1]);
+    } else {                            // the thread that holds column W
+#pragma unroll
+        for (int k = 0; k < CPL; ++k)
+            if (k < c.nreal) m = max(m, c.H[k]);
+    }
+    return m;
+}
+
+// Second half: close the read gaps with the running max (excl: the max
+// over every column left of the thread), apply the 5' clip floor, and
+// return the thread's row maximum.
+template <int CPL>
+__device__ __forceinline__ int fill_h(Cols<CPL>& c, const int (&G)[CPL],
+                                      const int (&M)[CPL], int excl,
+                                      int clipx)
+{
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+        const int u = excl + c.e[k];
+        const int t = (k == 0) ? u : addmax(M[k - 1], c.e[k], u);
+        c.H[k] = max3(G[k], t, clipx);
+    }
+    return col_max(c);
+}
+
+// Shared-memory words by their 32-bit shared address. The wide kernel
+// keeps the addresses of its hand-off slots pinned in registers; through
+// plain indexing the compiler rebuilds each address from the thread index
+// in every row, about 35 instructions a row.
+__device__ __forceinline__ unsigned smem_addr(const void* p)
+{
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ int lds(unsigned addr)
+{
+    int v;
+    asm volatile("ld.shared.s32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void sts(unsigned addr, int v)
+{
+    asm volatile("st.shared.s32 [%0], %1;" : : "r"(addr), "r"(v) : "memory");
+}
+
+// Inclusive max scan over the warp's lanes. A lane below d reads its own
+// value back from the shuffle, so no lane test is needed.
+__device__ __forceinline__ int warp_scan_max(int v)
+{
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1)
+        v = max(v, __shfl_up_sync(kFull, v, d));
+    return v;
+}
 
 template <int CPL>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -68,87 +296,49 @@ dp_score_kernel(const int32_t* __restrict__ rd,
                 int C, int L, int W, int match_bonus, int n_pen,
                 int rd_open, int rd_ext, int rf_open, int rf_ext)
 {
+    extern __shared__ int4 rows_all[];  // RowK of each warp's read rows
     const int lane = threadIdx.x & 31;
     const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
     if (c >= C) return;                 // uniform per warp
+    int4* rows = rows_all + (size_t)(threadIdx.x >> 5) * L;
     const int32_t* rdc = rd + (size_t)c * L;
     const int32_t* penc = pen + (size_t)c * L;
     const int32_t* scpc = scp_cum + (size_t)c * (L + 1);
     const int len = min(max(rdlens[c], 0), L);
     const int scp_tot = scpc[L];
-    const int j0 = lane * CPL;
+    const int sm = match_bonus + rf_ext;
+    const int sn = rf_ext - n_pen;
+    const int cf = rf_ext - rf_open;
+    const bool first = lane == 0;
 
-    int H[CPL], F[CPL], rf[CPL];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-        const int j = j0 + k;
-        H[k] = (j <= W) ? 0 : kNeg;     // free leading reference gap
-        F[k] = kNeg;
-        rf[k] = (j >= 1 && j <= W) ? ref[(size_t)c * W + j - 1] : 4;
-    }
-    int best = -scp_tot;                // fully clipped read
+    Cols<CPL> col;
+    cols_init(col, ref + (size_t)c * W, lane * CPL, W, rd_open, rd_ext);
+    int best = -scp_tot;                // clip the whole read
+    stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, lane, 32);
+    __syncwarp();
 
     for (int i = 0; i < len; ++i) {
-        const int rc = rdc[i];
-        const int pc = penc[i];
-        const int clip = -scpc[i + 1];
-        const int col0 = -(rf_open + i * rf_ext);
-        // previous row's H at this lane's first column - 1
-        const int hleft = __shfl_up_sync(kFull, H[CPL - 1], 1);
-        int G[CPL], Fn[CPL], M[CPL];
-        int run = kNeg;
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-            const int j = j0 + k;
-            const int hdiag = (k == 0) ? hleft : H[k - 1];
-            const bool isn = (rc >= 4) || (rf[k] >= 4);
-            const bool mm = (rc != rf[k]) && !isn;
-            const int s = mm ? -pc : (isn ? -n_pen : match_bonus);
-            int fn = max(H[k] - rf_open, F[k] - rf_ext);
-            int g = max(hdiag + s, fn);
-            if (j == 0) { g = col0; fn = col0; }
-            if (j > W) { g = kNeg; fn = kNeg; }
-            G[k] = g;
-            Fn[k] = fn;
-            run = max(run, g + rd_ext * j);
-            M[k] = run;
-        }
-        // exclusive prefix max of the lane totals: M over all columns
-        // left of this lane
-        int tot = run;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int v = __shfl_up_sync(kFull, tot, d);
-            if (lane >= d) tot = max(tot, v);
-        }
+        const RowK r = staged_row(rows, i);
+        // the row above's H in this lane's first column - 1
+        const int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
+        int G[CPL], M[CPL];
+        const int run = fill_g(col, G, M, hleft, r, sm, sn, cf, first, kNeg);
+        const int tot = warp_scan_max(run);
         int excl = __shfl_up_sync(kFull, tot, 1);
-        if (lane == 0) excl = kNeg;
-        int rowmax = kNeg;
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-            const int j = j0 + k;
-            const int mprev = (k == 0) ? excl : max(excl, M[k - 1]);
-            int h = max(G[k], mprev - rd_open - rd_ext * (j - 1));
-            if (j == 0) h = col0;
-            h = max(h, clip);           // 5' soft clip floor
-            if (j > W) h = kNeg;
-            H[k] = h;
-            F[k] = Fn[k];
-            rowmax = max(rowmax, h);
-        }
-        rowmax = __reduce_max_sync(kFull, rowmax);
-        // 3' soft clip: end the alignment after read position i+1
-        best = max(best, rowmax - (scp_tot + clip));
+        if (first) excl = kNeg;
+        const int rowmax = fill_h(col, G, M, excl, r.clipx);
+        // 3' soft clip: end the alignment after read position i + 1
+        best = addmax(rowmax, -r.clipx - scp_tot, best);
     }
-    int hmax = kNeg;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) hmax = max(hmax, H[k]);
-    hmax = __reduce_max_sync(kFull, hmax);
-    if (lane == 0) out[c] = max(best, hmax);
+    best = max(best, col_max(col) - len * rf_ext);
+    best = __reduce_max_sync(kFull, best);
+    if (first) out[c] = best;
 }
 
+// Four blocks an SM: the 512 candidates of a rescue launch are resident
+// in one wave on 132 SMs, and a thread may use up to 128 registers.
 template <int CPL>
-__global__ void __launch_bounds__(32 * kWideWarps)
+__global__ void __launch_bounds__(32 * kWideWarps, 4)
 dp_score_wide_kernel(const int32_t* __restrict__ rd,
                      const int32_t* __restrict__ pen,
                      const int32_t* __restrict__ rdlens,
@@ -158,178 +348,185 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
                      int L, int W, int match_bonus, int n_pen,
                      int rd_open, int rd_ext, int rf_open, int rf_ext)
 {
-    __shared__ int wtot[kWideWarps];    // each warp's inclusive run total
-    __shared__ int hedge[kWideWarps];   // each warp's last column's H
-    __shared__ int wbest[kWideWarps];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    constexpr int NW = kWideWarps;
+    extern __shared__ int4 rows[];      // RowK of each read row
+    __shared__ int pfx[NW][2];          // run prefix through warp w, row r & 1
+    __shared__ int hedge[NW][4];        // warp w's last H after row r - 1
+    __shared__ int wbest[NW];
+    int lane = threadIdx.x & 31;
+    int warp = threadIdx.x >> 5;
+    DP_KEEP(lane);
+    DP_KEEP(warp);
     const int c = blockIdx.x;
     const int32_t* rdc = rd + (size_t)c * L;
     const int32_t* penc = pen + (size_t)c * L;
     const int32_t* scpc = scp_cum + (size_t)c * (L + 1);
     const int len = min(max(rdlens[c], 0), L);
     const int scp_tot = scpc[L];
-    const int j0 = threadIdx.x * CPL;
+    const int sm = match_bonus + rf_ext;
+    const int sn = rf_ext - n_pen;
+    const int cf = rf_ext - rf_open;
+    const bool first = lane == 0 && warp == 0;
+    const bool edge = lane == 0 && warp > 0;    // reads the left warp's values
+    const bool last = lane == 31;               // publishes this warp's values
+    unsigned pfx_in = smem_addr(pfx[warp > 0 ? warp - 1 : 0]);
+    unsigned hedge_in = smem_addr(hedge[warp > 0 ? warp - 1 : 0]);
+    unsigned pfx_out = smem_addr(pfx[warp]);
+    unsigned hedge_out = smem_addr(hedge[warp]);
+    DP_KEEP(pfx_in);
+    DP_KEEP(hedge_in);
+    DP_KEEP(pfx_out);
+    DP_KEEP(hedge_out);
 
-    int H[CPL], F[CPL], rf[CPL];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-        const int j = j0 + k;
-        H[k] = (j <= W) ? 0 : kNeg;     // free leading reference gap
-        F[k] = kNeg;
-        rf[k] = (j >= 1 && j <= W) ? ref[(size_t)c * W + j - 1] : 4;
-    }
-    int best = -scp_tot;                // fully clipped read
-    if (lane == 31) hedge[warp] = H[CPL - 1];
+    stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, threadIdx.x,
+               32 * NW);
+    Cols<CPL> col;
+    cols_init(col, ref + (size_t)c * W, threadIdx.x * CPL, W, rd_open,
+              rd_ext);
+    // Clipping the whole read is every thread's starting value, in a
+    // register of its own: folded as -scp_tot into the last three-way max
+    // instead, nvcc 12.9 emitted VIMNMX3 on +scp_tot.
+    int best = -scp_tot;
+    if (last) hedge[warp][0] = col.H[CPL - 1];
     __syncthreads();
 
-    for (int i = 0; i < len; ++i) {
-        const int rc = rdc[i];
-        const int pc = penc[i];
-        const int clip = -scpc[i + 1];
-        const int col0 = -(rf_open + i * rf_ext);
-        // previous row's H at this thread's first column - 1: the lane
-        // below, or for lane 0 the previous warp's last column (unused by
-        // thread 0, whose first column is j = 0)
-        int hleft = __shfl_up_sync(kFull, H[CPL - 1], 1);
-        if (lane == 0 && warp > 0) hleft = hedge[warp - 1];
-        int G[CPL], Fn[CPL], M[CPL];
-        int run = kNeg;
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-            const int j = j0 + k;
-            const int hdiag = (k == 0) ? hleft : H[k - 1];
-            const bool isn = (rc >= 4) || (rf[k] >= 4);
-            const bool mm = (rc != rf[k]) && !isn;
-            const int s = mm ? -pc : (isn ? -n_pen : match_bonus);
-            int fn = max(H[k] - rf_open, F[k] - rf_ext);
-            int g = max(hdiag + s, fn);
-            if (j == 0) { g = col0; fn = col0; }
-            if (j > W) { g = kNeg; fn = kNeg; }
-            G[k] = g;
-            Fn[k] = fn;
-            run = max(run, g + rd_ext * j);
-            M[k] = run;
+    const int steps = len > 0 ? len + NW - 1 : 0;
+    for (int t = 0; t < steps; ++t) {
+        const int i = t - warp;         // this warp's row at this step
+        if (i >= 0 && i < len) {        // uniform per warp
+            const RowK r = staged_row(rows, i);
+            const unsigned o1 = (i & 1) << 2;   // byte offsets of the slots
+            const unsigned o3 = (i & 3) << 2;
+            int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
+            int pin = kNeg;             // run prefix of the warps to the left
+            if (edge) { hleft = lds(hedge_in + o3); pin = lds(pfx_in + o1); }
+            int G[CPL], M[CPL];
+            const int run = fill_g(col, G, M, hleft, r, sm, sn, cf, first,
+                                   pin);
+            const int tot = warp_scan_max(run);
+            if (last) sts(pfx_out + o1, tot);
+            int excl = __shfl_up_sync(kFull, tot, 1);
+            if (lane == 0) excl = pin;
+            const int rowmax = fill_h(col, G, M, excl, r.clipx);
+            // 3' soft clip: end the alignment after read position i + 1
+            best = addmax(rowmax, -r.clipx - scp_tot, best);
+            if (last) sts(hedge_out + ((o3 + 4) & 12), col.H[CPL - 1]);
         }
-        int tot = run;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int v = __shfl_up_sync(kFull, tot, d);
-            if (lane >= d) tot = max(tot, v);
-        }
-        if (lane == 31) wtot[warp] = tot;
-        __syncthreads();
-        // exclusive prefix max of every thread total left of this thread
-        int excl = __shfl_up_sync(kFull, tot, 1);
-        if (lane == 0) excl = kNeg;
-        for (int w = 0; w < warp; ++w) excl = max(excl, wtot[w]);
-        int rowmax = kNeg;
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-            const int j = j0 + k;
-            const int mprev = (k == 0) ? excl : max(excl, M[k - 1]);
-            int h = max(G[k], mprev - rd_open - rd_ext * (j - 1));
-            if (j == 0) h = col0;
-            h = max(h, clip);           // 5' soft clip floor
-            if (j > W) h = kNeg;
-            H[k] = h;
-            F[k] = Fn[k];
-            rowmax = max(rowmax, h);
-        }
-        // 3' soft clip: end the alignment after read position i+1
-        best = max(best, rowmax - (scp_tot + clip));
-        if (lane == 31) hedge[warp] = H[CPL - 1];
         __syncthreads();
     }
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) best = max(best, H[k]);
+    best = max(best, col_max(col) - len * rf_ext);
     best = __reduce_max_sync(kFull, best);
     if (lane == 0) wbest[warp] = best;
     __syncthreads();
     if (threadIdx.x == 0) {
         int b = wbest[0];
-        for (int w = 1; w < kWideWarps; ++w) b = max(b, wbest[w]);
+#pragma unroll
+        for (int w = 1; w < NW; ++w) b = max(b, wbest[w]);
         out[c] = b;
     }
 }
 
-template <int CPL>
-void launch(const int32_t* rd, const int32_t* pen, const int32_t* rdlens,
-            const int32_t* ref, const int32_t* scp_cum, int32_t* out,
-            int C, int L, int W, int mb, int np, int ro, int re, int fo,
-            int fe, cudaStream_t stream)
+struct Args {
+    const int32_t *rd, *pen, *rdlens, *ref, *scp_cum;
+    int32_t* out;
+    int C, L, W, mb, np, ro, re, fo, fe;
+    cudaStream_t stream;
+};
+
+// Dynamic shared memory above 48 KB has to be asked for; the card gives
+// a block at most 227 KB.
+constexpr size_t kSmemDefault = 48 * 1024;
+constexpr size_t kSmemMax = 227 * 1024;
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes)
 {
-    const dim3 block(32 * kWarpsPerBlock);
-    const dim3 grid((C + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    dp_score_kernel<CPL><<<grid, block, 0, stream>>>(
-        rd, pen, rdlens, ref, scp_cum, out, C, L, W, mb, np, ro, re, fo, fe);
+    if (bytes <= kSmemDefault) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int CPL>
-void launch_wide(const int32_t* rd, const int32_t* pen, const int32_t* rdlens,
-                 const int32_t* ref, const int32_t* scp_cum, int32_t* out,
-                 int C, int L, int W, int mb, int np, int ro, int re, int fo,
-                 int fe, cudaStream_t stream)
+cudaError_t launch(const Args& a)
 {
-    dp_score_wide_kernel<CPL><<<C, 32 * kWideWarps, 0, stream>>>(
-        rd, pen, rdlens, ref, scp_cum, out, L, W, mb, np, ro, re, fo, fe);
+    const dim3 block(32 * kWarpsPerBlock);
+    const dim3 grid((a.C + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    const size_t smem = (size_t)kWarpsPerBlock * a.L * sizeof(int4);
+    const cudaError_t err = allow_smem(dp_score_kernel<CPL>, smem);
+    if (err != cudaSuccess) return err;
+    dp_score_kernel<CPL><<<grid, block, smem, a.stream>>>(
+        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.out, a.C, a.L, a.W, a.mb,
+        a.np, a.ro, a.re, a.fo, a.fe);
+    return cudaGetLastError();
+}
+
+template <int CPL>
+cudaError_t launch_wide(const Args& a)
+{
+    const size_t smem = (size_t)a.L * sizeof(int4);
+    const cudaError_t err = allow_smem(dp_score_wide_kernel<CPL>, smem);
+    if (err != cudaSuccess) return err;
+    dp_score_wide_kernel<CPL><<<a.C, 32 * kWideWarps, smem, a.stream>>>(
+        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.out, a.L, a.W, a.mb, a.np,
+        a.ro, a.re, a.fo, a.fe);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-// Widest window of the one-warp kernel: W + 1 <= 32 * kMaxCpl columns;
-// wider windows go to the block kernel.
-extern "C" int dp_score_warp_max_cols() { return 32 * kMaxCpl; }
-
-// Largest window either kernel takes: W + 1 <= 32 * kWideWarps * kMaxCpl.
-extern "C" int dp_score_max_cols() { return 32 * kWideWarps * kMaxCpl; }
+// 1 if the cell update was built on the fused add-max and three-way-max
+// intrinsics, 0 if on their plain two-instruction forms.
+extern "C" int dp_score_fused_form() { return DP_FUSED; }
 
 // Plain C entry point. Pointers are device pointers to contiguous int32
 // arrays: rd, pen (C, L); rdlens (C,); ref (C, W); scp_cum (C, L+1);
-// out (C,). Launches on `stream` and returns cudaGetLastError().
+// out (C,). The plan names the kernel: warps = 1 is the one-warp kernel
+// with cpl columns per lane, warps = 4 the one-block kernel. A plan
+// this file did not compile, one that covers fewer than W + 1 columns, or
+// a read too long for the staged rows is refused with
+// cudaErrorInvalidValue. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dp_score_launch(const void* rd, const void* pen,
                                const void* rdlens, const void* ref,
                                const void* scp_cum, void* out,
                                int C, int L, int W,
                                int match_bonus, int n_pen,
                                int rd_open, int rd_ext,
-                               int rf_open, int rf_ext, void* stream)
+                               int rf_open, int rf_ext,
+                               int warps, int cpl, void* stream)
 {
-    const auto* a = static_cast<const int32_t*>(rd);
-    const auto* p = static_cast<const int32_t*>(pen);
-    const auto* n = static_cast<const int32_t*>(rdlens);
-    const auto* r = static_cast<const int32_t*>(ref);
-    const auto* s = static_cast<const int32_t*>(scp_cum);
-    auto* o = static_cast<int32_t*>(out);
-    auto st = static_cast<cudaStream_t>(stream);
-    if (W < 0 || W + 1 > dp_score_max_cols())
-        return static_cast<int>(cudaErrorInvalidValue);
-    const bool wide = W + 1 > dp_score_warp_max_cols();
-    const int cpl = wide ? (W + 1 + 32 * kWideWarps - 1) / (32 * kWideWarps)
-                         : (W + 1 + 31) / 32;
-#define DP_CASE(LAUNCH, K)                                                \
-    case K:                                                               \
-        LAUNCH<K>(a, p, n, r, s, o, C, L, W, match_bonus, n_pen, rd_open, \
-                  rd_ext, rf_open, rf_ext, st);                           \
-        break;
-    if (wide) {
-        switch (cpl) {                  // W + 1 > 256: cpl >= 2
-            DP_CASE(launch_wide, 2) DP_CASE(launch_wide, 3)
-            DP_CASE(launch_wide, 4) DP_CASE(launch_wide, 5)
-            DP_CASE(launch_wide, 6) DP_CASE(launch_wide, 7)
-            DP_CASE(launch_wide, 8)
-            default:
-                return static_cast<int>(cudaErrorInvalidValue);
-        }
-    } else {
+    const Args a{static_cast<const int32_t*>(rd),
+                 static_cast<const int32_t*>(pen),
+                 static_cast<const int32_t*>(rdlens),
+                 static_cast<const int32_t*>(ref),
+                 static_cast<const int32_t*>(scp_cum),
+                 static_cast<int32_t*>(out),
+                 C, L, W, match_bonus, n_pen, rd_open, rd_ext, rf_open,
+                 rf_ext, static_cast<cudaStream_t>(stream)};
+    const int invalid = static_cast<int>(cudaErrorInvalidValue);
+    if (W < 0 || L < 0 || warps < 1 || cpl < 1 ||
+        (long long)32 * warps * cpl < (long long)W + 1)
+        return invalid;
+    if ((size_t)(warps == 1 ? kWarpsPerBlock : 1) * L * sizeof(int4)
+        > kSmemMax)
+        return invalid;
+#define DP_NARROW(K) case K: return static_cast<int>(launch<K>(a));
+#define DP_WIDE(K) case K: return static_cast<int>(launch_wide<K>(a));
+    if (warps == 1) {
         switch (cpl) {
-            DP_CASE(launch, 1) DP_CASE(launch, 2) DP_CASE(launch, 3)
-            DP_CASE(launch, 4) DP_CASE(launch, 5) DP_CASE(launch, 6)
-            DP_CASE(launch, 7) DP_CASE(launch, 8)
-            default:
-                return static_cast<int>(cudaErrorInvalidValue);
+            DP_NARROW(1) DP_NARROW(2) DP_NARROW(3) DP_NARROW(4)
+            DP_NARROW(5) DP_NARROW(6) DP_NARROW(7) DP_NARROW(8)
+            default: return invalid;
+        }
+    } else if (warps == kWideWarps) {
+        switch (cpl) {
+            DP_WIDE(3) DP_WIDE(4) DP_WIDE(5) DP_WIDE(6) DP_WIDE(7)
+            DP_WIDE(8) DP_WIDE(9) DP_WIDE(10) DP_WIDE(11) DP_WIDE(12)
+            DP_WIDE(13) DP_WIDE(14) DP_WIDE(15) DP_WIDE(16)
+            default: return invalid;
         }
     }
-#undef DP_CASE
-    return static_cast<int>(cudaGetLastError());
+    return invalid;
+#undef DP_NARROW
+#undef DP_WIDE
 }

@@ -5,10 +5,11 @@ csrc/dp_score.cu (CUDA C++ for sm_90a), built with nvcc on first use into
 the package's git-ignored `_build/kernels/` directory and bound through
 ctypes to a plain C entry point. A CUDA tensor always goes through a
 kernel; a CPU tensor always goes through the plain version,
-ops/sw.dp_fill_plain. Windows of up to 256 columns (W + 1 <= 256, the SE
-path) take the one-warp-per-candidate kernel, counted in
-`launches["dp_score"]`; wider ones, up to 2,048 columns (the paired-end
-mate rescue), the one-block-per-candidate kernel, counted in
+ops/sw.dp_fill_plain. `dispatch_plan` picks the kernel by the window:
+up to 256 columns (W + 1 <= 256, the SE path) the one-warp-per-candidate
+kernel, counted in `launches["dp_score"]`; wider ones, up to 2,048
+columns (the paired-end mate rescue), the one-block-per-candidate kernel
+(4 warps, 3 to 16 columns a lane), counted in
 `launches["dp_score_wide"]`. A window wider than that raises.
 """
 
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -30,11 +32,42 @@ BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+NARROW_MAX_COLS = 256     # widest window (W + 1) of the one-warp kernel
+MAX_COLS = 2048           # widest window (W + 1) of either kernel
+WIDE_WARPS = 4            # warps per candidate of the one-block kernel
+# (warps, columns per lane) the one-block kernel is compiled for:
+# capacities of 384 to 2,048 columns in steps of 128
+WIDE_VARIANTS = tuple((WIDE_WARPS, k) for k in range(3, 17))
+
 launches = {"dp_score": 0, "dp_score_wide": 0}
 _state: dict = {}
 
 
-def _nvcc() -> str:
+class Plan(NamedTuple):
+    """Which kernel fills a window, and in what shape."""
+    kernel: str       # the key in `launches`
+    warps: int        # warps per candidate
+    cpl: int          # adjacent columns per lane
+
+    @property
+    def capacity(self) -> int:
+        return 32 * self.warps * self.cpl
+
+
+def dispatch_plan(W: int) -> Plan:
+    """The kernel variant for a window of W reference bases (W + 1 DP
+    columns): the smallest capacity that covers it, so fewer than one
+    thread-row (32 * warps columns) is padding."""
+    cols = W + 1
+    if W < 0 or cols > MAX_COLS:
+        raise ValueError(f"dp_score: window W={W} outside the kernels' "
+                         f"0..{MAX_COLS - 1}")
+    if cols <= NARROW_MAX_COLS:
+        return Plan("dp_score", 1, -(-cols // 32))
+    return Plan("dp_score_wide", WIDE_WARPS, -(-cols // (32 * WIDE_WARPS)))
+
+
+def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(home, "bin", "nvcc")
     path = cand if os.path.exists(cand) else shutil.which("nvcc")
@@ -54,7 +87,7 @@ def build() -> tuple[str, str]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
@@ -72,28 +105,29 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()[0])
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dp_score_launch.restype = ci
-        lib.dp_score_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
-        for fn in (lib.dp_score_max_cols, lib.dp_score_warp_max_cols):
-            fn.restype = ci
-            fn.argtypes = []
+        lib.dp_score_launch.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+        lib.dp_score_fused_form.restype = ci
+        lib.dp_score_fused_form.argtypes = []
         _state["lib"] = lib
     return lib
 
 
-def warp_max_cols() -> int:
-    """Widest window (W + 1 columns) of the one-warp kernel; wider ones
-    take the one-block kernel. Builds the library on first use."""
-    return _lib().dp_score_warp_max_cols()
+def fused_form() -> bool:
+    """Whether the library's cell update was compiled on the fused add-max
+    and three-way-max intrinsics (else on their plain forms). Builds the
+    library on first use."""
+    return bool(_lib().dp_score_fused_form())
 
 
 def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
              ref: torch.Tensor, scp_cum: torch.Tensor, *, match_bonus: int,
              n_pen: int, rd_open: int, rd_ext: int, rf_open: int,
-             rf_ext: int) -> torch.Tensor:
+             rf_ext: int, plan: Plan | None = None) -> torch.Tensor:
     """Batched DP scores. rd (C, L) codes, pen (C, L) per-position
     mismatch penalties, rdlens (C,), ref (C, W) codes, scp_cum (C, L+1)
     cumulative soft-clip penalties (scp_cum[:, j] = clip cost of
-    rd[0:j)); all int32. Returns (C,) int32 scores."""
+    rd[0:j)); all int32. Returns (C,) int32 scores. `plan` overrides
+    dispatch_plan's choice of variant (measurements only)."""
     consts = dict(match_bonus=match_bonus, n_pen=n_pen, rd_open=rd_open,
                   rd_ext=rd_ext, rf_open=rf_open, rf_ext=rf_ext)
     if rd.device.type == "cpu":
@@ -116,10 +150,9 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"dp_score: {name} must be contiguous")
+    if plan is None:
+        plan = dispatch_plan(W)
     lib = _lib()
-    if W + 1 > lib.dp_score_max_cols():
-        raise ValueError(f"dp_score: window W={W} exceeds the kernel's "
-                         f"{lib.dp_score_max_cols() - 1}")
     out = torch.empty(C, dtype=torch.int32, device=rd.device)
     if C == 0:
         return out
@@ -128,9 +161,9 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
         err = lib.dp_score_launch(
             rd.data_ptr(), pen.data_ptr(), rdlens.data_ptr(), ref.data_ptr(),
             scp_cum.data_ptr(), out.data_ptr(), C, L, W, match_bonus, n_pen,
-            rd_open, rd_ext, rf_open, rf_ext, stream)
+            rd_open, rd_ext, rf_open, rf_ext, plan.warps, plan.cpl, stream)
     if err != 0:
-        raise RuntimeError(f"dp_score kernel launch failed: CUDA error {err}")
-    wide = W + 1 > warp_max_cols()
-    launches["dp_score_wide" if wide else "dp_score"] += 1
+        raise RuntimeError(f"dp_score kernel launch refused or failed for "
+                           f"W={W}, {plan}: CUDA error {err}")
+    launches[plan.kernel] += 1
     return out

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""The port's DP kernels alone on one NVIDIA card: build, check, time.
+
+    python3 scripts/dp_kernel_bench.py [--sass DIR] [--no-edges]
+
+Builds hisat2_tpu_torch/csrc/dp_score.cu, prints the compiler's report
+and the SASS counts of every variant, holds both kernels to the plain
+version (ops/sw.dp_fill_plain, exact) at every edge window of
+chip_smoke.edge_windows, and then times, on chip_smoke.make_dp_case
+inputs with CUDA events (50 launches after 10):
+
+  * the one-warp kernel at the SE path's shape C=8192, L=104, W=136;
+  * the one-block kernel at C=512, L=104 for W = 604, 1104 and 2047, under
+    the dispatch plan's variant and under every other compiled variant
+    that covers the window, so the plan's choice can be read against its
+    alternatives on one card in one run.
+
+Each line ends in the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass", metavar="DIR",
+                    help="write the kernels' SASS to DIR/dp_score.sass")
+    ap.add_argument("--no-edges", action="store_true",
+                    help="skip the edge-window checks")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("dp_kernel_bench: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.ops import dp_cuda
+    from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
+
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(f"[card] {card}", flush=True)
+    lib_path, report = dp_cuda.build()
+    ver = subprocess.run([dp_cuda.nvcc_path(), "--version"],
+                         capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    print(f"[build] {ver[-2] if len(ver) > 1 else ver}; fused intrinsics: "
+          f"{dp_cuda.fused_form()}", flush=True)
+    sass_text = cs.read_sass(lib_path)
+    sass = cs.sass_by_kernel(sass_text) if sass_text else {}
+    if sass_text and args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        with open(os.path.join(args.sass, "dp_score.sass"), "w") as f:
+            f.write(sass_text)
+    for variant, regs in cs.ptxas_by_kernel(report):
+        print(f"[build]   {variant}: {regs} | SASS (VIADDMNMX, VIMNMX3, row "
+              f"loop): {sass.get(variant)}", flush=True)
+
+    sc = Scoring()
+    consts = sc.dp_consts()
+    sctab = sc.device_tables(dev)
+
+    def case(seed, C, L, W):
+        rd, quals, lens, ref = cs.make_dp_case(seed, C, L, W)
+        t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+        pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+        return t[0], pen, t[2], t[3], scp
+
+    if not args.no_edges:
+        bad = 0
+        for W in cs.edge_windows("dp_score") + cs.edge_windows(
+                "dp_score_wide"):
+            a = case(100 + W, *cs.edge_case_shape(W), W)
+            got = dp_cuda.dp_score(*a, **consts)
+            want = dp_fill_plain(*a, **consts)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad += 1
+                rows = torch.nonzero(got != want).flatten().tolist()
+                print(f"[edges] W={W} {dp_cuda.dispatch_plan(W)} differs in "
+                      f"rows {rows}: {got[rows].tolist()} != "
+                      f"{want[rows].tolist()}", flush=True)
+        print(f"[edges] {bad} windows differ from the plain version",
+              flush=True)
+        if bad:
+            return 1
+
+    def timed(a, plan):
+        got = dp_cuda.dp_score(*a, **consts, plan=plan)
+        ok = torch.equal(got, dp_fill_plain(*a, **consts))
+        ms = cs.time_cuda(lambda: dp_cuda.dp_score(*a, **consts, plan=plan),
+                          iters=50, warmup=10)
+        return ms, ok
+
+    a = case(2, 8192, 104, 136)
+    for _ in range(2):
+        ms, ok = timed(a, None)
+        print(f"[time] dp_score C=8192 L=104 W=136 {dp_cuda.dispatch_plan(136)}"
+              f": {ms:.4f} ms exact={ok} [{card}]", flush=True)
+    for W in (604, 1104, 2047):
+        a = case(40 + W, 512, 104, W)
+        chosen = dp_cuda.dispatch_plan(W)
+        plans = [chosen] + [dp_cuda.Plan("dp_score_wide", w, k)
+                            for w, k in dp_cuda.WIDE_VARIANTS
+                            if 32 * w * k >= W + 1 and (w, k) != chosen[1:]]
+        for plan in plans + [chosen]:
+            ms, ok = timed(a, plan)
+            print(f"[time] dp_score_wide C=512 L=104 W={W} {plan}"
+                  f"{' (the plan)' if plan == chosen else ''}: {ms:.4f} ms "
+                  f"exact={ok} [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,9 @@ package's, exact:
       decode round-trips;
   (c) ops/sw.dp_fill_plain (the wide CUDA kernel's plain version) against
       JAX's dp_score_batch and dp_score_pallas(interpret=True) at the mate
-      rescue's window (W = 1104) and at W = 256;
+      rescue's window (W = 1104), at W = 256, and at windows where the
+      wide kernel's variants end (W + 1 = 384, 385, 1152, 1153; at the
+      maximum, W + 1 = 2048, against dp_score_batch only);
   (f) on the CPU, dp_cuda.dp_score takes the plain version and counts no
       launch, at a wide window too.
 
@@ -26,7 +28,7 @@ from hisat2_tpu.ops.dp_pallas import dp_score_pallas
 from hisat2_tpu.ops.sw import dp_score_batch as j_dp_score_batch
 from hisat2_tpu.ops.sw import ungapped_place_batch as j_ungapped
 
-from chip_smoke import make_dp_case
+from chip_smoke import edge_case_shape, edge_windows, make_dp_case
 from hisat2_tpu_torch.align.scoring import Scoring
 from hisat2_tpu_torch.ops import dp_cuda, wire
 from hisat2_tpu_torch.ops.sw import (dp_fill_plain, dp_inputs,
@@ -146,7 +148,10 @@ def _consts(sc):
                 rf_ext=int(sc.ref_gap_extend()))
 
 
-@pytest.mark.parametrize("seed,C,W", [(10, 16, 1104), (11, 16, 256)])
+@pytest.mark.parametrize("seed,C,W", [(10, 16, 1104), (11, 16, 256),
+                                      (12, 16, 383), (13, 16, 384),
+                                      (14, 16, 1151), (15, 16, 1152),
+                                      (16, 8, 2047)])
 def test_wide_dp_plain_matches_jax(seed, C, W):
     rd, quals, lens, ref = make_dp_case(seed, C, L, W)
     jsc = JScoring()
@@ -156,11 +161,12 @@ def test_wide_dp_plain_matches_jax(seed, C, W):
     pen, scp_cum = (t.numpy() for t in dp_inputs(
         Scoring().device_tables("cpu"), torch.from_numpy(quals),
         torch.from_numpy(lens)))
-    pallas = np.asarray(dp_score_pallas(
-        jnp.asarray(rd), jnp.asarray(pen), jnp.asarray(lens),
-        jnp.asarray(ref), jnp.asarray(scp_cum), interpret=True,
-        **_consts(jsc)))
-    np.testing.assert_array_equal(pallas, want)
+    if W + 1 < 2048:    # the widest window: dp_score_batch alone, for time
+        pallas = np.asarray(dp_score_pallas(
+            jnp.asarray(rd), jnp.asarray(pen), jnp.asarray(lens),
+            jnp.asarray(ref), jnp.asarray(scp_cum), interpret=True,
+            **_consts(jsc)))
+        np.testing.assert_array_equal(pallas, want)
     t = torch.from_numpy
     before = dict(dp_cuda.launches)
     got = dp_cuda.dp_score(t(rd), t(pen), t(lens), t(ref), t(scp_cum),
@@ -179,10 +185,13 @@ def _need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed,C,W", [(20, 37, 256), (21, 513, 1104),
-                                      (22, 19, 2047)])
+@pytest.mark.parametrize(
+    "seed,C,W", [(20, 37, 256), (21, 513, 1104), (22, 19, 2047)]
+    + [(100 + W, edge_case_shape(W)[0], W)
+       for W in edge_windows("dp_score_wide")])
 def test_wide_kernel_matches_plain(seed, C, W):
-    """W + 1 in {257, 1105, 2048}: the one-block-per-candidate kernel."""
+    """The one-block-per-candidate kernel at W + 1 in {257, 1105, 2048}
+    and at every window where one of its variants ends."""
     _need_card()
     rd, quals, lens, ref = make_dp_case(seed, C, L, W)
     sc = Scoring()

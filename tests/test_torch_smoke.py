@@ -83,10 +83,43 @@ def test_ptxas_report_by_kernel():
         ("dp_score_kernel<CPL=1>", "Used 40 registers, used 0 barriers")]
 
 
+def test_sass_report_by_kernel():
+    """The build phase's reading of `cuobjdump -sass`: per variant, the
+    fused add-max and three-way-max instructions and the length of the
+    row loop (the widest backward branch)."""
+    fn = "_ZN44_GLOBAL__N__ae5ee274_11_dp_score_cu_24dcdda7{}EEvPKiS2_Pii"
+    sass = "\n".join([
+        "\t\tFunction : " + fn.format("20dp_score_wide_kernelILi9E"),
+        "\t.headerflags\t@\"EF_CUDA_SM90\"",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+        "          /* 0x00000a00ff017b82 */",
+        "        /*0010*/                   VIADDMNMX R9, R24, UR8, R9, !PT ;",
+        "        /*0020*/              @!P1 VIMNMX3 R24, R13, R12, R14, !PT ;",
+        "        /*0030*/                   SHFL.UP PT, R46, R47, 0x1, RZ ;",
+        "        /*0040*/               @P0 BRA 0x10 ;",
+        "        /*0050*/                   EXIT ;",
+        "        /*0060*/                   BRA 0x60;",
+        "\t\tFunction : " + fn.format("15dp_score_kernelILi5E"),
+        "        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, 0x5 ;",
+        "        /*0010*/                   EXIT ;"])
+    assert chip_smoke.sass_by_kernel(sass) == {
+        "dp_score_wide_kernel<CPL=9>": (1, 1, 4),
+        "dp_score_kernel<CPL=5>": (0, 0, 0)}
+
+
 def test_dp_case_generator():
     rd, quals, lens, ref = chip_smoke.make_dp_case(0, 24, 60, 92)
     assert rd.shape == (24, 60) and ref.shape == (24, 92)
     assert lens[4] == 0 and lens[5] == 1 and (ref[2] == 4).all()
+    # the seven stress rows at the end (13 rows or more)
+    assert (rd[17] == 4).all() and rd[18, 0] == 4 == rd[18, lens[18] - 1]
+    assert (quals[19] == 2).all() and (quals[20] == 40).all()
+    assert (lens[21:] == 60).all()
+    assert (rd[22, :59] == ref[22, 33:]).all() and rd[22, 59] == 4
+    assert (rd[23] == ref[23, 32:]).all()
+    # a window narrower than 30 bases still gets reads that fit it
+    rd, quals, lens, ref = chip_smoke.make_dp_case(1, 16, 24, 30)
+    assert rd.shape == (16, 24) and lens.max() <= 24
 
 
 def test_refuses_without_card(tmp_path):
