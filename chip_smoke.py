@@ -43,9 +43,28 @@ Phases; any failure exits non-zero:
                  constant-quality pairs (the packed step) and 512 pairs with
                  per-base qualities (the fused step) go through the CPU path
                  and the card: the SAM bytes must be equal.
-  6. report    - the wide kernel's time and bound at W = 604, 1104 and
+  6. FM path   - the same genome without its k-mer table, so that seeding
+                 is FM backward search: index A (full suffix array: ftab
+                 jump + 12 LF rounds of 22 bp seeds, maximal segments for
+                 the reads they miss, SA ranges expanded to positions) and
+                 index B (A with the SA sampled at offrate 4: up to 15 LF
+                 steps to a marked row). 4 batches of 16,384 reads on A, 2
+                 on B, 2 batches of 16,384 pairs on A, with phase 4's and
+                 5's checks; B's SAM on 2,048 reads must equal A's byte for
+                 byte. seed_mode=False (the per-read path: align_batch +
+                 results_to_sam at 16,384 reads, the emit path at 2,048
+                 reads, align_pairs + pairs_to_sam at 512 pairs) on A and
+                 on the table index. The two seed-table modes of Gbp-scale
+                 shards: a kt = 10 table (bucket load 4.4: paired k-mers)
+                 and a stride-2 table, 2,048 reads each. For every
+                 configuration the card's SAM must equal the CPU path's on
+                 2,048 reads (512 pairs) and the DP kernel must have been
+                 launched. One batch on A and on B under torch.profiler
+                 gives launches per batch and the device's busy share.
+  7. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, the kernel's maximum);
-                 each DP kernel's time on its main path's own inputs, its
+                 each DP kernel's time on its main path's own inputs (the
+                 narrow one also on the per-read path's, C = 16,384), its
                  plain version's time and its bound, as one JSON line;
                  end-to-end reads/s (SE) and pairs/s (PE) and peak device
                  memory beside the card name and power limit; last line
@@ -77,6 +96,7 @@ scan across lanes and the hand-off between warps come on top.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import os
@@ -99,6 +119,9 @@ RDLEN = 100
 PAD_TO = 104                  # ReadBatch pads 100 bp reads to a multiple of 8
 PE_BATCH = 16384              # pairs per batch
 PE_NBATCH = 4
+FM_NBATCH = 4                 # SE batches on index A (B and PE take 2)
+FM_OFFRATE = 4                # index B keeps every 16th SA value
+FM_PAIR_KT = 10               # 4.6 Mbp / 4^10 = 4.4 a bucket: pair mode
 
 
 def check(ok: bool, what: str) -> None:
@@ -351,6 +374,61 @@ def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray):
     return rate, true_rate, float(aligned[indel].mean())
 
 
+def fm_variants(fm):
+    """The smoke genome's index four more ways, over the arrays already
+    built (no second suffix-array build): A without the k-mer table, B =
+    A with the SA sampled at FM_OFFRATE, and the table index with a
+    kt = FM_PAIR_KT table (paired-k-mer mode) and a stride-2 table."""
+    from hisat2_tpu_torch.index.fm_index import build_sampled_sa
+    from hisat2_tpu_torch.index.seed_table import build_seed_table
+    a = dataclasses.replace(fm, st_starts=None, st_pos=None, st_k=0)
+    bits, rank, vals = build_sampled_sa(fm.sa.astype(np.int64), FM_OFFRATE)
+    b = dataclasses.replace(a, offrate=FM_OFFRATE, samp_bits=bits,
+                            samp_rank=rank, samp_vals=vals,
+                            sa=np.zeros(0, np.int32))
+    kt = min(FM_PAIR_KT, fm.st_k)
+    while kt > 1 and fm.n <= 3 * 4 ** kt:     # small genomes (the CPU tests)
+        kt -= 1
+    st, pos, k = build_seed_table(fm.ref.joined, kt=kt)
+    pair = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k)
+    st, pos, k = build_seed_table(fm.ref.joined, kt=fm.st_k, stride=2)
+    stride2 = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k,
+                                  st_stride=2)
+    return dict(A=a, B=b, pair=pair, stride2=stride2)
+
+
+def run_per_read(al, batches, ref):
+    """Aligner.align_batch + results_to_sam over SE batches."""
+    from hisat2_tpu_torch.align.pipeline import results_to_sam
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    writer = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                             no_head=True)
+    stats: dict = {}
+    for b in batches:
+        for k, v in results_to_sam(b, al.align_batch(b), al, writer).items():
+            stats[k] = stats.get(k, 0) + v
+    writer.flush()
+    return buf.getvalue(), stats
+
+
+def run_per_pair(al, pair_batches, ref):
+    """paired.align_pairs + pairs_to_sam over pair batches."""
+    from hisat2_tpu_torch.align.paired import align_pairs, pairs_to_sam
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    writer = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                             no_head=True)
+    stats: dict = {}
+    for b1, b2 in pair_batches:
+        st = pairs_to_sam(b1, b2, align_pairs(al, b1, b2), al, writer)
+        for k, v in st.items():
+            stats[k] = stats.get(k, 0) + v
+    writer.flush()
+    return buf.getvalue(), stats
+
+
+
 def _with_indel(rng, joined, s, d, p, insert):
     """RDLEN bases read forward from joined[s]: a d bp deletion after p
     read bases, or (insert) d random bases inserted there."""
@@ -453,6 +531,178 @@ def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
     check(true_rate >= 0.95, f"mate 1 of indel-free pairs placed "
                              f"{true_rate:.4f}")
     return share, true_rate, float(aligned.mean())
+
+
+def fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel, card):
+    """Phase 6 (see the module docstring). Returns the DP kernel's inputs
+    as the per-read path built them at 16,384 reads, that run's launch
+    counts, and the end-to-end rates."""
+    import torch
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    from hisat2_tpu_torch.index.fm_index import FMIndex
+    from hisat2_tpu_torch.ops import dp_cuda
+    ref = fm.ref
+    t0 = time.perf_counter()
+    var = fm_variants(fm)
+    print(f"[fm] index A (no table), B (offrate {FM_OFFRATE}: "
+          f"{var['B'].samp_vals.size} of {fm.sa.size} SA values kept), a "
+          f"kt={var['pair'].st_k} table and a stride-2 kt="
+          f"{var['stride2'].st_k} table derived in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def counted(fn, what):
+        """fn() with the launch counts zeroed before it and read after;
+        the narrow DP kernel must have been launched."""
+        for k in dp_cuda.launches:
+            dp_cuda.launches[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(dp_cuda.launches)
+        check(got["dp_score"] > 0,
+              f"kernel dp_score was not launched on {what}")
+        return out, got
+
+    def card_equals_cpu(run, fmx, items, what, opts=None):
+        """SAM of `items` on the card and on the CPU path; must be equal.
+        Returns (card aligner, card text)."""
+        o = opts or {}
+        cpu_text, _ = run(Aligner(fmx, opts=AlignerOpts(**o), device="cpu"),
+                          items, ref)
+        alx = Aligner(fmx, opts=AlignerOpts(**o), device="cuda")
+        (text, _), got = counted(lambda: run(alx, items, ref), what)
+        check(text == cpu_text, f"SAM from the card != CPU path on {what}")
+        print(f"[fm] SAM bytes on the card == CPU path on {what} "
+              f"({len(text)} bytes; launches {got})", flush=True)
+        return alx, text
+
+    small = make_batches(seqs[:2048], 0, 2048)
+    small_pe = make_pair_batches(r1[:512], r2[:512], 0, 512)
+    out = {}
+
+    # -- A and B through the stream: the packed step on FM seeding --------
+    texts = {}
+    for name, nb in (("A", FM_NBATCH), ("B", 2)):
+        alx, texts[name] = card_equals_cpu(
+            run_stream, var[name], small, f"index {name}, 2048 reads")
+        nbytes = FMIndex.bundle_bytes(alx.idx)
+        m = measure_batch(alx, temit.submit_se, temit.finish_se,
+                          (make_batches(seqs[:BATCH], 0, BATCH)[0],))
+        print(f"[fm] index {name}: one batch of {BATCH} reads alone: queue "
+              f"the device step {m['queue_ms']:.1f} ms, {m['launches']} "
+              f"launches, device busy {m['busy_ms']:.2f} ms "
+              f"({m['busy_ms'] / m['wall_ms']:.4f} of {m['wall_ms']:.1f} ms "
+              f"wall) [{card}]", flush=True)
+        n = nb * BATCH
+        batches = make_batches(seqs[:n], 0, BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (text, stats), got = counted(lambda: run_stream(alx, batches, ref),
+                                     f"the SE stream, index {name}")
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / (1 << 20)
+        rate, true_rate, indel_rate = check_sam(text, n, starts[:n],
+                                                indel[:n])
+        out[f"se_{name}_rps"] = n / dt
+        print(f"[fm] index {name}: {n} reads in {dt:.3f} s = {n / dt:.1f} "
+              f"reads/s end to end; aligned {rate:.4f}, indel-free at true "
+              f"position {true_rate:.4f}, indel reads aligned "
+              f"{indel_rate:.4f}; stats {stats}; launches {got}; bundle "
+              f"{nbytes / (1 << 20):.1f} MiB, peak device memory "
+              f"{peak:.1f} MiB (the table index's bundle stays resident) "
+              f"[{card}]", flush=True)
+        if name == "A":
+            al_a = alx
+    check(texts["B"] == texts["A"],
+          "index B (sampled SA) gave other SAM bytes than index A")
+    print("[fm] index B's SAM == index A's on 2048 reads", flush=True)
+
+    # -- PE on A ------------------------------------------------------------
+    card_equals_cpu(run_pe_stream, var["A"], small_pe,
+                    "index A, 512 pairs (packed PE step)")
+    pe_n = 2 * PE_BATCH
+    pe_batches = make_pair_batches(r1[:pe_n], r2[:pe_n], 0, PE_BATCH)
+    t0 = time.perf_counter()
+    (pe_text, pe_stats), got = counted(
+        lambda: run_pe_stream(al_a, pe_batches, ref), "the PE stream, index A")
+    pe_dt = time.perf_counter() - t0
+    check(got["dp_score_wide"] >= 2, "the PE stream on index A launched the "
+                                     "wide DP fewer than once a batch")
+    share, m1_rate, mate_rate = check_pe_sam(pe_text, pe_n, m1_true[:pe_n],
+                                             pe_indel[:pe_n])
+    out["pe_A_pps"] = pe_n / pe_dt
+    print(f"[fm] index A: {pe_n} pairs in {pe_dt:.3f} s = {pe_n / pe_dt:.1f} "
+          f"pairs/s end to end; proper pairs {share:.4f}, mate 1 of "
+          f"indel-free pairs at true position {m1_rate:.4f}, mates aligned "
+          f"{mate_rate:.4f}; stats {pe_stats}; launches {got} [{card}]",
+          flush=True)
+    del al_a
+
+    # -- seed_mode=False: the per-read and per-pair paths -------------------
+    off = dict(seed_mode=False)
+    for name, fmx in (("index A", var["A"]), ("the table index", fm)):
+        al0, _ = card_equals_cpu(run_stream, fmx, small,
+                                 f"{name}, seed_mode=False, 2048 reads "
+                                 f"(emit path)", off)
+        card_equals_cpu(run_per_pair, fmx, small_pe,
+                        f"{name}, seed_mode=False, 512 pairs (align_pairs + "
+                        f"pairs_to_sam)", off)
+        if fmx is not fm:
+            # full width: align_batch + results_to_sam on one batch; record
+            # the DP kernel's inputs as _device_align builds them
+            captured = []
+            real_dp = tpipe.dp_score
+
+            def recording_dp(*a, **kw):
+                if not captured:
+                    captured.append([x.clone() for x in a])
+                return real_dp(*a, **kw)
+            batch = make_batches(seqs[:BATCH], 0, BATCH)
+            tpipe.dp_score = recording_dp
+            try:
+                t0 = time.perf_counter()
+                (text, stats), got = counted(
+                    lambda: run_per_read(al0, batch, ref),
+                    "align_batch, index A")
+                dt = time.perf_counter() - t0
+            finally:
+                tpipe.dp_score = real_dp
+            rate, true_rate, indel_rate = check_sam(
+                text, BATCH, starts[:BATCH], indel[:BATCH])
+            out.update(captured=captured[0], launches=got["dp_score"])
+            print(f"[fm] index A, seed_mode=False: align_batch + "
+                  f"results_to_sam on {BATCH} reads in {dt:.3f} s = "
+                  f"{BATCH / dt:.1f} reads/s; aligned {rate:.4f}, "
+                  f"indel-free at true position {true_rate:.4f}, indel "
+                  f"reads aligned {indel_rate:.4f}; stats {stats}; "
+                  f"dp_lanes {al0.metrics.dp_lanes}, fallback_reads "
+                  f"{al0.metrics.fallback_reads}; launches {got} [{card}]",
+                  flush=True)
+        del al0
+
+    # -- the seed-table modes of Gbp-scale shards ----------------------------
+    for name, what in (("pair", "paired-k-mer mode"),
+                       ("stride2", "stride-sampled table")):
+        fmx = var[name]
+        alx, text = card_equals_cpu(
+            run_stream, fmx, small,
+            f"the kt={fmx.st_k} stride={fmx.st_stride} table ({what}), 2048 "
+            f"reads")
+        rows = alx.idx["st_pos_rows"]
+        check((rows.numel() / 4 ** fmx.st_k > 3.0) == (name == "pair"),
+              f"{name}: bucket load {rows.numel() / 4 ** fmx.st_k:.2f}")
+        rate, true_rate, indel_rate = check_sam(text, 2048, starts[:2048],
+                                                indel[:2048])
+        print(f"[fm] {what}: bucket load "
+              f"{rows.numel() / 4 ** fmx.st_k:.2f}, aligned {rate:.4f}, "
+              f"indel-free at true position {true_rate:.4f}, indel reads "
+              f"aligned {indel_rate:.4f}", flush=True)
+        del alx
+    torch.cuda.empty_cache()
+    out["var"] = var
+    return out
 
 
 def main() -> int:
@@ -697,11 +947,24 @@ def main() -> int:
         print(f"[pe] SAM bytes on the card == CPU path on {what} "
               f"({len(text_gpu)} bytes)", flush=True)
 
+    # -- FM path -----------------------------------------------------------
+    m = measure_batch(al, temit.submit_se, temit.finish_se, (batches[0],))
+    print(f"[fm] the table index for comparison: one batch of {BATCH} reads "
+          f"alone: queue the device step {m['queue_ms']:.1f} ms, "
+          f"{m['launches']} launches, device busy {m['busy_ms']:.2f} ms "
+          f"({m['busy_ms'] / m['wall_ms']:.4f} of {m['wall_ms']:.1f} ms wall) "
+          f"[{card}]", flush=True)
+    fmres = fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel,
+                     card)
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
         profile_batch(al, temit.submit_pe, temit.finish_pe, pe_batches[0],
                       "PE batch of 16384 pairs")
+        profile_batch(Aligner(fmres["var"]["A"], device="cuda"),
+                      temit.submit_se, temit.finish_se, (batches[0],),
+                      "SE batch of 16384 reads on index A (FM seeding)")
 
     # -- report ----------------------------------------------------------
     def bound_ms(rd, rl, ref):
@@ -737,7 +1000,9 @@ def main() -> int:
              + pe_launches["dp_score"], "SE main path (and the PE path's "
              "SE cores, same shape)"),
             ("dp_score_wide", captured_wide[0], pe_launches["dp_score_wide"],
-             "PE mate rescue")):
+             "PE mate rescue"),
+            ("dp_score", fmres["captured"], fmres["launches"],
+             "per-read path (Aligner._device_align, index A)")):
         rd, pen, rl, ref, scp_cum = cap
         check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs")
         C, L = rd.shape
@@ -766,7 +1031,13 @@ def main() -> int:
     print(f"[report] SE end to end {rps:.1f} reads/s, peak device memory "
           f"{peak_mb:.1f} MiB [{card}]", flush=True)
     print(f"[report] PE end to end {pps:.1f} pairs/s = {2 * pps:.1f} "
-          f"reads/s, peak device memory {pe_peak_mb:.1f} MiB; whole run "
+          f"reads/s, peak device memory {pe_peak_mb:.1f} MiB [{card}]",
+          flush=True)
+    print(f"[report] FM seeding end to end: index A "
+          f"{fmres['se_A_rps']:.1f} reads/s ({fmres['se_A_rps'] / rps:.3f} of "
+          f"the table path's), index B {fmres['se_B_rps']:.1f} reads/s, PE "
+          f"on index A {fmres['pe_A_pps']:.1f} pairs/s "
+          f"({fmres['pe_A_pps'] / pps:.3f} of the table path's); whole run "
           f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -776,13 +1047,11 @@ def main() -> int:
     return 0
 
 
-def profile_batch(al, submit, finish, args, label):
-    """Where one batch's time goes, run alone (no pipelining): the host
-    time to queue the device step, the device kernels by name and their
-    busy share of the batch's wall time (torch.profiler), and the host
-    finish's functions by cumulative time (cProfile)."""
-    import cProfile
-    import pstats
+def measure_batch(al, submit, finish, args, host_profile=None):
+    """One batch alone (no pipelining) under torch.profiler: host time to
+    queue the device step, wait for the device and finish on the host (ms),
+    the device kernels (profiler averages), their launches and busy time.
+    `host_profile`, a cProfile.Profile, also profiles the host finish."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -795,21 +1064,36 @@ def profile_batch(al, submit, finish, args, label):
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        hp = cProfile.Profile()
-        hp.enable()
+        if host_profile is not None:
+            host_profile.enable()
         finish(al, handle, emit._TextShim())
-        hp.disable()
+        if host_profile is not None:
+            host_profile.disable()
+        torch.cuda.synchronize()
         t3 = time.perf_counter()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    wall_ms = (t3 - t0) * 1e3
-    print(f"[profile] one {label} alone: wall {wall_ms:.1f} ms = queue the "
-          f"device step {(t1 - t0) * 1e3:.1f} ms + wait for the device "
-          f"{(t2 - t1) * 1e3:.1f} ms + host finish {(t3 - t2) * 1e3:.1f} "
-          f"ms; device busy {dev_us / 1e3:.2f} ms "
-          f"({dev_us / 1e3 / wall_ms:.4f} of wall), {len(kern)} kernel names, "
-          f"{sum(e.count for e in kern)} launches", flush=True)
+    return dict(queue_ms=(t1 - t0) * 1e3, wait_ms=(t2 - t1) * 1e3,
+                finish_ms=(t3 - t2) * 1e3, wall_ms=(t3 - t0) * 1e3,
+                kernels=kern, launches=sum(e.count for e in kern),
+                busy_ms=sum(e.self_device_time_total for e in kern) / 1e3)
+
+
+def profile_batch(al, submit, finish, args, label):
+    """Where one batch's time goes, run alone: measure_batch's numbers, the
+    device kernels by name, and the host finish's functions by cumulative
+    time (cProfile)."""
+    import cProfile
+    import pstats
+    hp = cProfile.Profile()
+    m = measure_batch(al, submit, finish, args, host_profile=hp)
+    kern = m["kernels"]
+    print(f"[profile] one {label} alone: wall {m['wall_ms']:.1f} ms = queue "
+          f"the device step {m['queue_ms']:.1f} ms + wait for the device "
+          f"{m['wait_ms']:.1f} ms + host finish {m['finish_ms']:.1f} "
+          f"ms; device busy {m['busy_ms']:.2f} ms "
+          f"({m['busy_ms'] / m['wall_ms']:.4f} of wall), {len(kern)} kernel "
+          f"names, {m['launches']} launches", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:80]}", flush=True)

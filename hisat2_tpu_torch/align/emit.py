@@ -8,6 +8,11 @@ into the int16 fastpack (pipeline._stage_fastpack), and one native call
 formats their SAM lines. Only odd reads (gapped, filtered,
 fragment-boundary, more than FASTPACK_MM mismatches, candidate overflow)
 drop to the per-read ReadResult ladder. Output order is read order.
+
+With seed_mode=False the batch takes the unpacked path instead
+(_align_and_emit_legacy): the aligner's per-read device path, a NumPy
+selection of the reportable records and the native column formatter
+(format_se_batch2), the same ladder for the odd reads.
 """
 
 from __future__ import annotations
@@ -26,7 +31,18 @@ from . import mapq as _mapq
 from . import paired as _paired
 from .paired import PEPACK_MM, PEPACK_REP
 from .pipeline import (FASTPACK_MM, FASTPACK_REP, NEG_INF, Aligner,
-                       ReadResult, _dedup_alns, _filter_reason)
+                       ReadResult, _dedup_alns, _filter_reason,
+                       _stage_primary_fin)
+
+
+_DEC_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
+# ASCII complement table for reverse-complementing SEQ strings directly
+_COMP_ASCII = np.arange(256, dtype=np.uint8)
+for _a, _b in ((65, 84), (67, 71), (71, 67), (84, 65)):  # A<->T C<->G
+    _COMP_ASCII[_a] = _b
+INT32_MIN = np.int32(-(1 << 31))
+MAX_FAST_MM = 8
+NEG_INF_HALF = -(1 << 29)
 
 
 def align_and_emit(al: Aligner, batch: ReadBatch, writer) -> dict:
@@ -37,12 +53,17 @@ def align_and_emit(al: Aligner, batch: ReadBatch, writer) -> dict:
 def submit_se(al: Aligner, batch: ReadBatch):
     """Queue one SE batch's device work and its result copies. Pair with
     finish_se; several submits in flight overlap device work with host
-    finishing (align_and_emit_stream)."""
-    return (batch, *al.device_align_fast(batch))
+    finishing (align_and_emit_stream). With seed_mode=False the whole
+    batch is aligned at finish time, on the per-read path."""
+    if not al.opts.seed_mode:
+        return ("legacy", batch)
+    return ("fast", batch, *al.device_align_fast(batch))
 
 
 def finish_se(al: Aligner, handle, writer) -> dict:
-    batch, fp, merged_dev, extras, ready = handle
+    if handle[0] == "legacy":
+        return _align_and_emit_legacy(al, handle[1], writer)
+    _, batch, fp, merged_dev, extras, ready = handle
     t0 = time.perf_counter()
     if ready is not None:
         ready.synchronize()
@@ -108,20 +129,31 @@ def _stream(al, item_tuples, writer, submit_fn, finish_fn,
 
     from concurrent.futures import ThreadPoolExecutor
     w = writer.out.write
-    pending = deque()        # (future, tup) in submit order
+    pending = deque()        # (future or None, handle, tup) in submit order
 
     def drain_one():
-        fut, pt = pending.popleft()
-        text, st = fut.result()
-        if text:
-            w(text)
+        fut, h, pt = pending.popleft()
+        if fut is not None:
+            text, st = fut.result()
+            if text:
+                w(text)
+        else:                # legacy handle: aligned here, on the real writer
+            st = finish_fn(al, h, writer)
         done(st, pt)
 
     with ThreadPoolExecutor(max_workers=workers) as ex:
         for tup in item_tuples:
             h = submit_fn(al, *tup)
-            pending.append((ex.submit(_finish_to_text, al, h, finish_fn),
-                            tup))
+            if h[0] == "legacy":
+                # its device work runs at finish time, and the per-read
+                # path writes through writer.emit: keep it on this thread,
+                # after everything queued ahead of it
+                while pending:
+                    drain_one()
+                pending.append((None, h, tup))
+            else:
+                pending.append((ex.submit(_finish_to_text, al, h, finish_fn),
+                                h, tup))
             if len(pending) > depth:
                 drain_one()
         while pending:
@@ -233,7 +265,6 @@ def _finish_slow_and_stitch(al, batch, ex, merged_dev, writer, fast,
                             read_end, stats) -> dict:
     """Slow-row ladder + ordered stitch for the native fast path."""
     B = len(batch)
-    sc = al.scoring
     slow = np.flatnonzero(~fast)
     grows = slow[~filtered[slow] & (nvalid[slow] >= 1)]
     srows_h = smg_h = None
@@ -271,65 +302,76 @@ def _finish_slow_and_stitch(al, batch, ex, merged_dev, writer, fast,
                 fill(grows, mg)
         merged = dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
 
-        plans: dict[int, list] = {}
-        ug_items: list[tuple[int, int, bool]] = []
-        for i in slow:
-            i = int(i)
-            if filtered[i]:
-                continue
-            entries = [(s, p, f, g) for s, p, f, g, _, _
-                       in al._ranked_candidates(merged, i,
-                                                int(min_scs[i]))]
-            entries = entries[: al.opts.khits + 1]
-            plans[i] = entries
-            for s, p, f, g in entries:
-                if not g:
-                    ug_items.append((i, int(p), bool(f)))
-        lookup: dict[tuple, object] = {}
-        if ug_items:
-            ridx = np.asarray([x[0] for x in ug_items])
-            upos = np.asarray([x[1] for x in ug_items])
-            ufw = np.asarray([x[2] for x in ug_items])
-            alns = al._finalize_ungapped_list(batch, ridx, upos, ufw,
-                                              lens[ridx])
-            for (i, p, f), a in zip(ug_items, alns):
-                lookup[(i, p, f)] = a
-
-        for i in slow:
-            i = int(i)
-            if filtered[i]:
-                res = ReadResult(filtered=_filter_reason(batch, i, lens))
-            else:
-                res = ReadResult()
-                entries = plans.get(i, [])
-                if entries:
-                    res.best = entries[0][0]
-                    if len(entries) > 1:
-                        res.secbest = entries[1][0]
-                    for s, p, f, g in entries:
-                        if g:
-                            a = al._finalize(i, batch, s, p, f, True,
-                                             int(lens[i]))
-                        else:
-                            a = lookup.get((i, p, f))
-                        if a is not None:
-                            res.alns.append(a)
-                    if res.alns:
-                        _dedup_alns(res, al.opts.khits)
-                    else:
-                        res = ReadResult()
-            lines = _format_slow(al, batch, i, res, sc)
-            if not res.aligned:
-                stats["unal"] += 1
-            elif len(res.alns) > 1 or (res.secbest is not None
-                                       and res.secbest >= min_scs[i]):
-                stats["multi"] += 1
-            else:
-                stats["uniq"] += 1
-            slow_out[i] = lines
+        slow_out = _slow_ladder(al, batch, merged, slow, filtered,
+                                min_scs, lens, stats)
 
     _write_in_order(writer, fbuf, fast, read_end, slow_out)
     return stats
+
+
+def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
+                 stats) -> dict:
+    """The per-read ladder for the rows `slow` of a host candidate dict:
+    rank each read's candidates, finalize the ungapped ones in one
+    vectorized pass and the gapped ones by traceback, dedup, format.
+    Returns {row: SAM lines} and adds the rows to `stats`."""
+    sc = al.scoring
+    slow_out: dict[int, list] = {}
+    plans: dict[int, list] = {}
+    ug_items: list[tuple[int, int, bool]] = []
+    for i in slow:
+        i = int(i)
+        if filtered[i]:
+            continue
+        entries = [(s, p, f, g) for s, p, f, g, _, _
+                   in al._ranked_candidates(merged, i, int(min_scs[i]))]
+        entries = entries[: al.opts.khits + 1]
+        plans[i] = entries
+        for s, p, f, g in entries:
+            if not g:
+                ug_items.append((i, int(p), bool(f)))
+    lookup: dict[tuple, object] = {}
+    if ug_items:
+        ridx = np.asarray([x[0] for x in ug_items])
+        upos = np.asarray([x[1] for x in ug_items])
+        ufw = np.asarray([x[2] for x in ug_items])
+        alns = al._finalize_ungapped_list(batch, ridx, upos, ufw, lens[ridx])
+        for (i, p, f), a in zip(ug_items, alns):
+            lookup[(i, p, f)] = a
+
+    for i in slow:
+        i = int(i)
+        if filtered[i]:
+            res = ReadResult(filtered=_filter_reason(batch, i, lens))
+        else:
+            res = ReadResult()
+            entries = plans.get(i, [])
+            if entries:
+                res.best = entries[0][0]
+                if len(entries) > 1:
+                    res.secbest = entries[1][0]
+                for s, p, f, g in entries:
+                    if g:
+                        a = al._finalize(i, batch, s, p, f, True,
+                                         int(lens[i]))
+                    else:
+                        a = lookup.get((i, p, f))
+                    if a is not None:
+                        res.alns.append(a)
+                if res.alns:
+                    _dedup_alns(res, al.opts.khits)
+                else:
+                    res = ReadResult()
+        lines = _format_slow(al, batch, i, res, sc)
+        if not res.aligned:
+            stats["unal"] += 1
+        elif len(res.alns) > 1 or (res.secbest is not None
+                                   and res.secbest >= min_scs[i]):
+            stats["multi"] += 1
+        else:
+            stats["uniq"] += 1
+        slow_out[i] = lines
+    return slow_out
 
 
 def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
@@ -399,18 +441,220 @@ def _format_slow(al, batch, i, res: ReadResult, sc) -> list[str]:
     return lines
 
 
+def _align_and_emit_legacy(al: Aligner, batch: ReadBatch, writer) -> dict:
+    """Unpacked-transfer SE path (seed_mode=False reaches it through
+    submit_se): the aligner's device path on the unpacked batch, then a
+    vectorized host selection of every read's reportable records (up to
+    -k, ungapped, at most MAX_FAST_MM mismatches, inside one fragment)
+    formatted natively from column arrays; the other reads take the
+    ladder. Output order is read order."""
+    B = len(batch)
+    if al.opts.seed_mode:
+        merged, fin = al.device_align_fused(batch)      # fin (B, KF, D)
+    else:
+        st, dp = al._device_align(batch)
+        merged = al._merged_host(st, dp, B)
+        fin = _stage_primary_fin(
+            al.idx, al.sctab, st["seqs2"], st["quals2"], st["lens2"],
+            al._up(merged["pos"][:, 0].astype(np.int32)),
+            al._up(merged["fw"][:, 0], torch.bool), B
+        ).cpu().numpy()[:, None, :]
+
+    sc = al.scoring
+    lens = batch.lens.astype(np.int64)
+    L = batch.seqs.shape[1]
+    min_scs = np.ceil(sc.score_min.I + sc.score_min.S * lens).astype(np.int64)
+    nNs = ((batch.seqs >= 4)
+           & (np.arange(L)[None, :] < lens[:, None])).sum(axis=1)
+    filtered = (lens == 0) | (nNs > sc.n_ceil.I + sc.n_ceil.S * lens)
+
+    msc, mpos = merged["score"], merged["pos"]
+    mfw, mgap = merged["fw"], merged["gapped"]
+    K2 = msc.shape[1]
+    KF = fin.shape[1]
+    khits = al.opts.khits
+    aligned = ~filtered & (msc[:, 0] >= min_scs)
+
+    # distinct-placement dedup across the merged top-K2 (same (pos, fw)
+    # can reach the list via seed and DP routes)
+    dup = np.zeros((B, K2), bool)
+    for t in range(1, K2):
+        eq = (mpos[:, :t] == mpos[:, t:t + 1]) & (mfw[:, :t] == mfw[:, t:t + 1])
+        dup[:, t] = eq.any(axis=1)
+    valid = (msc >= min_scs[:, None]) & ~dup
+    nvalid = valid.sum(axis=1)
+    nrep = np.minimum(nvalid, khits)
+
+    # column index of the j-th valid entry per read
+    vrank = np.where(valid, np.cumsum(valid, axis=1) - 1, K2 + 1)
+    KFu = min(KF, khits)
+    sel = np.full((B, KFu), K2, np.int64)
+    for j in range(KFu):
+        hit = vrank == j
+        has = hit.any(axis=1)
+        sel[has, j] = np.argmax(hit[has], axis=1)
+    # 2nd distinct valid column (secbest for MAPQ/ZS, independent of -k)
+    hit2 = vrank == 1
+    sel2 = np.where(hit2.any(axis=1), np.argmax(hit2, axis=1), K2)
+
+    # fast eligibility: every reported record is an ungapped, <=8-mismatch,
+    # fragment-contained finalized candidate within the fin window
+    fast = aligned & (nrep <= KFu)
+    in_rep = (np.arange(KFu)[None, :] < nrep[:, None])
+    selc = np.minimum(sel, K2 - 1)
+    rows_all = np.arange(B)[:, None]
+    fast &= ~(in_rep & (sel >= KF)).any(axis=1)
+    fast &= ~(in_rep & mgap[rows_all, selc]).any(axis=1)
+    F_c5 = np.take_along_axis(fin[:, :, 0], np.minimum(sel, KF - 1), 1)
+    F_c3 = np.take_along_axis(fin[:, :, 1], np.minimum(sel, KF - 1), 1)
+    F_nmm_all = np.take_along_axis(fin[:, :, 4], np.minimum(sel, KF - 1), 1)
+    fast &= ~(in_rep & (F_nmm_all > MAX_FAST_MM)).any(axis=1)
+    if al.opts.omit_sec_seq:
+        fast &= nrep <= 1          # secondary records go per-read
+
+    # fragment containment of every reported record
+    ref = al.fm.ref
+    okf, fc, astart = _contain(ref, mpos[rows_all, selc], F_c5, F_c3, lens)
+    fast &= ~(in_rep & ~okf).any(axis=1)
+
+    stats = dict(reads=B, unal=0, uniq=0, multi=0)
+    fbuf = b""
+    read_end = np.zeros(B, np.int64)   # fbuf end offset per fast read
+    frows = np.flatnonzero(fast)
+    if frows.size:
+        # flatten (read, k) -> records
+        nr = nrep[frows]
+        rec_read = np.repeat(frows, nr)                     # global read idx
+        rec_lidx = np.repeat(np.arange(frows.size), nr)     # local fast idx
+        rec_k = np.arange(rec_read.size) - np.repeat(
+            np.concatenate([[0], np.cumsum(nr)[:-1]]), nr)
+        col = sel[rec_read, rec_k]
+        finc = fin[rec_read, col]
+        c5 = finc[:, 0].astype(np.int32)
+        c3 = finc[:, 1].astype(np.int32)
+        nmm = finc[:, 3].astype(np.int32)
+        nmm_all = finc[:, 4].astype(np.int32)
+        score = msc[rec_read, col].astype(np.int32)
+        fw = mfw[rec_read, col]
+        mid = (lens[rec_read] - c5 - c3).astype(np.int32)
+        fc_r = fc[rec_read, rec_k]
+        tidx = ref.frag_tidx[fc_r].astype(np.int32)
+        toff = (ref.frag_toff[fc_r] + astart[rec_read, rec_k]
+                - ref.frag_joined[fc_r])
+        flag = (np.where(fw, 0, 16) | np.where(rec_k > 0, 256, 0)
+                ).astype(np.int32)
+        nh = np.repeat(nr, nr).astype(np.int32)
+        # best/secbest per read -> MAPQ (primary) / 255 (secondary), ZS.
+        # The reference never sets its exhausted flag (hisat2.cpp:3259,
+        # :3461), so the MAPQ 60 fast path (unique.h:212) fails only on an
+        # equal-scoring second-best; only those reads need the table
+        has_sec = nvalid[frows] >= 2
+        best = msc[frows, 0]
+        sec_col = np.minimum(sel2[frows], K2 - 1)
+        secbest = np.where(has_sec, msc[frows, sec_col], INT32_MIN)
+        mapq_read = np.full(frows.size, 60, np.int32)
+        for j in np.flatnonzero(has_sec & (secbest == best)):
+            ln = int(lens[frows][j])
+            mapq_read[j] = _mapq.mapq_v2(
+                int(best[j]), int(secbest[j]), sc.perfect_score(ln),
+                sc.min_score(ln), local=sc.local, exhausted=False)
+        mapq = np.where(rec_k == 0, mapq_read[rec_lidx], 255).astype(np.int32)
+        zs = np.where(has_sec[rec_lidx], secbest[rec_lidx].astype(np.int64),
+                      int(INT32_MIN)).astype(np.int32)
+
+        # mismatch (col, refchar) pairs from the device finalization
+        mc = finc[:, 5:5 + MAX_FAST_MM].astype(np.int32)
+        mch = finc[:, 5 + MAX_FAST_MM:5 + 2 * MAX_FAST_MM].astype(np.int64)
+        cnt = nmm_all.astype(np.int64)
+        mm_off = np.zeros(rec_read.size + 1, np.int64)
+        np.cumsum(cnt, out=mm_off[1:])
+        selm = np.arange(MAX_FAST_MM)[None, :] < cnt[:, None]
+        mm_cols2 = (mc[selm] - np.repeat(c5, cnt)).astype(np.int32)
+        mm_ref2 = np.ascontiguousarray(_DEC_ASCII[np.clip(mch[selm], 0, 4)])
+
+        fbuf, rec_ends = _format_records(
+            al, batch, frows, rec_read, flag, tidx, toff, mapq, c5, mid, c3,
+            score, nmm, zs, nh, mm_cols2, mm_ref2, mm_off)
+        read_end[frows] = rec_ends[np.cumsum(nr) - 1]
+        stats["uniq"] += int((nvalid[frows] == 1).sum())
+        stats["multi"] += int((nvalid[frows] >= 2).sum())
+
+    slow_out = _slow_ladder(al, batch, merged, np.flatnonzero(~fast),
+                            filtered, min_scs, lens, stats)
+    _write_in_order(writer, fbuf, fast, read_end, slow_out)
+    return stats
+
+
+def _seq_orientations(raw, quals, lens):
+    """SEQ and QUAL text of every row in both orientations, packed by true
+    length: (seq_f, qual_f, seq_r, qual_r, offsets (N + 1,))."""
+    N, Lp = raw.shape
+    ar = np.arange(Lp)
+    in_read = ar[None, :] < lens[:, None]
+    seq_f = _DEC_ASCII[np.clip(raw, 0, 4)]
+    qual_f = (np.clip(quals, 0, 93) + 33).astype(np.uint8)
+    if N and (lens == lens[0]).all():
+        # uniform read length (the common batch): reversal is a plain flip
+        l0 = int(lens[0])
+        seq_r = np.zeros_like(seq_f)
+        qual_r = np.zeros_like(qual_f)
+        seq_r[:, :l0] = _COMP_ASCII[seq_f[:, l0 - 1::-1]]
+        qual_r[:, :l0] = qual_f[:, l0 - 1::-1]
+    else:
+        rcidx = np.clip(lens[:, None] - 1 - ar[None, :], 0, Lp - 1)
+        seq_r = _COMP_ASCII[np.take_along_axis(seq_f, rcidx, 1)]
+        qual_r = np.take_along_axis(qual_f, rcidx, 1)
+    seq_off = np.zeros(N + 1, np.int64)
+    np.cumsum(lens, out=seq_off[1:])
+    return (np.ascontiguousarray(seq_f[in_read]),
+            np.ascontiguousarray(qual_f[in_read]),
+            np.ascontiguousarray(seq_r[in_read]),
+            np.ascontiguousarray(qual_r[in_read]), seq_off)
+
+
+def _format_records(al, batch, frows, rec_read, flag, tidx, toff, mapq,
+                    c5, mid, c3, score, nmm, zs, nh, mm_cols, mm_ref, mm_off):
+    """Column arrays -> native formatter (format_se_batch2). frows: fast
+    read indices (name/seq data is per read); rec_*: per-record arrays
+    with read indices. Returns (SAM bytes, end offset of every record)."""
+    Nf = frows.size
+    lens = batch.lens.astype(np.int64)[frows]
+    name_buf, name_off, name_lens = _name_buf(
+        [batch.names[int(i)] for i in frows])
+    sf, qf, sr, qr, seq_off = _seq_orientations(
+        batch.seqs[frows], batch.quals[frows], lens)
+
+    # map global read idx -> local fast idx for the C indirection
+    l_of = np.zeros(int(frows.max()) + 1 if Nf else 1, np.int64)
+    l_of[frows] = np.arange(Nf)
+    read_of = l_of[rec_read].astype(np.int32)
+
+    rn_buf, rn_off, rn_lens = _refname_cache(al)
+    nrec = rec_read.size
+    per_rec = (240 + name_lens[read_of] + rn_lens[tidx]
+               + 2 * lens[read_of] + 12 * np.diff(mm_off))
+    cap = int(per_rec.sum()) + 1024
+    z = np.zeros(nrec, np.int32)
+    out = ctypes.create_string_buffer(cap)
+    ends = np.zeros(nrec, np.int64)
+    total = samfmt_lib().format_se_batch2(
+        np.int32(nrec), read_of, flag,
+        np.ascontiguousarray(tidx.astype(np.int32)),
+        np.ascontiguousarray((toff + 1).astype(np.int32)),
+        mapq, c5, mid, c3, score, nmm, nmm, zs, nh,
+        name_buf, name_off, sf, qf, sr, qr, seq_off,
+        np.ascontiguousarray(mm_cols), mm_ref, mm_off,
+        np.ascontiguousarray(rn_buf), rn_off,
+        out, np.int64(cap), ends, z, z, z)
+    if total < 0:
+        raise RuntimeError("format_se_batch2: SAM buffer overflow")
+    return out.raw[:total], ends
+
+
 # ---------------------------------------------------------------------------
 # Paired-end
 # ---------------------------------------------------------------------------
 
-_DEC_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
-# ASCII complement table for reverse-complementing SEQ strings directly
-_COMP_ASCII = np.arange(256, dtype=np.uint8)
-for _a, _b in ((65, 84), (67, 71), (71, 67), (84, 65)):  # A<->T C<->G
-    _COMP_ASCII[_a] = _b
-INT32_MIN = np.int32(-(1 << 31))
-MAX_FAST_MM = 8
-NEG_INF_HALF = -(1 << 29)
 
 
 def align_and_emit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch,
@@ -423,7 +667,10 @@ def align_and_emit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch,
 def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
     """Queue one PE batch pair's device step: the packed step for
     constant-quality batches, else the fused step at finish time. Pair
-    with finish_pe."""
+    with finish_pe. With seed_mode=False the pair batch takes the
+    per-pair path at finish time."""
+    if not al.opts.seed_mode:
+        return ("legacy", b1, b2)
     out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, al.opts.khits + 3))
     if out is None:                      # per-base qualities
         return ("legacy", b1, b2)
@@ -1010,6 +1257,9 @@ def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     pairs_to_sam (pair order, mate 1 then mate 2 per reported pair)."""
     o = al.opts
     B = len(b1)
+    if not o.seed_mode:
+        res = _paired.align_pairs(al, b1, b2)
+        return _paired.pairs_to_sam(b1, b2, res, al, writer)
     sc = al.scoring
     khits = o.khits
     KP = max(8, khits + 3)
@@ -1287,27 +1537,7 @@ def _format_pe_records(al, b1, b2, frows, read_of, flag, rname, pos1, mapq,
     quals[0::2] = pad_to(b1.quals, Lp)[frows]
     quals[1::2] = pad_to(b2.quals, Lp)[frows]
 
-    ar = np.arange(Lp)
-    in_read = ar[None, :] < lens[:, None]
-    seq_f = _DEC_ASCII[np.clip(raw, 0, 4)]
-    qual_f = (np.clip(quals, 0, 93) + 33).astype(np.uint8)
-    if Nf and (lens == lens[0]).all():
-        # uniform read length (the common batch): reversal is a plain flip
-        l0 = int(lens[0])
-        seq_r = np.zeros_like(seq_f)
-        qual_r = np.zeros_like(qual_f)
-        seq_r[:, :l0] = _COMP_ASCII[seq_f[:, l0 - 1::-1]]
-        qual_r[:, :l0] = qual_f[:, l0 - 1::-1]
-    else:
-        rcidx = np.clip(lens[:, None] - 1 - ar[None, :], 0, Lp - 1)
-        seq_r = _COMP_ASCII[np.take_along_axis(seq_f, rcidx, 1)]
-        qual_r = np.take_along_axis(qual_f, rcidx, 1)
-    seq_off = np.zeros(2 * Nf + 1, np.int64)
-    np.cumsum(lens, out=seq_off[1:])
-    sf = np.ascontiguousarray(seq_f[in_read])
-    qf = np.ascontiguousarray(qual_f[in_read])
-    sr = np.ascontiguousarray(seq_r[in_read])
-    qr = np.ascontiguousarray(qual_r[in_read])
+    sf, qf, sr, qr, seq_off = _seq_orientations(raw, quals, lens)
 
     # read_of is 2*global_pair + mate; remap to the local row
     l_of = np.zeros(2 * (int(frows.max()) + 1) if Nf else 2, np.int64)

@@ -39,7 +39,8 @@ from ..ops.dp_cuda import dp_score
 from ..utils import alphabet
 from . import mapq as _mapq
 from .pipeline import (I32, NEG_INF, Aligner, Alignment, ReadResult,
-                       _dedup_alns, _min_scores, _se_core, _sort_desc,
+                       _dedup_alns, _merged_dict, _min_scores, _se_core,
+                       _sort_desc,
                        _stage_fin_rows, _to_host_async, _topk01,
                        _unpack_reads)
 
@@ -116,9 +117,10 @@ def _take(a, col):
 
 
 def _stage_pe_fused_impl(idx, sctab, s1, q1, l1, s2, q2, l2, minsc_i,
-                         minsc_s, gap1, minins, maxins, B, n_seeds,
-                         locs_per_seg, top_cands, K2, KP, KF, max_mm,
-                         fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
+                         minsc_s, gap1, minins, maxins, B, max_seeds,
+                         n_seeds, locs_per_seg, top_cands, min_seg_len,
+                         ftab_k, K2, KP, KF, max_mm, fb_bucket, dp_bucket,
+                         dp_pad, no_dp, nofw, norc, seeder, fb_seeder,
                          sc_const, fr_mode, pe_geo, VC):
     """Both mates' SE cores, the concordance grid and record finalization
     (reference worker pairing loop, hi_aligner.h:4088 pairReads, as a
@@ -128,8 +130,9 @@ def _stage_pe_fused_impl(idx, sctab, s1, q1, l1, s2, q2, l2, minsc_i,
       finp1/finp2 (B, KP, D)  finalization of each combo's mate records
       sfin1/sfin2 (B, KF, D)  per-mate SE finalization (mixed fallback)
     """
-    core = (minsc_i, minsc_s, gap1, B, n_seeds, locs_per_seg, top_cands,
-            K2, fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc, sc_const)
+    core = (minsc_i, minsc_s, gap1, B, max_seeds, n_seeds, locs_per_seg,
+            top_cands, min_seg_len, ftab_k, K2, fb_bucket, dp_bucket, dp_pad,
+            no_dp, nofw, norc, seeder, fb_seeder, sc_const)
     m1, st1 = _se_core(idx, sctab, s1, q1, l1, *core, verify_cands=VC)
     m2, st2 = _se_core(idx, sctab, s2, q2, l2, *core, verify_cands=VC)
     g = _pair_grid(m1, m2, l1, l2, minsc_i, minsc_s, minins, maxins, K2, KP,
@@ -182,8 +185,9 @@ def pepack_nr(w_total: int) -> int:
 
 def _stage_pe_packed_impl(idx, sctab, sw1, nw1, l1, sw2, nw2, l2, qconst,
                           minsc_i, minsc_s, gap1, minins, maxins, B, L,
-                          n_seeds, locs_per_seg, top_cands, K2, KP,
-                          fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
+                          max_seeds, n_seeds, locs_per_seg, top_cands,
+                          min_seg_len, ftab_k, K2, KP, fb_bucket, dp_bucket,
+                          dp_pad, no_dp, nofw, norc, seeder, fb_seeder,
                           sc_const, fr_mode, pe_geo, VC, khits, SB, RB,
                           w_resc, omit_sec, n_rep, MB, wire_nvbits):
     """Transfer-packed PE step: packed reads in, int16 pair-pack out;
@@ -199,8 +203,9 @@ def _stage_pe_packed_impl(idx, sctab, sw1, nw1, l1, sw2, nw2, l2, qconst,
     round trip. Returns (pack, m1, m2, pair_top, extras)."""
     s1, q1 = _unpack_reads(sw1, nw1, None, qconst, l1, L)
     s2, q2 = _unpack_reads(sw2, nw2, None, qconst, l2, L)
-    core = (minsc_i, minsc_s, gap1, B, n_seeds, locs_per_seg, top_cands,
-            K2, fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc, sc_const)
+    core = (minsc_i, minsc_s, gap1, B, max_seeds, n_seeds, locs_per_seg,
+            top_cands, min_seg_len, ftab_k, K2, fb_bucket, dp_bucket, dp_pad,
+            no_dp, nofw, norc, seeder, fb_seeder, sc_const)
     m1, st1 = _se_core(idx, sctab, s1, q1, l1, *core, verify_cands=VC)
     m2, st2 = _se_core(idx, sctab, s2, q2, l2, *core, verify_cands=VC)
     dev = m1.device
@@ -439,8 +444,10 @@ def _stage_pe_packed_impl(idx, sctab, sw1, nw1, l1, sw2, nw2, l2, qconst,
 def _pe_consts(aligner: Aligner, B: int) -> dict:
     """Static arguments both PE steps share with the SE step's sizing."""
     o = aligner.opts
-    return dict(B=B, n_seeds=o.n_seeds, locs_per_seg=o.locs_per_seg,
-                top_cands=o.top_cands,
+    return dict(B=B, max_seeds=o.max_seeds, n_seeds=o.n_seeds,
+                locs_per_seg=o.locs_per_seg, top_cands=o.top_cands,
+                min_seg_len=aligner.min_seg_len, ftab_k=aligner.fm.ftab_k,
+                seeder=aligner.seeder, fb_seeder=aligner.fb_seeder,
                 K2=min(2 * o.top_cands, max(8, o.khits + 3)),
                 fb_bucket=min(B, max(32, B // 8)),
                 dp_bucket=min(B, max(64, B // 8)), dp_pad=o.dp_pad,
@@ -547,12 +554,8 @@ def stage_pe_fused(aligner: Aligner, b1: ReadBatch, b2: ReadBatch,
         max_mm=8, **_pe_consts(aligner, len(b1)))
     m1p, m2p, pair_top, finp1, finp2, sfin1, sfin2 = (
         t.cpu().numpy() for t in out)
-
-    def unpack(m):
-        return dict(score=m[:, :, 0].astype(np.int64), pos=m[:, :, 1],
-                    fw=(m[:, :, 2] & 1).astype(bool),
-                    gapped=(m[:, :, 2] & 2) > 0)
-    return (unpack(m1p), unpack(m2p), pair_top, finp1, finp2, sfin1, sfin2)
+    return (_merged_dict(m1p), _merged_dict(m2p), pair_top, finp1, finp2,
+            sfin1, sfin2)
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +612,65 @@ def _concordant(o1_fw, o1_pos, len1, o2_fw, o2_pos, len2,
     return ok and minins <= frag <= maxins, frag
 
 
+def _concordant_grid(m1, m2, b1, b2, o, scoring):
+    """Vectorized concordance over the full (B, K, K) candidate grid of
+    two host candidate dicts: the best combo and the second-best total at
+    a distinct locus per pair, all NumPy. The per-pair path's grid where
+    no device step made one (seed_mode=False)."""
+    s1, s2 = m1["score"], m2["score"]           # (B, K)
+    B, K = s1.shape
+    l1 = b1.lens.astype(np.int64)
+    l2 = b2.lens.astype(np.int64)
+    min1 = np.ceil(scoring.score_min.I + scoring.score_min.S * l1)
+    min2 = np.ceil(scoring.score_min.I + scoring.score_min.S * l2)
+    v1 = s1 >= min1[:, None]
+    v2 = s2 >= min2[:, None]
+    p1 = m1["pos"].astype(np.int64)
+    p2 = m2["pos"].astype(np.int64)
+    f1, f2 = m1["fw"], m2["fw"]
+    P1 = p1[:, :, None]
+    P2 = p2[:, None, :]
+    E1 = l1[:, None, None]
+    E2 = l2[:, None, None]
+    left1 = P1 <= P2
+    up_fw = np.where(left1, f1[:, :, None], f2[:, None, :])
+    dn_fw = np.where(left1, f2[:, None, :], f1[:, :, None])
+    frag = np.maximum(P2 + E2, P1 + E1) - np.minimum(P1, P2)
+    if o.fr == "fr":
+        okdir = up_fw & ~dn_fw
+    elif o.fr == "rf":
+        okdir = ~up_fw & dn_fw
+    else:
+        okdir = f1[:, :, None] == f2[:, None, :]
+    both = ((frag >= o.minins) & (frag <= o.maxins)
+            & v1[:, :, None] & v2[:, None, :])
+    ok = okdir & both
+    if o.dovetail and o.fr in ("fr", "rf"):
+        ok |= ((~up_fw & dn_fw) if o.fr == "fr" else (up_fw & ~dn_fw)) & both
+    if o.no_contain or o.no_overlap:
+        e1g = P1 + E1
+        e2g = P2 + E2
+        up_e = np.where(left1, e1g, e2g)
+        dn_e = np.where(left1, e2g, e1g)
+        if o.no_contain:
+            ok &= ~(dn_e <= up_e)
+        if o.no_overlap:
+            ok &= ~(np.minimum(e1g, e2g) > np.maximum(P1, P2))
+    total = np.where(ok, s1[:, :, None] + s2[:, None, :],
+                     np.int64(NEG_INF))
+    flat = total.reshape(B, -1)
+    bi = np.argmax(flat, axis=1)
+    best = flat[np.arange(B), bi]
+    has = best > NEG_INF // 2
+    t1, t2 = bi // K, bi % K
+    bp1 = p1[np.arange(B), t1]
+    bp2 = p2[np.arange(B), t2]
+    same = ((p1 == bp1[:, None])[:, :, None]
+            & (p2 == bp2[:, None])[:, None, :]).reshape(B, -1)
+    sec = np.where(same, np.int64(NEG_INF), flat).max(axis=1)
+    return dict(has=has, t1=t1, t2=t2, total=best, sec=sec)
+
+
 def _grid_from_pairtop(pair_top, m1, m2):
     """Best and second-best-distinct concordant combo from the device's
     top-KP list, plus the full top-KP combo columns for -k secondary pair
@@ -634,12 +696,20 @@ def _grid_from_pairtop(pair_top, m1, m2):
 
 def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch
                 ) -> list[PairResult]:
-    """The per-pair path: the fused step, then the ladder for every pair
-    (the oracle of the fast emit paths)."""
+    """The per-pair path: the fused step (or, with seed_mode=False, each
+    mate's per-read device path and the host grid), then the ladder for
+    every pair (the oracle of the fast emit paths)."""
     o = aligner.opts
     B = len(b1)
-    m1, m2, pair_top, _f1, _f2, _s1, _s2 = stage_pe_fused(
-        aligner, b1, b2, KP=max(8, o.khits + 3), KF=1)
+    pair_top = None
+    if o.seed_mode:
+        m1, m2, pair_top, _f1, _f2, _s1, _s2 = stage_pe_fused(
+            aligner, b1, b2, KP=max(8, o.khits + 3), KF=1)
+    else:
+        st1, dp1 = aligner._device_align(b1)
+        st2, dp2 = aligner._device_align(b2)
+        m1 = aligner._merged_host(st1, dp1, B)
+        m2 = aligner._merged_host(st2, dp2, B)
 
     def mate_cands(m, batch, i, min_sc, rdlen):
         return [dict(score=s, pos=p, fw=fw, kind="reg", gapped=gapped,
@@ -651,7 +721,10 @@ def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch
         return aligner._finalize(i, batch, c["score"], c["pos"], c["fw"],
                                  c["gapped"], rdlen)
 
-    grid = _grid_from_pairtop(pair_top, m1, m2)
+    if pair_top is not None:
+        grid = _grid_from_pairtop(pair_top, m1, m2)
+    else:
+        grid = _concordant_grid(m1, m2, b1, b2, o, aligner.scoring)
     out: list[PairResult] = []
     rescue: list[tuple] = []
     for i in range(B):
@@ -679,12 +752,22 @@ def _pair_result_one(aligner, i, b1, b2, m1, m2, grid, mate_cands,
             return dict(score=int(m["score"][i, t]), pos=int(m["pos"][i, t]),
                         fw=bool(m["fw"][i, t]), kind="reg",
                         gapped=bool(m["gapped"][i, t]), extent=rdlen)
-        for k in range(grid["totals"].shape[1]):
-            tk = int(grid["totals"][i, k])
-            if tk <= NEG_INF // 2:
-                break
-            combos.append((tk, mk(m1, int(grid["t1s"][i, k]), l1),
-                           mk(m2, int(grid["t2s"][i, k]), l2)))
+        if "t1s" in grid:
+            for k in range(grid["totals"].shape[1]):
+                tk = int(grid["totals"][i, k])
+                if tk <= NEG_INF // 2:
+                    break
+                combos.append((tk, mk(m1, int(grid["t1s"][i, k]), l1),
+                               mk(m2, int(grid["t2s"][i, k]), l2)))
+        else:
+            # the host grid gives the best combo and the second-best total
+            # only: the latter feeds MAPQ and is never finalized
+            combos = [(int(grid["total"][i]),
+                       mk(m1, int(grid["t1"][i]), l1),
+                       mk(m2, int(grid["t2"][i]), l2))]
+            if grid["sec"][i] > NEG_INF // 2:
+                combos.append((int(grid["sec"][i]), dict(pos=-1),
+                               dict(pos=-1)))
 
     pr = PairResult()
     if combos:
@@ -699,13 +782,14 @@ def _pair_result_one(aligner, i, b1, b2, m1, m2, grid, mate_cands,
             # up to khits concordant combos, aln_sink.h selection)
             seen = {(w1["pos"], w1["fw"], w2["pos"], w2["fw"])}
             for t, x1, x2 in combos[1:]:
-                key = (x1["pos"], x1["fw"], x2["pos"], x2["fw"])
+                key = (x1["pos"], x1.get("fw"), x2["pos"], x2.get("fw"))
                 if key in seen:
                     continue
                 seen.add(key)
                 if pr.secbest is None:
                     pr.secbest = t
-                if len(pr.alt_pairs) + 1 < o.khits:
+                if (len(pr.alt_pairs) + 1 < o.khits and "fw" in x1
+                        and "fw" in x2):
                     s1 = finalize(b1, i, x1, l1)
                     s2 = finalize(b2, i, x2, l2)
                     if (s1 is not None and s2 is not None

@@ -6,10 +6,13 @@ batched tensor stages over a read wavefront; one call per batch
 
   1. unpack the 2-bit reads, add reverse complements  _unpack_reads,
                                                       _with_revcomp
-  2. seed from the k-mer table                        ops/search.table_lookup
+  2. seed: from the k-mer table where the index has   ops/search.table_lookup
+     one, else by FM backward search (22 bp stride    ops/search.seed_search,
+     seeds, SA ranges expanded to positions)          ops/locate.expand_range
   3. dedup candidates, rank them by seed votes        _stage_candidates
   4. clip-aware ungapped verify                       ops/extend.verify_ungapped
-  5. dense re-seed of reads that failed               _se_core
+  5. sensitive re-seed of reads that failed: a dense  _se_core
+     table pass, or maximal segments on the FM path   ops/search.partial_search
   6. gapped DP rescue (the CUDA kernel)               _stage_dp
   7. fw/rc merge, top-K2                              _stage_merge
   8. finalize rows into the int16 fastpack            _stage_fin_rows,
@@ -19,6 +22,11 @@ batched tensor stages over a read wavefront; one call per batch
 
 The fastpack layout is the JAX package's, so the same native finisher
 turns it into the same SAM bytes.
+
+seed_mode=False takes the per-read reference path instead: host-driven
+stages with their syncs (Aligner._device_align, _segment_fallback,
+_merged_host), finalized by Aligner.align_batch into ReadResults and
+written by results_to_sam, or by emit._align_and_emit_legacy.
 
 Ties: every top-k of the JAX version is a stable sort here (descending
 0/1 masks and ascending negated scores keep ties in ascending index
@@ -37,12 +45,14 @@ import torch
 from ..index.fm_index import FMIndex
 from ..io.reads import ReadBatch
 from ..io import sam as samio
-from ..ops import extend as _extend, rank as _rank, search as _search
+from ..ops import extend as _extend, locate as _locate, rank as _rank
+from ..ops import search as _search
 from ..ops import sw as _sw
 from ..ops.dp_cuda import dp_score
 from ..ops.extend import NEG_INF
 from ..utils import alphabet
 from ..utils.metrics import Metrics
+from . import mapq as _mapq
 from .scoring import DEFAULT_SCORING, Scoring, mm_pen_of, sc_pen_of
 
 I32 = torch.int32
@@ -68,8 +78,9 @@ def _filter_reason(batch, i: int, lens) -> str:
 @dataclass
 class AlignerOpts:
     khits: int = 5                 # -k: max alignments reported per read
-    n_seeds: int = 8               # seeds per orientation
-    locs_per_seg: int = 8          # positions expanded per seed
+    max_seeds: int = 16            # segments used per orientation
+    n_seeds: int = 8               # stride seeds per orientation (seed mode)
+    locs_per_seg: int = 8          # SA rows / positions expanded per seed
     top_cands: int = 16            # candidates kept after ungapped ranking
     verify_cands: int = 16         # vote-ranked loci verified per orientation
     dp_pad: int = 16               # ref-window padding each side for DP
@@ -91,7 +102,8 @@ class AlignerOpts:
     #                                secondary records (sam.h)
     # not ported yet: each raises NotImplementedError when set
     spliced: bool = False          # spliced (RNA) alignment
-    seed_mode: bool = True         # False = FM segment seeding
+    seed_mode: bool = True         # stride seeds (fast) + segment fallback;
+    #                                False = the per-read reference path
     tmo: bool = False              # --tmo: transcriptome-mapping only
     zs_tags: bool = False          # Zs:Z SNP tags (graph indexes)
 
@@ -183,22 +195,54 @@ def _with_revcomp(seqs: torch.Tensor, quals: torch.Tensor,
 
 
 def _stage_candidates(idx: dict, sctab: dict, seqs, quals, lens,
-                      n_seeds: int, locs_per_seg: int, top_cands: int,
-                      stride: int = 0, verify_cands: int = 0) -> dict:
-    """Orientations, table seeding, dedup, vote ranking, ungapped verify,
-    top-T. stride 0 spreads n_seeds seeds over the read (the throughput
-    pass); stride 4 is the dense re-seed.
+                      max_seeds: int, locs_per_seg: int, top_cands: int,
+                      min_seg_len: int = 3, seeder: str = "segments",
+                      ftab_k: int = 10, verify_cands: int = 0) -> dict:
+    """Orientations, seeding, dedup, vote ranking, ungapped verify, top-T.
+
+    seeder 'table' spreads max_seeds k-mer seeds over the read (the
+    throughput pass), 'table_dense' places them every 4 bases (the
+    sensitive re-seed); 'seeds' uses fixed 22 bp stride seeds (ftab jump
+    + a short LF chain) and 'segments' walks the whole read for maximal
+    segments (the sensitive FM pass), both expanding SA ranges to
+    positions; min_seg_len and ftab_k only matter to these two.
 
     Returns per orientation-row (R = 2B): top candidate positions (R, T),
-    scores (R, T), nmm (R, T), exhausted flags (R,) — True when no seed
-    bucket overflowed locs_per_seg — and the oriented reads."""
+    scores (R, T), nmm (R, T), exhausted flags (R,) — True when no seed's
+    bucket or SA interval overflowed locs_per_seg — and the oriented
+    reads."""
     seqs2, quals2, lens2 = _with_revcomp(seqs, quals, lens)
     R, L = seqs2.shape
     dev = seqs2.device
-    th = _search.table_lookup(idx, seqs2, lens2, n_seeds=n_seeds,
-                              locs_per_seg=locs_per_seg, stride=stride)
-    cand = (th["locs"] - th["off"][:, :, None]).reshape(R, -1)
-    valid = th["lvalid"].reshape(R, -1)
+    if seeder in ("table", "table_dense"):
+        th = _search.table_lookup(
+            idx, seqs2, lens2, n_seeds=max_seeds, locs_per_seg=locs_per_seg,
+            stride=(4 if seeder == "table_dense" else 0))
+        locs, lvalid = th["locs"], th["lvalid"]
+        seed_off = th["off"]
+        exhausted = th["exhausted"]
+    else:
+        if seeder == "seeds":
+            hits = _search.seed_search(idx, seqs2, lens2, seed_len=22,
+                                       n_seeds=max_seeds, ftab_k=ftab_k)
+        else:
+            hits = _search.partial_search(idx, seqs2, lens2,
+                                          max_hits=max_seeds)
+        # candidate start = SA[row] - segment read-offset
+        locs, lvalid = _locate.expand_range(idx, hits["top"], hits["bot"],
+                                            locs_per_seg)    # (R, S, locs)
+        seg_ok = (torch.arange(max_seeds, dtype=I32, device=dev)[None, :]
+                  < hits["n"][:, None])                      # (R, S)
+        # anchor length floor: the reference's _minK = ceil(log4 |genome|)
+        # (hi_aligner.h:3979); shorter matches occur by chance everywhere
+        seg_ok &= hits["len"] >= min_seg_len
+        seed_off = hits["off"]
+        lvalid = lvalid & seg_ok[:, :, None]
+        width = hits["bot"] - hits["top"]
+        exhausted = torch.where(seg_ok, width <= locs_per_seg,
+                                torch.ones_like(seg_ok)).all(dim=1)
+    cand = (locs - seed_off[:, :, None]).reshape(R, -1)
+    valid = lvalid.reshape(R, -1)
 
     # dedup identical positions (sort asc; invalid -> +inf sentinel), then
     # rank distinct loci by seed votes (how many seeds landed on the same
@@ -234,7 +278,7 @@ def _stage_candidates(idx: dict, sctab: dict, seqs, quals, lens,
         pos_top, sc_top, nmm_top = (pad(pos_top, BIG), pad(sc_top, NEG_INF),
                                     pad(nmm_top, 0))
     return dict(pos=pos_top, score=sc_top, nmm=nmm_top,
-                exhausted=th["exhausted"], seqs2=seqs2, quals2=quals2,
+                exhausted=exhausted, seqs2=seqs2, quals2=quals2,
                 lens2=lens2)
 
 
@@ -259,6 +303,14 @@ def _stage_dp(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
     # would otherwise "score" better than real but poor placements
     ok = dp_rows[:, None] & (pos_top < BIG - (1 << 20)) & (pos_top >= 0)
     return torch.where(ok, score, NEG_INF)
+
+
+def _stage_primary_fin(idx: dict, sctab: dict, seqs2, quals2, lens2,
+                       ppos, pfw, B: int, max_mm: int = 8):
+    """Finalization of the primary ungapped candidate of every read."""
+    read_of = torch.arange(B, dtype=I32, device=seqs2.device)
+    return _stage_fin_rows(idx, sctab, seqs2, quals2, lens2, ppos, pfw,
+                           read_of, B, max_mm)
 
 
 def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
@@ -309,6 +361,35 @@ def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
     # without an SNV overlay every mismatch is penalized: nmm == nmm_all
     return torch.cat([c5[:, None], c3[:, None], score[:, None], nmm[:, None],
                       nmm[:, None], mcols, mchars], 1)
+
+
+def _stage_align_fused(idx: dict, sctab: dict, seqs, quals, lens,
+                       minsc_i: float, minsc_s: float, gap1: int,
+                       B: int, max_seeds: int, n_seeds: int,
+                       locs_per_seg: int, top_cands: int, min_seg_len: int,
+                       ftab_k: int, K2: int, max_mm: int, fb_bucket: int,
+                       dp_bucket: int, dp_pad: int, no_dp: bool,
+                       nofw: bool = False, norc: bool = False,
+                       seeder: str = "seeds", fb_seeder: str = "segments",
+                       KF: int = 1, sc_const: dict | None = None,
+                       VC: int = 0):
+    """The SE device path on unpacked reads (any qualities): the core,
+    then the finalization of every read's top-KF candidates. Returns
+    (merged (B, K2, 3), fin (B, KF2, 5 + 2*max_mm), exhausted (B,))."""
+    merged, st = _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s,
+                          gap1, B, max_seeds, n_seeds, locs_per_seg,
+                          top_cands, min_seg_len, ftab_k, K2, fb_bucket,
+                          dp_bucket, dp_pad, no_dp, nofw, norc, seeder,
+                          fb_seeder, sc_const, verify_cands=VC)
+    KF2 = max(1, min(KF, K2))
+    fpos = merged[:, :KF2, 1].reshape(-1)
+    ffw = ((merged[:, :KF2, 2] & 1) == 1).reshape(-1)
+    read_of = torch.arange(B, dtype=I32,
+                           device=merged.device).repeat_interleave(KF2)
+    fin = _stage_fin_rows(idx, sctab, st["seqs2"], st["quals2"],
+                          st["lens2"], fpos, ffw, read_of, B, max_mm)
+    exh = st["exhausted"][:B] & st["exhausted"][B:]
+    return merged, fin.reshape(B, KF2, -1), exh
 
 
 def _unpack_reads(seq_words, n_words, quals, qual_const: int, lens, L: int):
@@ -480,9 +561,11 @@ def _stage_fastpack(idx, sctab, merged, st, minsc, B: int, K2: int,
 def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
                         qual_const: int, lens, minsc_i: float,
                         minsc_s: float, gap1: int, B: int, L: int,
-                        n_seeds: int, locs_per_seg: int, top_cands: int,
+                        max_seeds: int, n_seeds: int, locs_per_seg: int,
+                        top_cands: int, min_seg_len: int, ftab_k: int,
                         K2: int, KF: int, fb_bucket: int, dp_bucket: int,
                         dp_pad: int, no_dp: bool, nofw: bool, norc: bool,
+                        seeder: str, fb_seeder: str,
                         sc_const: dict, khits: int | None = None,
                         SB: int = 0, omit_sec: bool = False, MB: int = 0,
                         VC: int = 0):
@@ -495,9 +578,10 @@ def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
     seqs, quals = _unpack_reads(seq_words, n_words, quals, qual_const,
                                 lens, L)
     merged, st = _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s,
-                          gap1, B, n_seeds, locs_per_seg, top_cands, K2,
-                          fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
-                          sc_const, verify_cands=VC)
+                          gap1, B, max_seeds, n_seeds, locs_per_seg,
+                          top_cands, min_seg_len, ftab_k, K2, fb_bucket,
+                          dp_bucket, dp_pad, no_dp, nofw, norc, seeder,
+                          fb_seeder, sc_const, verify_cands=VC)
     minsc = _min_scores(minsc_i, minsc_s, lens)
     fastpack, need, bex = _stage_fastpack(idx, sctab, merged, st, minsc,
                                           B, K2, KF, khits, omit_sec, MB)
@@ -518,13 +602,18 @@ def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
 
 
 def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
-             n_seeds, locs_per_seg, top_cands, K2, fb_bucket, dp_bucket,
-             dp_pad, no_dp, nofw, norc, sc_const, verify_cands: int = 0):
-    """Candidates + dense fallback + DP rescue + fw/rc merge for one read
-    batch. Returns (merged (B, K2, 3) packed [score, pos, flags], st)."""
+             max_seeds, n_seeds, locs_per_seg, top_cands, min_seg_len,
+             ftab_k, K2, fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
+             seeder, fb_seeder, sc_const, verify_cands: int = 0):
+    """Candidates + sensitive fallback + DP rescue + fw/rc merge for one
+    read batch: the shared device core of the SE and PE steps. The first
+    pass seeds n_seeds seeds with `seeder`; reads it cannot place re-seed
+    with `fb_seeder` (FB_TABLE_SEEDS dense table seeds, or max_seeds
+    maximal segments). Returns (merged (B, K2, 3) packed [score, pos,
+    flags], st)."""
     st = _stage_candidates(idx, sctab, seqs, quals, lens, n_seeds,
-                           locs_per_seg, top_cands,
-                           verify_cands=verify_cands)
+                           locs_per_seg, top_cands, min_seg_len, seeder,
+                           ftab_k, verify_cands=verify_cands)
     if nofw:
         st["score"][:B] = NEG_INF
     if norc:
@@ -542,9 +631,10 @@ def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
         rank = torch.cumsum(fbmask.to(I32), dim=0) - 1
         use = fbmask & (rank < fb_bucket)
         sel = _topk01(fbmask, fb_bucket)[1].long()
+        fb_seeds = FB_TABLE_SEEDS if fb_seeder == "table_dense" else max_seeds
         st2 = _stage_candidates(idx, sctab, seqs[sel], quals[sel], lens[sel],
-                                FB_TABLE_SEEDS, locs_per_seg, top_cands,
-                                stride=4)
+                                fb_seeds, locs_per_seg, top_cands,
+                                min_seg_len, fb_seeder, ftab_k)
         slot = rank.clamp(0, fb_bucket - 1).long()
         for k in ("pos", "score", "nmm"):
             fw_new = torch.where(use[:, None], st2[k][slot], st[k][:B])
@@ -608,9 +698,10 @@ def _stage_merge(pos, score, dp_score, B: int, K2: int):
 # ---------------------------------------------------------------------------
 
 class Aligner:
-    """Batched SE DNA aligner over a built FM index that carries a k-mer
-    seed table. `device` holds the index bundle and runs the batched
-    stages ("cuda" unless the caller asks for "cpu")."""
+    """Batched DNA aligner over a built FM index. An index with a k-mer
+    seed table seeds from the table; one without seeds by FM backward
+    search (full or sampled SA). `device` holds the index bundle and runs
+    the batched stages ("cuda" unless the caller asks for "cpu")."""
 
     def __init__(self, fm: FMIndex, scoring: Scoring = DEFAULT_SCORING,
                  opts: AlignerOpts | None = None, device="cuda"):
@@ -619,17 +710,24 @@ class Aligner:
         self.opts = opts or AlignerOpts()
         o = self.opts
         for flag, what in ((o.spliced, "spliced alignment"),
-                           (not o.seed_mode, "FM segment seeding"),
                            (o.tmo, "--tmo"), (o.zs_tags, "Zs:Z SNP tags"),
                            (scoring.local, "local mode")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported")
-        if not (fm.st_k and fm.st_starts is not None):
-            raise NotImplementedError(
-                "indexes without a k-mer seed table need FM-path seeding, "
-                "which is not ported")
         self.device = torch.device(device)
+        # the bundle carries the FM keys exactly when there is no table
         self.idx = fm.device_bundle(self.device)
+        # seeder choice: the direct-address k-mer table when the index
+        # carries one (two gather rounds, no LF chain), FM stride seeds
+        # otherwise; the sensitive fallback re-seeds failing reads densely
+        if fm.st_k and "st_starts" in self.idx:
+            self.seeder, self.fb_seeder = "table", "table_dense"
+        else:
+            self.seeder = "seeds" if o.seed_mode else "segments"
+            self.fb_seeder = "segments"
+        # reference _minK: minimum anchor = ceil(log4 |genome|), >= 8
+        self.min_seg_len = max(8, int(np.ceil(np.log(max(fm.n, 4))
+                                              / np.log(4))))
         self.sctab = scoring.device_tables(self.device)
         self.sc_const = scoring.dp_consts()
         self.metrics = Metrics()
@@ -668,9 +766,11 @@ class Aligner:
             None if quals is None else up(quals, I32), qconst,
             up(lens, I32), float(sc.score_min.I), float(sc.score_min.S),
             min(sc.read_gap_open(), sc.ref_gap_open()),
-            B, L, o.n_seeds, o.locs_per_seg, o.top_cands, K2,
+            B, L, o.max_seeds, o.n_seeds, o.locs_per_seg, o.top_cands,
+            self.min_seg_len, self.fm.ftab_k, K2,
             max(1, min(o.khits, 5)), min(B, max(32, B // 8)),
             min(B, max(64, B // 8)), o.dp_pad, o.no_dp, o.nofw, o.norc,
+            self.seeder, self.fb_seeder,
             self.sc_const, khits=o.khits, SB=min(B, max(64, B // 16)),
             omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)),
             VC=o.verify_cands)
@@ -693,7 +793,230 @@ class Aligner:
             return got["g"].numpy()
         return wait
 
+    def _up(self, a, dtype=I32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                            dtype)
+
+    def _device_align(self, batch: ReadBatch):
+        """The per-read reference path's device half, driven from the
+        host with its syncs: candidates, (in seed mode) the segment
+        fallback, and the gapped rescue of the reads one gap could
+        improve, compacted into a fixed bucket of max(64, B/4) reads.
+        Returns (st, dp_sc): the candidate dict of _stage_candidates and
+        the (2B, T) DP scores, or None where no read needed the DP."""
+        o = self.opts
+        B = len(batch)
+        seqs = self._up(batch.seqs)
+        quals = self._up(batch.quals)
+        lens = self._up(batch.lens)
+        seeder = self.seeder
+        nseeds = o.n_seeds if seeder in ("seeds", "table") else o.max_seeds
+        self.metrics.reads += B
+        self.metrics.batches += 1
+        self.metrics.seeds += 2 * B * nseeds
+        self.metrics.candidates += 2 * B * min(3 * o.top_cands,
+                                               nseeds * o.locs_per_seg)
+        st = _stage_candidates(self.idx, self.sctab, seqs, quals, lens,
+                               nseeds, o.locs_per_seg, o.top_cands,
+                               self.min_seg_len, seeder, self.fm.ftab_k)
+        if o.seed_mode:
+            st = self._segment_fallback(batch, st, seqs, quals, lens)
+        dp_sc = None
+        if not o.no_dp:
+            # a 1 bp gap costs at least gap1, so a read scoring >= -gap1
+            # ungapped is already optimal without the DP
+            row_best = st["score"].amax(dim=1).cpu().numpy()
+            read_best = np.maximum(row_best[:B], row_best[B:])
+            gap1 = min(self.scoring.read_gap_open(),
+                       self.scoring.ref_gap_open())
+            need_read = read_best < -gap1
+            if need_read.any():
+                rows = np.concatenate([np.flatnonzero(need_read),
+                                       np.flatnonzero(need_read) + B])
+                budget = max(64, B // 4)
+                rows = rows[:2 * budget]
+                # padded to the fixed bucket size, as the reference pads
+                rows_p = np.pad(rows, (0, 2 * budget - rows.size))
+                ridx = self._up(rows_p, torch.int64)
+                # DP only the best few candidates of each triggered row
+                Tdp = min(2, st["pos"].shape[1])
+                self.metrics.dp_lanes += int(rows.size) * Tdp
+                dp_rows = _stage_dp(
+                    self.idx, self.sctab,
+                    st["seqs2"][ridx], st["quals2"][ridx], st["lens2"][ridx],
+                    st["pos"][ridx, :Tdp],
+                    torch.ones(rows_p.size, dtype=torch.bool,
+                               device=self.device), o.dp_pad, self.sc_const)
+                dp_sc = torch.full(st["score"].shape, NEG_INF, dtype=I32,
+                                   device=self.device)
+                dp_sc[self._up(rows, torch.int64), :Tdp] = \
+                    dp_rows[:rows.size]
+        return st, dp_sc
+
+    def device_align_fused(self, batch: ReadBatch):
+        """One device call on the unpacked batch (_stage_align_fused);
+        returns host arrays (merged dict, fin (B, KF, D)). Seed mode
+        only."""
+        o = self.opts
+        B = len(batch)
+        self.metrics.reads += B
+        self.metrics.batches += 1
+        self.metrics.seeds += 2 * B * o.max_seeds
+        K2 = min(2 * o.top_cands, max(8, o.khits + 3))
+        sc = self.scoring
+        merged_d, fin_d, exh_d = _stage_align_fused(
+            self.idx, self.sctab, self._up(batch.seqs),
+            self._up(batch.quals), self._up(batch.lens),
+            float(sc.score_min.I), float(sc.score_min.S),
+            min(sc.read_gap_open(), sc.ref_gap_open()),
+            B, o.max_seeds, o.n_seeds, o.locs_per_seg, o.top_cands,
+            self.min_seg_len, self.fm.ftab_k, K2, 8,
+            min(B, max(32, B // 8)), min(B, max(64, B // 8)),
+            o.dp_pad, o.no_dp, o.nofw, o.norc,
+            self.seeder, self.fb_seeder, max(1, min(o.khits, K2)),
+            self.sc_const, o.verify_cands)
+        merged = _merged_dict(merged_d.cpu().numpy())
+        merged["exhausted"] = exh_d.cpu().numpy()
+        return merged, fin_d.cpu().numpy()
+
+    def _segment_fallback(self, batch, st, seqs, quals, lens):
+        """Reads the seed pass could not place above the minimum score
+        re-run through the sensitive search (a compacted sub-batch of
+        max(32, B/8) reads) and their candidate rows are replaced on the
+        device."""
+        o = self.opts
+        B = len(batch)
+        row_best = st["score"].amax(dim=1).cpu().numpy()
+        read_best = np.maximum(row_best[:B], row_best[B:])
+        min_scs = np.ceil(self.scoring.score_min.I
+                          + self.scoring.score_min.S
+                          * batch.lens).astype(np.int64)
+        need = np.flatnonzero(read_best < min_scs)
+        if need.size == 0:
+            return st
+        bucket = max(32, B // 8)
+        need = need[:bucket]
+        self.metrics.fallback_reads += int(need.size)
+        need_p = np.pad(need, (0, bucket - need.size))   # fixed shape
+        ridx = self._up(need_p, torch.int64)
+        fb_seeds = (FB_TABLE_SEEDS if self.fb_seeder == "table_dense"
+                    else o.max_seeds)
+        st2 = _stage_candidates(
+            self.idx, self.sctab, seqs[ridx], quals[ridx], lens[ridx],
+            fb_seeds, o.locs_per_seg, o.top_cands,
+            self.min_seg_len, self.fb_seeder, self.fm.ftab_k)
+        # the padding repeats read 0: every duplicate row carries the same
+        # values (the same read through the same search), so the order in
+        # which the scatter writes them does not matter
+        rows = torch.cat([ridx, ridx + B])
+        out = dict(st)
+        for k in ("pos", "score", "nmm"):
+            out[k] = st[k].clone()
+            out[k][rows] = st2[k]
+        return out
+
+    def _merged_host(self, st, dp_dev, B: int):
+        """Device-side merge + one small copy -> host candidate dict."""
+        K2 = min(2 * st["pos"].shape[1], max(8, self.opts.khits + 3))
+        return _merged_dict(_stage_merge(st["pos"], st["score"], dp_dev,
+                                         B, K2).cpu().numpy())
+
     # ---- host finalization ----
+
+    def align_batch(self, batch: ReadBatch) -> list[ReadResult]:
+        """The per-read path end to end: one ReadResult per read."""
+        B = len(batch)
+        st, dp_sc = self._device_align(batch)
+        merged = self._merged_host(st, dp_sc, B)
+        return self._finalize_results(batch, merged)
+
+    def _finalize_results(self, batch: ReadBatch, merged, only_rows=None):
+        """Vectorized host finalization: primary-winner clips/MD/coords
+        are computed batch-wide with NumPy; only gapped winners,
+        secondaries and fragment-boundary rejects drop to per-read paths.
+
+        only_rows: optional sorted row indices — finalize just those reads
+        and return {row: ReadResult}."""
+        B = len(batch)
+        L = batch.seqs.shape[1]
+        lens = batch.lens.astype(np.int64)
+        sc = self.scoring
+        min_scs = np.ceil(sc.score_min.I
+                          + sc.score_min.S * lens).astype(np.int64)
+        nNs = ((batch.seqs >= 4)
+               & (np.arange(L)[None, :] < lens[:, None])).sum(axis=1)
+        max_ns = sc.n_ceil.I + sc.n_ceil.S * lens
+
+        msc, mpos = merged["score"], merged["pos"]
+        mfw, mgap = merged["fw"], merged["gapped"]
+        filtered = (lens == 0) | (nNs > max_ns)
+        aligned = ~filtered & (msc[:, 0] >= min_scs)
+        nvalid = (msc >= min_scs[:, None]).sum(axis=1)
+        has_sec = ~filtered & (nvalid >= 2)
+
+        # ---- batched primary ungapped finalization ----
+        prim_un = aligned & ~mgap[:, 0]
+        if only_rows is not None:
+            sel = np.zeros(B, bool)
+            sel[only_rows] = True
+            prim_un &= sel
+        rows = np.flatnonzero(prim_un)
+        fin: dict[int, Alignment] = {}
+        if rows.size:
+            alns = self._finalize_ungapped_list(
+                batch, rows, mpos[rows, 0], mfw[rows, 0], lens[rows])
+            fin = {int(rows[r]): a for r, a in enumerate(alns)
+                   if a is not None}
+        todo = range(B) if only_rows is None else [int(i) for i in only_rows]
+        out = {i: self._finalize_one(batch, merged, i, filtered, aligned,
+                                     has_sec, nvalid, lens, min_scs, msc,
+                                     mpos, mfw, mgap, fin) for i in todo}
+        return out if only_rows is not None else [out[i] for i in range(B)]
+
+    def _finalize_one(self, batch, merged, i, filtered, aligned, has_sec,
+                      nvalid, lens, min_scs, msc, mpos, mfw, mgap, fin
+                      ) -> ReadResult:
+        """One read's host finalization."""
+        if filtered[i]:
+            return ReadResult(filtered=_filter_reason(batch, i, lens))
+        if not aligned[i]:
+            return ReadResult()
+        res = ReadResult(best=int(msc[i, 0]),
+                         secbest=int(msc[i, 1]) if has_sec[i] else None)
+        a0 = fin.get(i) if not mgap[i, 0] else self._finalize(
+            i, batch, int(msc[i, 0]), int(mpos[i, 0]), bool(mfw[i, 0]),
+            True, int(lens[i]))
+        if a0 is None:  # fragment-boundary reject: try remaining cands
+            cands = self._ranked_candidates(merged, i, int(min_scs[i]))
+            return self._select(i, batch, cands,
+                                int(min_scs[i]), int(lens[i]))
+        res.alns.append(a0)
+        if nvalid[i] > 1 and self.opts.khits > 1:
+            for t in range(1, min(int(nvalid[i]), self.opts.khits + 1)):
+                a = self._finalize(i, batch, int(msc[i, t]),
+                                   int(mpos[i, t]), bool(mfw[i, t]),
+                                   bool(mgap[i, t]), int(lens[i]))
+                if a is not None:
+                    res.alns.append(a)
+        _dedup_alns(res, self.opts.khits)
+        return res
+
+    def _select(self, i, batch, cands, min_sc, rdlen) -> ReadResult:
+        res = ReadResult()
+        valid = [c for c in cands if c[0] >= min_sc]
+        if not valid:
+            return res
+        res.best = valid[0][0]
+        if len(valid) > 1:
+            res.secbest = valid[1][0]
+        for s, p, fw, gapped, row, t in valid[: self.opts.khits + 1]:
+            aln = self._finalize(i, batch, s, p, fw, gapped, rdlen)
+            if aln is not None:
+                res.alns.append(aln)
+        if not res.alns:
+            return ReadResult()
+        _dedup_alns(res, self.opts.khits)
+        return res
 
     def _ungapped_arrays(self, batch, rows, pos, fw, rdlens) -> dict:
         """Vectorized clips + mismatch extraction + coordinate mapping for
@@ -856,6 +1179,15 @@ class Aligner:
         return aln
 
 
+def _merged_dict(packed: np.ndarray) -> dict:
+    """Host candidate dict from a packed (B, K2, 3) [score, pos, flags]
+    grid."""
+    return dict(score=packed[:, :, 0].astype(np.int64),
+                pos=packed[:, :, 1],
+                fw=(packed[:, :, 2] & 1).astype(bool),
+                gapped=(packed[:, :, 2] & 2) > 0)
+
+
 def _to_host_async(tensors: dict):
     """Start device->host copies of `tensors` into pinned buffers.
     Returns (host dict, ready): `ready` is a CUDA event to wait on before
@@ -921,3 +1253,50 @@ def _best_clip(scoring, rd: np.ndarray, q: np.ndarray, window: np.ndarray
     start = int(np.argmin(P[:k + 1]))
     score = best - int(scp.sum())
     return start, L - (k + 1), score
+
+
+# ---------------------------------------------------------------------------
+# SAM emission (single-end, per-read path)
+# ---------------------------------------------------------------------------
+
+def results_to_sam(batch: ReadBatch, results: list[ReadResult],
+                   aligner: Aligner, writer: samio.SamWriter) -> dict:
+    """Emit SAM lines for a single-end batch of ReadResults; returns the
+    summary counts."""
+    sc = aligner.scoring
+    ref = aligner.fm.ref
+    stats = dict(reads=0, unal=0, uniq=0, multi=0)
+    for i, res in enumerate(results):
+        stats["reads"] += 1
+        name = batch.names[i]
+        rdlen = int(batch.lens[i])
+        seq = batch.seqs[i, :rdlen]
+        qual = (batch.quals[i, :rdlen].astype(np.uint8) + 33
+                ).tobytes().decode("ascii")
+        if not res.aligned:
+            stats["unal"] += 1
+            writer.emit(int(batch.rdids[i]), [samio.format_unaligned(
+                name, seq, qual, yf=res.filtered)])
+            continue
+        if len(res.alns) > 1 or (res.secbest is not None
+                                 and res.secbest >= sc.min_score(rdlen)):
+            stats["multi"] += 1
+        else:
+            stats["uniq"] += 1
+        mq = _mapq.mapq_v2(res.best, res.secbest, sc.perfect_score(rdlen),
+                           sc.min_score(rdlen), local=sc.local)
+        lines = []
+        nh = len(res.alns)
+        for k, aln in enumerate(res.alns):
+            rec = samio.SamAlignment(
+                rname=aln.rname_override or ref.names[aln.tidx],
+                pos=aln.toff, fw=aln.fw,
+                mapq=mq if k == 0 else 255, cigar=aln.cigar, score=aln.score,
+                nmm=aln.nmm, gap_opens=aln.gap_opens, gap_exts=aln.gap_exts,
+                md=aln.md, nm=aln.nm,
+                zs=res.secbest if res.secbest is not None else None,
+                xs_strand=aln.xs_strand, zs_snps=aln.zs_snps,
+                nh=aln.nh_override or nh, secondary=k > 0)
+            lines.append(samio.format_aligned(name, seq, qual, rec))
+        writer.emit(int(batch.rdids[i]), lines)
+    return stats

@@ -20,9 +20,11 @@ TPU the unit is a *batch of reads*, so we instead store:
 
 The on-disk format (save/load) is the JAX package's, so one built index
 feeds both packages. `device_bundle(device)` carries the tensors the
-seed-table SE path reads. Packed uint32 words travel as int64 tensors
-holding the unsigned value: torch's `>>` on int32 is arithmetic, and a
-word whose last base is G or T has bit 31 set.
+aligner reads: the packed text, the fragment tables, the k-mer seed table
+where the index has one, and (on request) the FM keys of backward search
+and locate. Packed uint32 words travel as int64 tensors holding the
+unsigned value: torch's `>>` on int32 is arithmetic, torch has no shifts
+on uint32, and a word whose last base is G or T has bit 31 set.
 """
 
 from __future__ import annotations
@@ -86,10 +88,11 @@ class FMIndex:
 
     # ---------------- device bundle ----------------
 
-    def device_bundle(self, device="cuda") -> dict:
-        """Tensors on `device` for the seed-table SE path.
+    def device_bundle(self, device="cuda", fm: bool | None = None) -> dict:
+        """Tensors on `device` for the aligner's device stages.
 
-        Packed text views (int64 words holding uint32 values):
+        Always present. Packed text views (int64 words holding uint32
+        values):
           text_packed   (Wt,) the 2-bit text
           text_rows     (nr+1, 16) row view: a window of <= 256 chars is
                         two whole-row gathers (ops/rank.gather_rows2)
@@ -98,11 +101,30 @@ class FMIndex:
                         <= 128 chars lies inside ONE row, and negative
                         starts (chromosome-start DP windows) align with
                         no right-shift cascade
-        Seed table (int32): st_starts (4^kt+1,), st_pairs (4^kt, 2)
-        [start, end] rows for kt <= 12, st_pos_rows (nrp+1, RW) with
-        RW = 128 for high-load tables else 32; plus st_k and st_stride
-        as ints. Fragment tables (int32): frag_joined, frag_end,
-        frag_tidx. `n` is the joined text length, an int.
+        Fragment tables (int32): frag_joined, frag_end, frag_tidx. `n` is
+        the joined text length, an int.
+
+        With a seed table (st_k > 0), int32: st_starts (4^kt+1,), st_pairs
+        (4^kt, 2) [start, end] rows for kt <= 12, st_pos_rows (nrp+1, RW)
+        with RW = 128 for high-load tables else 32; plus st_k and
+        st_stride as ints.
+
+        FM keys, present when `fm` is true; the default (None) uploads
+        them exactly when the index has no seed table, which is when the
+        aligner seeds by backward search (an index with a table seeds from
+        the table, with seed_mode=False too, and never reads them):
+          sides       (nblocks, 12) int64: a block's 4 Occ checkpoints and
+                      its 8 BWT words, one contiguous row per rank. As
+                      int64 a row is 96 bytes where the uint32 original is
+                      48: 0.75 byte a base, 3.5 MB at 4.6 Mbp and 2.3 GB
+                      at 3.1 Gbp
+          bwt_packed  (W,) int64 holding uint32 words
+          ccount      (5,) int32; `m` = ccount[4] (BWT rows) as an int
+          ftab        (4^ftab_k, 2) int32 [top, bot); ftab_k, zoff ints
+          sa          (m,) int32, empty for a sampled index
+        and with offrate > 0 the sample: samp_bits (ceil(m/32),) int64
+        holding uint32 words, samp_rank, samp_vals (int32), samp_ival =
+        2^offrate as an int.
         """
         import torch
 
@@ -145,7 +167,37 @@ class FMIndex:
             frag_tidx=dev(r.frag_tidx, torch.int32),
             n=int(self.n),
         )
+        if fm is None:
+            fm = "st_starts" not in out
+        if fm:
+            nblocks = self.occ.shape[0] - 1
+            sides = np.empty((nblocks, 4 + WORDS_PER_BLOCK), np.int64)
+            sides[:, :4] = self.occ[:-1]
+            sides[:, 4:] = self.bwt_packed[
+                : nblocks * WORDS_PER_BLOCK].reshape(nblocks, WORDS_PER_BLOCK)
+            out.update(
+                sides=dev(sides),
+                bwt_packed=dev(self.bwt_packed.astype(np.int64)),
+                ccount=dev(self.ccount, torch.int32),
+                m=int(self.ccount[4]),
+                sa=dev(self.sa, torch.int32),
+                ftab=dev(self.ftab, torch.int32),
+                zoff=int(self.zoff),
+                ftab_k=int(self.ftab_k),
+            )
+            if self.offrate and self.samp_bits is not None:
+                out.update(
+                    samp_bits=dev(self.samp_bits.astype(np.int64)),
+                    samp_rank=dev(self.samp_rank, torch.int32),
+                    samp_vals=dev(self.samp_vals, torch.int32),
+                    samp_ival=int(1 << self.offrate))
         return out
+
+    @staticmethod
+    def bundle_bytes(bundle: dict) -> int:
+        """Bytes the tensors of a device bundle hold."""
+        return sum(t.numel() * t.element_size() for t in bundle.values()
+                   if hasattr(t, "element_size"))
 
     # ---------------- persistence ----------------
 
@@ -199,6 +251,22 @@ class FMIndex:
         with np.load(prefix + ".npz") as z:
             fields = {k: z[k] for k in z.files}
         return FMIndex.from_arrays({**fields, **meta})
+
+    @staticmethod
+    def from_object(other) -> "FMIndex":
+        """An FMIndex over the arrays of another index object with this
+        class's fields and a `ref` of JoinedReference's fields (the JAX
+        package's FMIndex, say), so both search the very same arrays."""
+        r = other.ref
+        fields = {k: getattr(other, k) for k in (
+            "n", "zoff", "ftab_k", "bwt_packed", "text_packed", "occ",
+            "ccount", "sa", "ftab", "known_ss", "known_exons",
+            "excluded_ss", "offrate", "samp_bits", "samp_rank", "samp_vals",
+            "st_starts", "st_pos", "st_k", "st_stride")}
+        fields.update(names=r.names, tlens=r.tlens, joined=r.joined,
+                      frag_joined=r.frag_joined, frag_toff=r.frag_toff,
+                      frag_tidx=r.frag_tidx, frag_len=r.frag_len)
+        return FMIndex.from_arrays(fields)
 
     @staticmethod
     def from_arrays(fields: dict) -> "FMIndex":

@@ -3,8 +3,9 @@ via ctypes (no pybind dependency):
 
   sais.cpp      — linear-time SA-IS suffix array construction
   kmersort.cpp  — threaded counting sort behind the k-mer seed table
-  samfmt.cpp    — batched SAM record formatting (finish_se_native;
-                  finish_pe_native, format_pe_mix, format_pe_batch)
+  samfmt.cpp    — batched SAM record formatting (finish_se_native,
+                  format_se_batch2; finish_pe_native, format_pe_mix,
+                  format_pe_batch)
   dpkernel.cpp  — single-pair affine-gap DP traceback
 
 The sources are copies of the JAX package's, so both packages format SAM
@@ -131,6 +132,19 @@ def samfmt_lib() -> ctypes.CDLL:
             _i32, _i32, _i32,            # rname pos1 mapq
             _i32, _i32, _i32,            # c5 mid c3
             _i32, _i32, _i32,            # pnext tlen yt_code
+            _i32, _i32, _i32, _i32, _i32,  # score nmm nm zs nh
+            _u8, _i64,                   # name buf/off (per read)
+            _u8, _u8, _u8, _u8, _i64,    # seq_f qual_f seq_r qual_r off
+            _i32, _u8, _i64,             # mm cols/ref/off (per record)
+            _u8, _i64,                   # refname buf/off
+            ctypes.c_char_p, _c_i64, _i64,  # out, cap, rec_ends
+            _i32, _i32, _i32]            # m1, gapN, xs (spliced records)
+        lib.format_se_batch2.restype = _c_i64
+        lib.format_se_batch2.argtypes = [
+            _c_i32,
+            _i32, _i32,                  # read_of flag
+            _i32, _i32, _i32,            # rname pos1 mapq
+            _i32, _i32, _i32,            # c5 mid c3
             _i32, _i32, _i32, _i32, _i32,  # score nmm nm zs nh
             _u8, _i64,                   # name buf/off (per read)
             _u8, _u8, _u8, _u8, _i64,    # seq_f qual_f seq_r qual_r off

@@ -1,5 +1,7 @@
 """The SE path on the card against the same path on the CPU (plain
-versions of the kernels): identical SAM bytes. Skips where CUDA is
+versions of the kernels): identical SAM bytes, on the table index and on
+every FM configuration (no table; sampled SA; seed_mode=False, SE and PE;
+the paired-k-mer and stride-sampled table modes). Skips where CUDA is
 absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
 import io
@@ -8,9 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from hisat2_tpu_torch.align.emit import align_and_emit_stream
-from hisat2_tpu_torch.align.pipeline import Aligner
-from hisat2_tpu_torch.index.fm_index import build_fm_index
+from hisat2_tpu_torch.align.emit import (align_and_emit_pe_stream,
+                                         align_and_emit_stream)
+from hisat2_tpu_torch.align.paired import align_pairs, pairs_to_sam
+from hisat2_tpu_torch.align.pipeline import (Aligner, AlignerOpts,
+                                             results_to_sam)
+from hisat2_tpu_torch.index.fm_index import (build_fm_index,
+                                             build_sampled_sa)
+from hisat2_tpu_torch.index.seed_table import build_seed_table
 from hisat2_tpu_torch.io import sam as samio
 from hisat2_tpu_torch.io.reads import Read, batchify
 from hisat2_tpu_torch.io.reference import reference_from_seqs
@@ -45,6 +52,75 @@ def test_se_sam_on_card_equals_cpu():
         al = Aligner(fm, device=device)
         align_and_emit_stream(al, batches, samio.SamWriter(
             buf, fm.ref.names, [int(x) for x in fm.ref.tlens], no_head=True))
+        return buf.getvalue()
+    before = dp_cuda.launches["dp_score"]
+    on_card = sam("cuda")
+    assert dp_cuda.launches["dp_score"] > before
+    assert on_card == sam("cpu")
+
+
+def _fm_indexes(fm):
+    """{name: index} over one built index's arrays: no table (A), A with a
+    sampled SA (B), a paired-k-mer table, a stride-2 table."""
+    import dataclasses
+    a = dataclasses.replace(fm, st_starts=None, st_pos=None, st_k=0)
+    bits, rank, vals = build_sampled_sa(fm.sa.astype(np.int64), 4)
+    b = dataclasses.replace(a, offrate=4, samp_bits=bits, samp_rank=rank,
+                            samp_vals=vals, sa=np.zeros(0, np.int32))
+    st, pos, k = build_seed_table(fm.ref.joined, kt=6)
+    pair = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k)
+    st, pos, k = build_seed_table(fm.ref.joined, kt=9, stride=2)
+    stride2 = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k,
+                                  st_stride=2)
+    return dict(A=a, B=b, pair=pair, stride2=stride2, T=fm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,seed_mode,how", [
+    ("A", True, "stream"), ("B", True, "stream"), ("pair", True, "stream"),
+    ("stride2", True, "stream"), ("A", False, "stream"),
+    ("T", False, "stream"), ("A", False, "align_batch"),
+    ("B", False, "align_batch"), ("A", True, "pe"), ("A", False, "pe"),
+    ("A", False, "align_pairs")])
+def test_fm_sam_on_card_equals_cpu(name, seed_mode, how):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the FM paths on the card need one")
+    rng = np.random.default_rng(10)
+    g = rng.integers(0, 4, 60000).astype(np.uint8)
+    fm = _fm_indexes(build_fm_index(reference_from_seqs(
+        {"chrG": alphabet.decode(g)})))[name]
+
+    def mk(i, s, rc):
+        r = g[s:s + 100].copy()
+        if i % 10 == 0:                       # a 2 bp deletion
+            r = np.concatenate([g[s:s + 50], g[s + 52:s + 102]])
+        m = rng.random(100) < 0.02
+        r[m] = (r[m] + 1) % 4
+        if i % 13 == 0:
+            r[::9] = 4
+        return alphabet.revcomp(r) if rc else r
+    q = np.full(100, 40, np.int8)
+    starts = rng.integers(0, g.size - 700, 256)
+    b1 = batchify([Read(f"q{i}", mk(i, int(s), i % 2 == 1), q, i)
+                   for i, s in enumerate(starts)], pad_to=104)
+    b2 = batchify([Read(f"q{i}", mk(i + 5, int(s) + 250, i % 2 == 0), q, i)
+                   for i, s in enumerate(starts)], pad_to=104)
+
+    def sam(device):
+        buf = io.StringIO()
+        al = Aligner(fm, opts=AlignerOpts(seed_mode=seed_mode),
+                     device=device)
+        w = samio.SamWriter(buf, fm.ref.names,
+                            [int(x) for x in fm.ref.tlens], no_head=True)
+        if how == "stream":
+            align_and_emit_stream(al, [b1], w)
+        elif how == "align_batch":
+            results_to_sam(b1, al.align_batch(b1), al, w)
+        elif how == "pe":
+            align_and_emit_pe_stream(al, [(b1, b2)], w)
+        else:
+            pairs_to_sam(b1, b2, align_pairs(al, b1, b2), al, w)
+        w.flush()
         return buf.getvalue()
     before = dp_cuda.launches["dp_score"]
     on_card = sam("cuda")

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 import chip_smoke
-from hisat2_tpu_torch.align.pipeline import Aligner
+from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
 from hisat2_tpu_torch.index.fm_index import build_fm_index
 from hisat2_tpu_torch.io.reference import reference_from_seqs
 from hisat2_tpu_torch.utils import alphabet
@@ -60,6 +60,46 @@ def test_pe_main_path_checks_on_cpu():
         assert share >= 0.9 and m1_rate >= 0.95 and mate_rate >= 0.95
     rd, quals, lens, ref = chip_smoke.make_dp_case(0, 19, 104, 2047)
     assert rd.shape == (19, 104) and ref.shape == (19, 2047)
+
+
+def test_fm_phase_helpers_on_cpu():
+    """The FM phase's index variants (no table; sampled SA; a paired-k-mer
+    table; a stride-2 table) over the arrays of one built index, and its
+    per-read and per-pair runners, on a 48 kb genome."""
+    g = np.random.default_rng(3).integers(0, 4, 48000).astype(np.uint8)
+    fm = build_fm_index(reference_from_seqs({"chrS": alphabet.decode(g)}))
+    var = chip_smoke.fm_variants(fm)
+    a, b = var["A"], var["B"]
+    assert a.st_k == 0 and a.st_starts is None and a.sa is fm.sa
+    assert b.offrate == chip_smoke.FM_OFFRATE and b.sa.size == 0
+    assert b.samp_vals.size < fm.sa.size // 8 and fm.st_k > 0
+    for name, mode in (("pair", True), ("stride2", False)):
+        bundle = var[name].device_bundle("cpu")
+        load = bundle["st_pos_rows"].numel() / 4 ** bundle["st_k"]
+        assert (load > 3.0) == mode, (name, load)
+    assert var["stride2"].device_bundle("cpu")["st_stride"] == 2
+    seqs, starts, indel = chip_smoke.simulate_reads(fm.ref.joined, 256, 5)
+    batches = chip_smoke.make_batches(seqs, 0, 256)
+    texts = {}
+    for name in ("A", "B", "pair", "stride2"):
+        texts[name], stats = chip_smoke.run_stream(
+            Aligner(var[name], device="cpu"), batches, fm.ref)
+        rate, true_rate, _ = chip_smoke.check_sam(texts[name], 256, starts,
+                                                  indel)
+        assert rate >= 0.9 and true_rate >= 0.95
+    assert texts["B"] == texts["A"]
+    off = AlignerOpts(seed_mode=False)
+    text, stats = chip_smoke.run_per_read(
+        Aligner(a, opts=off, device="cpu"), batches, fm.ref)
+    assert stats["reads"] == 256
+    chip_smoke.check_sam(text, 256, starts, indel)
+    r1, r2, m1_true, pe_indel = chip_smoke.simulate_pairs(fm.ref.joined,
+                                                          128, 6)
+    pb = chip_smoke.make_pair_batches(r1, r2, 0, 128)
+    text, stats = chip_smoke.run_per_pair(
+        Aligner(a, opts=off, device="cpu"), pb, fm.ref)
+    assert stats["pairs"] == 128
+    chip_smoke.check_pe_sam(text, 128, m1_true, pe_indel)
 
 
 def test_ptxas_report_by_kernel():
