@@ -1247,7 +1247,8 @@ def _finish_pe_slow_and_stitch(al, b1, b2, ex, out, writer, fast, aux,
 def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
                               writer) -> dict:
     """Fused paired-end align + SAM emission for batches with per-base
-    qualities.
+    qualities; with seed_mode=False the per-pair path (paired.align_pairs
+    + pairs_to_sam) instead.
 
     One device call (paired.stage_pe_fused: both mates' cores, the
     concordance grid, record finalization), then a vectorized host fast

@@ -18,7 +18,10 @@ and best ungapped placement (ops/sw.ungapped_place_batch). The fused step
 (_stage_pe_fused_impl) serves batches with per-base qualities.
 
 Host: the per-pair ladder (_pair_result_one), the mate rescue's CIGAR/MD
-assembly (_rescue_mates) and the SAM lines of one pair (pair_lines).
+assembly (_rescue_mates) and the SAM lines of one pair (pair_lines). With
+seed_mode=False align_pairs runs each mate through the aligner's per-read
+device path and forms the concordance grid on the host
+(_concordant_grid).
 Spliced PE, --tmo and the sharded genomes' host rescue are not ported.
 """
 

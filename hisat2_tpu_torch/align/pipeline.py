@@ -753,10 +753,7 @@ class Aligner:
         m.table_probes += 2 * B * o.n_seeds
         m.candidates += 2 * B * o.verify_cands
         seq_w, n_w, quals, qconst, lens = batch.packed()
-        dev = self.device
-
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+        up = self._up
         sc = self.scoring
         K2 = min(2 * o.top_cands, max(8, o.khits + 3))
         fp, merged, extras = _stage_align_packed(

@@ -88,7 +88,7 @@ class FMIndex:
 
     # ---------------- device bundle ----------------
 
-    def device_bundle(self, device="cuda", fm: bool | None = None) -> dict:
+    def device_bundle(self, device="cuda") -> dict:
         """Tensors on `device` for the aligner's device stages.
 
         Always present. Packed text views (int64 words holding uint32
@@ -109,10 +109,10 @@ class FMIndex:
         with RW = 128 for high-load tables else 32; plus st_k and
         st_stride as ints.
 
-        FM keys, present when `fm` is true; the default (None) uploads
-        them exactly when the index has no seed table, which is when the
-        aligner seeds by backward search (an index with a table seeds from
-        the table, with seed_mode=False too, and never reads them):
+        FM keys, present exactly when the index has no seed table, which
+        is when the aligner seeds by backward search (an index with a
+        table seeds from the table, with seed_mode=False too, and never
+        reads them, so the table path's device memory does not grow):
           sides       (nblocks, 12) int64: a block's 4 Occ checkpoints and
                       its 8 BWT words, one contiguous row per rank. As
                       int64 a row is 96 bytes where the uint32 original is
@@ -167,9 +167,7 @@ class FMIndex:
             frag_tidx=dev(r.frag_tidx, torch.int32),
             n=int(self.n),
         )
-        if fm is None:
-            fm = "st_starts" not in out
-        if fm:
+        if "st_starts" not in out:
             nblocks = self.occ.shape[0] - 1
             sides = np.empty((nblocks, 4 + WORDS_PER_BLOCK), np.int64)
             sides[:, :4] = self.occ[:-1]

@@ -6,6 +6,8 @@ seed_search. One 46 kb two-chromosome genome with an N run (ftab_k = 8
 there) and one 3 kb genome (ftab_k = 6); inputs come from a numpy seed;
 equality is exact, everything is int32."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from hisat2_tpu.index.fm_index import build_fm_index, build_sampled_sa
+from hisat2_tpu.index.seed_table import build_seed_table
 from hisat2_tpu.io.reference import reference_from_seqs
 from hisat2_tpu.ops import locate as jlocate, rank as jrank
 from hisat2_tpu.ops import search as jsearch
@@ -29,16 +32,22 @@ def T(a, dtype=torch.int32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
-def _sampled(jfm, offrate):
-    """A copy of a full-SA JAX index that keeps only the 2^offrate
-    sample, as build_fm_index(offrate=...) leaves it."""
-    import copy
+def variant(jfm, offrate=0, table=None):
+    """A copy of a JAX index over the same arrays, with its SA sampled at
+    `offrate` (as build_fm_index(offrate=...) leaves it) and/or carrying
+    build_seed_table(kt=, stride=) for table = (kt, stride)."""
     j = copy.copy(jfm)
-    j.__dict__.pop("device", None)
-    j.offrate = offrate
-    j.samp_bits, j.samp_rank, j.samp_vals = build_sampled_sa(
-        jfm.sa.astype(np.int64), offrate)
-    j.sa = np.zeros(0, np.int32)
+    j.__dict__.pop("device", None)         # the cached device dict
+    if offrate:
+        j.offrate = offrate
+        j.samp_bits, j.samp_rank, j.samp_vals = build_sampled_sa(
+            jfm.sa.astype(np.int64), offrate)
+        j.sa = np.zeros(0, np.int32)
+    if table:
+        kt, stride = table
+        j.st_starts, j.st_pos, j.st_k = build_seed_table(
+            jfm.ref.joined, kt=kt, stride=stride)
+        j.st_stride = stride
     return j
 
 
@@ -56,8 +65,8 @@ def fm():
         rng.integers(0, 4, 3000).astype(np.uint8))}), seed_table=False)
     assert (big.ftab_k, small.ftab_k) == (8, 6)
     out = {}
-    for name, j in (("big", big), ("o2", _sampled(big, 2)),
-                    ("o4", _sampled(big, 4)), ("small", small)):
+    for name, j in (("big", big), ("o2", variant(big, offrate=2)),
+                    ("o4", variant(big, offrate=4)), ("small", small)):
         out[name] = (j, j.device, FMIndex.from_object(j).device_bundle("cpu"))
     return out
 
@@ -79,14 +88,14 @@ def test_bundle_carries_the_fm_keys(fm):
             for k in ("samp_bits", "samp_rank", "samp_vals"):
                 np.testing.assert_array_equal(
                     tidx[k].numpy(), np.asarray(jidx[k]).astype(np.int64))
-    # an index with a seed table keeps the FM keys off the device unless
-    # asked for them
+    # an index with a seed table keeps the FM keys off the device
     jt = build_fm_index(reference_from_seqs({"t": "ACGT" * 300}))
-    t = FMIndex.from_object(jt)
-    assert "sides" not in t.device_bundle("cpu")
-    assert "sides" in t.device_bundle("cpu", fm=True)
-    assert FMIndex.bundle_bytes(t.device_bundle("cpu", fm=True)) > \
-        FMIndex.bundle_bytes(t.device_bundle("cpu"))
+    with_table = FMIndex.from_object(jt).device_bundle("cpu")
+    assert "sides" not in with_table and "st_starts" in with_table
+    small = fm["small"][2]
+    assert FMIndex.bundle_bytes(small) == sum(
+        t.numel() * t.element_size() for t in small.values()
+        if isinstance(t, torch.Tensor)) > 8 * small["sides"].numel()
 
 
 def test_popcount32():

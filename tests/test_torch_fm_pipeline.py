@@ -25,7 +25,6 @@ dovetail, no_contain, no_overlap) on random candidate grids, and the SAM
 bytes and stats of the packed step, the fused step and the
 seed_mode=False per-pair path (align_pairs + pairs_to_sam) on A and B."""
 
-import copy
 import io
 
 import jax.numpy as jnp
@@ -35,14 +34,14 @@ import torch
 
 import test_torch_paired_emit as pe_base
 import test_torch_pipeline as se_base
+from test_torch_fm_ops import variant
 from hisat2_tpu.align import emit as jemit
 from hisat2_tpu.align import paired as jpaired
 from hisat2_tpu.align import pipeline as jpipe
 from hisat2_tpu.align.pipeline import Aligner as JAligner
 from hisat2_tpu.align.pipeline import AlignerOpts as JOpts
 from hisat2_tpu.align.scoring import DEFAULT_SCORING as JSCORING
-from hisat2_tpu.index.fm_index import build_fm_index, build_sampled_sa
-from hisat2_tpu.index.seed_table import build_seed_table
+from hisat2_tpu.index.fm_index import build_fm_index
 from hisat2_tpu.io import sam as jsam
 from hisat2_tpu.io.reads import Read as JRead, batchify as jbatchify
 from hisat2_tpu.io.reference import reference_from_seqs
@@ -65,24 +64,6 @@ NB = 88          # reads per batch: 8 of each kind of se_base._reads
 
 def T(a, dtype=torch.int32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
-
-
-def variant(jfm, offrate=0, table=None):
-    """A copy of a JAX index with its SA sampled and/or carrying
-    build_seed_table(kt=, stride=)."""
-    j = copy.copy(jfm)
-    j.__dict__.pop("device", None)
-    if offrate:
-        j.offrate = offrate
-        j.samp_bits, j.samp_rank, j.samp_vals = build_sampled_sa(
-            jfm.sa.astype(np.int64), offrate)
-        j.sa = np.zeros(0, np.int32)
-    if table:
-        kt, stride = table
-        j.st_starts, j.st_pos, j.st_k = build_seed_table(
-            jfm.ref.joined, kt=kt, stride=stride)
-        j.st_stride = stride
-    return j
 
 
 @pytest.fixture(scope="module")

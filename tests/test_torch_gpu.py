@@ -10,14 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hisat2_tpu_torch.align.emit import (align_and_emit_pe_stream,
                                          align_and_emit_stream)
 from hisat2_tpu_torch.align.paired import align_pairs, pairs_to_sam
 from hisat2_tpu_torch.align.pipeline import (Aligner, AlignerOpts,
                                              results_to_sam)
-from hisat2_tpu_torch.index.fm_index import (build_fm_index,
-                                             build_sampled_sa)
-from hisat2_tpu_torch.index.seed_table import build_seed_table
+from hisat2_tpu_torch.index.fm_index import build_fm_index
 from hisat2_tpu_torch.io import sam as samio
 from hisat2_tpu_torch.io.reads import Read, batchify
 from hisat2_tpu_torch.io.reference import reference_from_seqs
@@ -59,22 +58,6 @@ def test_se_sam_on_card_equals_cpu():
     assert on_card == sam("cpu")
 
 
-def _fm_indexes(fm):
-    """{name: index} over one built index's arrays: no table (A), A with a
-    sampled SA (B), a paired-k-mer table, a stride-2 table."""
-    import dataclasses
-    a = dataclasses.replace(fm, st_starts=None, st_pos=None, st_k=0)
-    bits, rank, vals = build_sampled_sa(fm.sa.astype(np.int64), 4)
-    b = dataclasses.replace(a, offrate=4, samp_bits=bits, samp_rank=rank,
-                            samp_vals=vals, sa=np.zeros(0, np.int32))
-    st, pos, k = build_seed_table(fm.ref.joined, kt=6)
-    pair = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k)
-    st, pos, k = build_seed_table(fm.ref.joined, kt=9, stride=2)
-    stride2 = dataclasses.replace(fm, st_starts=st, st_pos=pos, st_k=k,
-                                  st_stride=2)
-    return dict(A=a, B=b, pair=pair, stride2=stride2, T=fm)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,seed_mode,how", [
     ("A", True, "stream"), ("B", True, "stream"), ("pair", True, "stream"),
@@ -87,8 +70,9 @@ def test_fm_sam_on_card_equals_cpu(name, seed_mode, how):
         pytest.skip("no CUDA device: the FM paths on the card need one")
     rng = np.random.default_rng(10)
     g = rng.integers(0, 4, 60000).astype(np.uint8)
-    fm = _fm_indexes(build_fm_index(reference_from_seqs(
-        {"chrG": alphabet.decode(g)})))[name]
+    fm = build_fm_index(reference_from_seqs({"chrG": alphabet.decode(g)}))
+    if name != "T":
+        fm = chip_smoke.fm_variants(fm)[name]
 
     def mk(i, s, rc):
         r = g[s:s + 100].copy()

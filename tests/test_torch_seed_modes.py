@@ -6,8 +6,6 @@ with an N run and a planted repeat; the tables are built by the JAX
 package over it and handed to the port as the same arrays. Every key of
 the returned dict must be equal, exactly."""
 
-import copy
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,11 +13,11 @@ import pytest
 import torch
 
 from hisat2_tpu.index.fm_index import build_fm_index
-from hisat2_tpu.index.seed_table import build_seed_table
 from hisat2_tpu.io.reference import reference_from_seqs
 from hisat2_tpu.ops import search as jsearch
 from hisat2_tpu.utils import alphabet as jalphabet
 
+from test_torch_fm_ops import variant
 from hisat2_tpu_torch.index.fm_index import FMIndex
 from hisat2_tpu_torch.ops import search as tsearch
 
@@ -35,16 +33,6 @@ def T(a, dtype=torch.int32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
-def with_table(jfm, kt, stride):
-    """A copy of a JAX index carrying build_seed_table(kt=, stride=)."""
-    j = copy.copy(jfm)
-    j.__dict__.pop("device", None)
-    j.st_starts, j.st_pos, j.st_k = build_seed_table(
-        jfm.ref.joined, kt=kt, stride=stride)
-    j.st_stride = stride
-    return j
-
-
 @pytest.fixture(scope="module")
 def tables():
     rng = np.random.default_rng(41)
@@ -55,7 +43,7 @@ def tables():
     base = build_fm_index(reference_from_seqs({"chrS": s}), seed_table=False)
     out = {}
     for name, (kt, stride) in TABLES.items():
-        j = with_table(base, kt, stride)
+        j = variant(base, table=(kt, stride))
         out[name] = (j, j.device, FMIndex.from_object(j).device_bundle("cpu"))
     return out
 
