@@ -22,6 +22,10 @@ Phases; any failure exits non-zero:
                  main path's shape, at the rescue's (W + 1 = 1105), and at
                  every window where a variant's capacity ends: one column
                  short of it, exactly at it, and one past it (edge_windows).
+                 The one-warp kernel's cases run a second time with an SNV
+                 overlay holding every kind of nibble (make_dp_ov), through
+                 its overlay instantiations; the one-block kernel must
+                 refuse an overlay.
   4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
@@ -61,14 +65,32 @@ Phases; any failure exits non-zero:
                  2,048 reads (512 pairs) and the DP kernel must have been
                  launched. One batch on A and on B under torch.profiler
                  gives launches per batch and the device's busy share.
-  7. report    - the wide kernel's time and bound at W = 604, 1104 and
+  7. graph     - SNP-aware alignment: the same genome with one known
+                 variant per 250 bp (about 18,500: 90% SNVs, 5% deletions
+                 and 5% insertions of 1-3 bp, 300 phased SNV pairs with a
+                 haplotype patch each) as a graph index with its k-mer
+                 table, and the same index without the table (FM seeding
+                 through the patch fragments). Reads are cut from one
+                 haplotype (every variant applied with probability 0.5)
+                 with phase 4's errors on top: 4 batches of 16,384 reads
+                 and 2 of 16,384 pairs through the streams, 2 SE batches on
+                 the FM-seeded index. Asserts phase 4's guards; that of the
+                 error-free reads carrying an alt SNV at least 0.95 come
+                 out AS:i:0 XM:i:0 NM:i:0 while none does on the linear
+                 index; that a read over a known deletion and one over a
+                 known insertion come out with the zero-cost D / I; that
+                 zs_tags=True writes Zs:Z; that the card's SAM equals the
+                 CPU path's for the SE stream, both PE steps, the FM-seeded
+                 index, seed_mode=False (SE and PE) and zs_tags=True; and
+                 that every graph run launched the overlay kernel.
+  8. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, the kernel's maximum);
                  each DP kernel's time on its main path's own inputs (the
-                 narrow one also on the per-read path's, C = 16,384), its
-                 plain version's time and its bound, as one JSON line;
-                 end-to-end reads/s (SE) and pairs/s (PE) and peak device
-                 memory beside the card name and power limit; last line
-                 {"ok": true, ...}.
+                 narrow one also on the per-read path's, C = 16,384, and
+                 with the overlay on the graph path's), its plain version's
+                 time and its bound, as one JSON line; end-to-end reads/s
+                 (SE) and pairs/s (PE) and peak device memory beside the
+                 card name and power limit; last line {"ok": true, ...}.
 
 The bound of a kernel is the larger of its bytes over the card's memory
 rate and its int32 operations over the card's int32 rate, both from the
@@ -122,6 +144,11 @@ PE_NBATCH = 4
 FM_NBATCH = 4                 # SE batches on index A (B and PE take 2)
 FM_OFFRATE = 4                # index B keeps every 16th SA value
 FM_PAIR_KT = 10               # 4.6 Mbp / 4^10 = 4.4 a bucket: pair mode
+GRAPH_VARIANT_EVERY = 250     # one known variant per 250 bp
+GRAPH_HAP_PAIRS = 300         # phased SNV pairs with a haplotype patch
+GRAPH_NBATCH = 4              # SE batches on the graph index
+GRAPH_PE_NBATCH = 2
+GRAPH_FM_NBATCH = 2           # SE batches on the FM-seeded graph index
 
 
 def check(ok: bool, what: str) -> None:
@@ -183,6 +210,26 @@ def make_dp_case(seed, C, L, W):
     return rd, quals, lens, ref
 
 
+def make_dp_ov(seed, rd, ref, density=0.25, stress=True):
+    """SNV-overlay nibbles (C, W) for a make_dp_case: at `density` of the
+    window bases a nibble of every kind (1..4, naming the read base or
+    not, and 15), on N windows and under N read bases too. With `stress`,
+    on every third row the nibbles along one diagonal name the read's own
+    bases (15 under a read N), so each of its mismatches there is free,
+    and row 3 is all 15. The rest is 0, as most of a genome is."""
+    rng = np.random.default_rng(seed)
+    C, W = ref.shape
+    L = rd.shape[1]
+    ov = np.where(rng.random((C, W)) < density,
+                  rng.choice(np.array([1, 2, 3, 4, 15]), (C, W)), 0)
+    for i in range(0, C if stress else 0, 3):
+        s = int(rng.integers(0, W - L + 1))
+        ov[i, s:s + L] = np.where(rd[i] < 4, rd[i] + 1, 15)
+    if stress and C > 3:
+        ov[3] = 15
+    return ov.astype(np.int32)
+
+
 def edge_windows(kernel: str):
     """Windows W at which a variant of `kernel` ("dp_score" or
     "dp_score_wide") ends: W + 1 one short of, at and one past each
@@ -225,9 +272,13 @@ def kernel_of(W: int) -> str:
 
 def variant_of(mangled: str):
     """'dp_score_kernel<CPL=5>' or 'dp_score_wide_kernel<CPL=9>' from a
-    mangled kernel name, or None."""
-    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E", mangled)
-    return f"{m.group(1)}<CPL={m.group(2)}>" if m else None
+    mangled kernel name ('...<CPL=5,OV>' for an overlay instantiation), or
+    None."""
+    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E(?:Lb([01])E)?",
+                  mangled)
+    if not m:
+        return None
+    return f"{m.group(1)}<CPL={m.group(2)}{',OV' if m.group(3) == '1' else ''}>"
 
 
 def ptxas_by_kernel(report: str):
@@ -428,6 +479,149 @@ def run_per_pair(al, pair_batches, ref):
     return buf.getvalue(), stats
 
 
+def simulate_variants(joined: np.ndarray, seed: int, every: int, n_hap: int):
+    """Known variants for a graph index: one per `every` bp on a jittered
+    grid (so none overlap), 90% SNVs, 5% deletions and 5% insertions of 1-3
+    bp, and `n_hap` phased pairs (an SNV 6-30 bp right of a grid SNV, the
+    two listed as one haplotype). Returns (SNPDB, haplotypes as lists of
+    SNP indices); positions are joined = chromosome coordinates (one
+    chromosome, no N)."""
+    from hisat2_tpu_torch.io.annotations import SNPDB
+    rng = np.random.default_rng(seed)
+    n = joined.size
+    cells = np.arange((n - 64) // every)
+    off = rng.integers(8, every - 8, cells.size)
+    pos = cells * every + off
+    u = rng.random(pos.size)
+    types = np.where(u < 0.90, 0, np.where(u < 0.95, 1, 2))
+    lens = np.where(types == 0, 1, rng.integers(1, 4, pos.size))
+    # the second SNV of a phased pair, in cells whose SNV leaves room
+    room = np.flatnonzero((types == 0) & (off < every - 48))
+    first = np.sort(rng.choice(room, min(n_hap, room.size), replace=False))
+    pos2 = pos[first] + rng.integers(6, 31, first.size)
+    pos = np.concatenate([pos, pos2])
+    types = np.concatenate([types, np.zeros(first.size, types.dtype)])
+    lens = np.concatenate([lens, np.ones(first.size, lens.dtype)])
+    order = np.argsort(pos, kind="stable")
+    rank = np.empty(order.size, np.int64)
+    rank[order] = np.arange(order.size)
+    pos, types, lens = pos[order], types[order], lens[order]
+    alt = np.where(types == 0,
+                   (joined[pos] + rng.integers(1, 4, pos.size)) % 4, -1)
+    ins = [rng.integers(0, 4, int(ln)).astype(np.uint8) if t == 2
+           else np.zeros(0, np.uint8) for t, ln in zip(types, lens)]
+    snps = SNPDB(names=[f"v{i}" for i in range(pos.size)],
+                 types=types.astype(np.int8), jpos=pos.astype(np.int64),
+                 lens=lens.astype(np.int32), alt_codes=alt.astype(np.int8),
+                 ins_seqs=ins, chroms=["g"] * pos.size,
+                 tpos=pos.astype(np.int64))
+    haps = [[int(rank[a]), int(rank[cells.size + k])]
+            for k, a in enumerate(first)]
+    return snps, haps
+
+
+def apply_haplotype(joined: np.ndarray, snps, haps, seed: int):
+    """One individual's genome: every variant applied with probability 0.5,
+    the two SNVs of a phased pair together. Returns the haplotype's codes
+    and, per haplotype base: its reference position (an inserted base has
+    the position of the base after it), whether it is an applied alt SNV,
+    whether it is the first base after an applied deletion, and whether it
+    is an inserted base."""
+    rng = np.random.default_rng(seed)
+    take = rng.random(len(snps)) < 0.5
+    for a, b in haps:
+        take[b] = take[a]
+    n = joined.size
+    codes = joined.copy()
+    sv = take & (snps.types == 0)
+    codes[snps.jpos[sv]] = snps.alt_codes[sv]
+    alt = np.zeros(n, bool)
+    alt[snps.jpos[sv]] = True
+    keep = np.ones(n, bool)
+    after_del = np.zeros(n, bool)
+    for i in np.flatnonzero(take & (snps.types == 1)):
+        jp, ln = int(snps.jpos[i]), int(snps.lens[i])
+        keep[jp:jp + ln] = False
+        after_del[jp + ln] = True
+    refpos = np.flatnonzero(keep)
+    hap, alt, after_del = codes[keep], alt[keep], after_del[keep]
+    iv = np.flatnonzero(take & (snps.types == 2))
+    at = np.repeat(np.searchsorted(refpos, snps.jpos[iv]), snps.lens[iv])
+    bases = np.concatenate([snps.ins_seqs[i] for i in iv]
+                           + [np.zeros(0, np.uint8)])
+    inserted = np.insert(np.zeros(hap.size, bool), at, True)
+    hap = np.insert(hap, at, bases)
+    refpos = np.insert(refpos, at, np.repeat(snps.jpos[iv], snps.lens[iv]))
+    alt = np.insert(alt, at, False)
+    after_del = np.insert(after_del, at, False)
+    return hap.astype(np.uint8), refpos, alt, after_del, inserted
+
+
+def reads_on_haplotype(starts, flags):
+    """Per read of RDLEN starting at haplotype index starts[i]: how many
+    haplotype bases inside it carry each flag of `flags` (a list of bool
+    arrays over the haplotype; the read's first base does not count, since
+    a read that starts right after a deletion does not span it)."""
+    out = []
+    for f in flags:
+        c = np.concatenate([[0], np.cumsum(f)])
+        out.append(c[starts + RDLEN] - c[starts + 1])
+    return out
+
+
+def simulate_graph_reads(hap, refpos, alt, after_del, inserted, n, seed):
+    """simulate_reads on a haplotype. Returns the codes and a dict of
+    per-read arrays: `start` the read's true reference position, `indel` a
+    sequencing indel, `err` any sequencing error, `n_alt` alt SNVs inside
+    the read, `kdel` / `kins` an applied known deletion / inserted bases
+    inside the read."""
+    seqs, hstarts, indel = simulate_reads(hap, n, seed)
+    true = hap[hstarts[:, None] + np.arange(RDLEN)]
+    err = ~((seqs == true).all(axis=1)
+            | (seqs == 3 - true[:, ::-1]).all(axis=1))
+    n_alt, kdel, kins = reads_on_haplotype(hstarts, [alt, after_del,
+                                                     inserted])
+    n_alt = n_alt + alt[hstarts]
+    return seqs, dict(start=refpos[hstarts], indel=indel, err=err,
+                      n_alt=n_alt, kdel=kdel > 0, kins=kins > 0)
+
+
+def check_graph_sam(text: str, n: int, info: dict, what: str):
+    """A graph run's SAM against the truth of simulate_graph_reads: phase
+    4's guards over the reads with no indel of either kind, the share of
+    error-free alt-SNV reads that come out with no penalty, and the
+    error-free reads over one known deletion / insertion that come out
+    with its zero-cost D / I. Returns those figures."""
+    known = info["kdel"] | info["kins"]
+    rate, true_rate, indel_rate = check_sam(text, n, info["start"],
+                                            info["indel"] | known)
+    free = np.zeros(n, bool)
+    gap = np.zeros(n, "U1")
+    zs = 0
+    for ln in text.splitlines():
+        f = ln.split("\t")
+        if int(f[1]) & (256 | 4):
+            continue
+        i = int(f[0][1:])
+        tags = set(f[11:])
+        zs += any(t.startswith("Zs:Z:") for t in tags)
+        free[i] = {"AS:i:0", "XM:i:0", "NM:i:0"} <= tags
+        m = re.fullmatch(r"\d+M\d+([DI])\d+M", f[5])
+        if m and free[i]:
+            gap[i] = m.group(1)
+    clean = ~info["err"] & ~known
+    alt_reads = clean & (info["n_alt"] > 0)
+    alt_free = float(free[alt_reads].mean())
+    check(alt_free >= 0.95, f"{what}: error-free alt-SNV reads without "
+                            f"penalty {alt_free:.4f} < 0.95")
+    kdel = int((gap[~info["err"] & info["kdel"] & ~info["kins"]] == "D").sum())
+    kins = int((gap[~info["err"] & info["kins"] & ~info["kdel"]] == "I").sum())
+    return dict(rate=rate, true_rate=true_rate, indel_rate=indel_rate,
+                alt_reads=int(alt_reads.sum()), alt_free=alt_free,
+                free=free, kdel=kdel, kins=kins,
+                kdel_reads=int((~info["err"] & info["kdel"]).sum()),
+                kins_reads=int((~info["err"] & info["kins"]).sum()), zs=zs)
+
 
 def _with_indel(rng, joined, s, d, p, insert):
     """RDLEN bases read forward from joined[s]: a d bp deletion after p
@@ -533,6 +727,38 @@ def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
     return share, true_rate, float(aligned.mean())
 
 
+def counted(fn, what, need=("dp_score",)):
+    """fn() with the DP wrappers' launch counts set to 0 before it and read
+    after it; every kernel named in `need` must have been launched."""
+    import torch
+    from hisat2_tpu_torch.ops import dp_cuda
+    for k in dp_cuda.launches:
+        dp_cuda.launches[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(dp_cuda.launches)
+    for k in need:
+        check(got[k] > 0, f"kernel {k} was not launched on {what}")
+    return out, got
+
+
+def sam_card_equals_cpu(run, fmx, items, ref, what, tag,
+                        need=("dp_score",), opts=None):
+    """SAM of `items` through run(aligner, items, ref) on the card and on
+    the CPU path: the bytes must be equal, and the card's run must have
+    launched the kernels of `need`. Returns (card aligner, card text)."""
+    from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    o = opts or {}
+    cpu_text, _ = run(Aligner(fmx, opts=AlignerOpts(**o), device="cpu"),
+                      items, ref)
+    alx = Aligner(fmx, opts=AlignerOpts(**o), device="cuda")
+    (text, _), got = counted(lambda: run(alx, items, ref), what, need)
+    check(text == cpu_text, f"SAM from the card != CPU path on {what}")
+    print(f"[{tag}] SAM bytes on the card == CPU path on {what} "
+          f"({len(text)} bytes; launches {got})", flush=True)
+    return alx, text
+
+
 def fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel, card):
     """Phase 6 (see the module docstring). Returns the DP kernel's inputs
     as the per-read path built them at 16,384 reads, that run's launch
@@ -540,9 +766,7 @@ def fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel, card):
     import torch
     from hisat2_tpu_torch.align import emit as temit
     from hisat2_tpu_torch.align import pipeline as tpipe
-    from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
     from hisat2_tpu_torch.index.fm_index import FMIndex
-    from hisat2_tpu_torch.ops import dp_cuda
     ref = fm.ref
     t0 = time.perf_counter()
     var = fm_variants(fm)
@@ -552,30 +776,9 @@ def fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel, card):
           f"{var['stride2'].st_k} table derived in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    def counted(fn, what):
-        """fn() with the launch counts zeroed before it and read after;
-        the narrow DP kernel must have been launched."""
-        for k in dp_cuda.launches:
-            dp_cuda.launches[k] = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = dict(dp_cuda.launches)
-        check(got["dp_score"] > 0,
-              f"kernel dp_score was not launched on {what}")
-        return out, got
-
     def card_equals_cpu(run, fmx, items, what, opts=None):
-        """SAM of `items` on the card and on the CPU path; must be equal.
-        Returns (card aligner, card text)."""
-        o = opts or {}
-        cpu_text, _ = run(Aligner(fmx, opts=AlignerOpts(**o), device="cpu"),
-                          items, ref)
-        alx = Aligner(fmx, opts=AlignerOpts(**o), device="cuda")
-        (text, _), got = counted(lambda: run(alx, items, ref), what)
-        check(text == cpu_text, f"SAM from the card != CPU path on {what}")
-        print(f"[fm] SAM bytes on the card == CPU path on {what} "
-              f"({len(text)} bytes; launches {got})", flush=True)
-        return alx, text
+        return sam_card_equals_cpu(run, fmx, items, ref, what, "fm",
+                                   opts=opts)
 
     small = make_batches(seqs[:2048], 0, 2048)
     small_pe = make_pair_batches(r1[:512], r2[:512], 0, 512)
@@ -705,6 +908,197 @@ def fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel, card):
     return out
 
 
+def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
+    """Phase 7 (see the module docstring). Returns the overlay kernel's
+    inputs as _stage_dp built them on the graph index, the launches of the
+    graph runs, and the end-to-end rates."""
+    import torch
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.index.fm_index import FMIndex
+    from hisat2_tpu_torch.index.graph_index import build_graph_index
+    ref = fm.ref
+    t0 = time.perf_counter()
+    snps, haps = simulate_variants(ref.joined, 31, GRAPH_VARIANT_EVERY,
+                                   GRAPH_HAP_PAIRS)
+    gfm = build_graph_index(ref, snps, haplotypes=haps)
+    gfm_fm = dataclasses.replace(gfm, st_starts=None, st_pos=None, st_k=0)
+    nt = np.bincount(snps.types, minlength=3)
+    print(f"[graph] {len(snps)} variants ({nt[0]} SNVs, {nt[1]} deletions, "
+          f"{nt[2]} insertions, {len(haps)} phased pairs) -> graph index of "
+          f"{gfm.n} bp ({gfm.primary_n} primary + {gfm.patch_start.size} "
+          f"patches), kt={gfm.st_k}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(gfm.st_k > 0 and gfm.primary_n == GENOME_LEN
+          and gfm.patch_start.size == len(snps) + len(haps),
+          "graph index geometry")
+    hap = apply_haplotype(ref.joined, snps, haps, 32)
+    n = GRAPH_NBATCH * BATCH
+    seqs, info = simulate_graph_reads(*hap, n, seed=33)
+    pe_n = GRAPH_PE_NBATCH * PE_BATCH
+    r1, r2, m1_hap, pe_indel = simulate_pairs(hap[0], pe_n, seed=34)
+    m1_true = hap[1][m1_hap]
+    kd, ki = reads_on_haplotype(m1_hap, [hap[3], hap[4]])
+    pe_indel = pe_indel | (kd > 0) | (ki > 0)
+
+    need = ("dp_score", "dp_score_ov")     # every graph run: the overlay
+
+    def card_equals_cpu(run, fmx, items, what, opts=None):
+        return sam_card_equals_cpu(run, fmx, items, ref, what, "graph",
+                                   need, opts)
+
+    small = make_batches(seqs[:2048], 0, 2048)
+    out = {"launches": 0}
+    small_info = {k: v[:2048] for k, v in info.items()}
+
+    # -- SE on the table-seeded graph index ------------------------------
+    al, text = card_equals_cpu(run_stream, gfm, small,
+                               "the graph index, 2048 reads (SE stream)")
+    nbytes = FMIndex.bundle_bytes(al.idx)
+    graph_keys = ("snv_packed", "primary_n", "patch_start", "patch_ref",
+                  "patch_vpos", "patch_shift", "patch_len")
+    gbytes = FMIndex.bundle_bytes({k: al.idx[k] for k in graph_keys})
+    batches = make_batches(seqs, 0, BATCH)
+    m = measure_batch(al, temit.submit_se, temit.finish_se, (batches[0],))
+    print(f"[graph] one batch of {BATCH} reads alone: queue the device step "
+          f"{m['queue_ms']:.1f} ms, {m['launches']} launches, device busy "
+          f"{m['busy_ms']:.2f} ms ({m['busy_ms'] / m['wall_ms']:.4f} of "
+          f"{m['wall_ms']:.1f} ms wall) [{card}]", flush=True)
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured and kw.get("ov") is not None:
+            captured.append([x.clone() for x in a] + [kw["ov"].clone()])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording_dp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        (text, stats), got = counted(lambda: run_stream(al, batches, ref),
+                                     "the graph SE stream", need)
+        dt = time.perf_counter() - t0
+    finally:
+        tpipe.dp_score = real_dp
+    check(bool(captured), "the graph SE stream passed no overlay to the DP")
+    check(got["dp_score_ov"] >= GRAPH_NBATCH,
+          f"overlay kernel launched {got['dp_score_ov']} times for "
+          f"{GRAPH_NBATCH} batches")
+    peak = torch.cuda.max_memory_allocated() / (1 << 20)
+    g = check_graph_sam(text, n, info, "graph SE stream")
+    check(g["kdel"] >= 1 and g["kins"] >= 1,
+          f"no zero-cost known deletion ({g['kdel']}) or insertion "
+          f"({g['kins']}) in the graph SE stream")
+    out.update(se_rps=n / dt, captured=captured[0])
+    out["launches"] += got["dp_score_ov"]
+    print(f"[graph] {n} reads in {dt:.3f} s = {n / dt:.1f} reads/s end to "
+          f"end ({n / dt / seqs_linear_rps:.3f} of the linear table path's); "
+          f"aligned {g['rate']:.4f}, reads without indels at true position "
+          f"{g['true_rate']:.4f}, reads with an indel of either kind aligned "
+          f"{g['indel_rate']:.4f}; error-free alt-SNV reads "
+          f"{g['alt_reads']}, {g['alt_free']:.4f} of them AS:i:0 XM:i:0 "
+          f"NM:i:0; error-free reads over a known deletion {g['kdel_reads']}"
+          f" ({g['kdel']} with its zero-cost D), over a known insertion "
+          f"{g['kins_reads']} ({g['kins']} with its zero-cost I); stats "
+          f"{stats}; launches {got}; bundle {nbytes / (1 << 20):.1f} MiB of "
+          f"which graph keys {gbytes / (1 << 20):.2f} MiB; peak device "
+          f"memory {peak:.1f} MiB [{card}]", flush=True)
+    # the same reads on the linear index: an alt allele costs a mismatch
+    ltext, _ = run_stream(al_linear, batches[:1], ref)
+    lfree = lalt = 0
+    first = {k: v[:BATCH] for k, v in info.items()}
+    clean_alt = (~first["err"] & ~first["kdel"] & ~first["kins"]
+                 & (first["n_alt"] > 0))
+    for ln in ltext.splitlines():
+        f = ln.split("\t")
+        if int(f[1]) & (256 | 4) or not clean_alt[int(f[0][1:])]:
+            continue
+        lalt += 1
+        lfree += "AS:i:0" in f[11:]
+    check(lfree == 0 and lalt > 0,
+          f"{lfree} alt-SNV reads scored 0 on the linear index")
+    print(f"[graph] the first batch's {int(clean_alt.sum())} error-free "
+          f"alt-SNV reads on the linear index: {lalt} aligned, {lfree} with "
+          f"AS:i:0 (graph index: "
+          f"{int(g['free'][:BATCH][clean_alt].sum())})", flush=True)
+    if profile:
+        profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
+                      "SE batch of 16384 reads on the graph index")
+
+    # -- PE on the graph index ------------------------------------------
+    qrng = np.random.default_rng(35)
+    perbase = qrng.integers(2, 42, (512, 2, RDLEN)).astype(np.int8)
+    card_equals_cpu(run_pe_stream, gfm,
+                    make_pair_batches(r1[:2048], r2[:2048], 0, 2048),
+                    "the graph index, 2048 constant-quality pairs (packed "
+                    "PE step)")
+    card_equals_cpu(run_pe_stream, gfm,
+                    make_pair_batches(r1[:512], r2[:512], 0, 512, perbase),
+                    "the graph index, 512 per-base-quality pairs (fused PE "
+                    "step)")
+    pe_batches = make_pair_batches(r1, r2, 0, PE_BATCH)
+    t0 = time.perf_counter()
+    (pe_text, pe_stats), got = counted(
+        lambda: run_pe_stream(al, pe_batches, ref), "the graph PE stream",
+        need + ("dp_score_wide",))
+    pe_dt = time.perf_counter() - t0
+    check(got["dp_score_wide"] >= GRAPH_PE_NBATCH,
+          "the graph PE stream launched the wide DP fewer than once a batch")
+    share, m1_rate, mate_rate = check_pe_sam(pe_text, pe_n, m1_true, pe_indel)
+    out["pe_pps"] = pe_n / pe_dt
+    out["launches"] += got["dp_score_ov"]
+    print(f"[graph] {pe_n} pairs in {pe_dt:.3f} s = {pe_n / pe_dt:.1f} "
+          f"pairs/s end to end; proper pairs {share:.4f}, mate 1 of pairs "
+          f"without indels at true position {m1_rate:.4f}, mates aligned "
+          f"{mate_rate:.4f}; stats {pe_stats}; launches {got} [{card}]",
+          flush=True)
+
+    # -- per-read path and Zs:Z tags --------------------------------------
+    card_equals_cpu(run_stream, gfm, small,
+                    "the graph index, seed_mode=False, 2048 reads",
+                    dict(seed_mode=False))
+    card_equals_cpu(run_per_pair, gfm,
+                    make_pair_batches(r1[:512], r2[:512], 0, 512),
+                    "the graph index, seed_mode=False, 512 pairs "
+                    "(align_pairs + pairs_to_sam)", dict(seed_mode=False))
+    _, ztext = card_equals_cpu(run_stream, gfm, small,
+                               "the graph index, zs_tags=True, 2048 reads",
+                               dict(zs_tags=True))
+    z = check_graph_sam(ztext, 2048, small_info, "graph Zs:Z run")
+    check(z["zs"] >= 1, "no record carries a Zs:Z tag")
+    print(f"[graph] zs_tags=True: {z['zs']} of 2048 reads carry Zs:Z",
+          flush=True)
+    del al
+
+    # -- the FM-seeded graph index ------------------------------------------
+    alf, _ = card_equals_cpu(run_stream, gfm_fm, small,
+                             "the FM-seeded graph index, 2048 reads")
+    check(alf.seeder == "seeds" and "sides" in alf.idx,
+          "the stripped graph index must seed by backward search")
+    nf = GRAPH_FM_NBATCH * BATCH
+    t0 = time.perf_counter()
+    (text, stats), got = counted(
+        lambda: run_stream(alf, batches[:GRAPH_FM_NBATCH], ref),
+        "the FM-seeded graph SE stream", need)
+    dt = time.perf_counter() - t0
+    gf = check_graph_sam(text, nf, {k: v[:nf] for k, v in info.items()},
+                         "FM-seeded graph SE stream")
+    out["fm_rps"] = nf / dt
+    out["launches"] += got["dp_score_ov"]
+    print(f"[graph] FM-seeded: {nf} reads in {dt:.3f} s = {nf / dt:.1f} "
+          f"reads/s end to end; aligned {gf['rate']:.4f}, reads without "
+          f"indels at true position {gf['true_rate']:.4f}; error-free "
+          f"alt-SNV reads without penalty {gf['alt_free']:.4f}; known "
+          f"deletions / insertions with zero-cost gaps {gf['kdel']} / "
+          f"{gf['kins']}; stats {stats}; launches {got}; bundle "
+          f"{FMIndex.bundle_bytes(alf.idx) / (1 << 20):.1f} MiB [{card}]",
+          flush=True)
+    del alf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -769,12 +1163,12 @@ def main() -> int:
     sc = Scoring()
     consts = sc.dp_consts()
     sctab = sc.device_tables(dev)
-    max_err = {"dp_score": 0, "dp_score_wide": 0}
+    max_err = {"dp_score": 0, "dp_score_wide": 0, "dp_score_ov": 0}
 
-    def check_dp(rd, pen, lens, ref, scp_cum, what):
-        name = kernel_of(ref.shape[1])
-        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, **consts)
-        want = dp_fill_plain(rd, pen, lens, ref, scp_cum, **consts)
+    def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None):
+        name = kernel_of(ref.shape[1]) if ov is None else "dp_score_ov"
+        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
+        want = dp_fill_plain(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
@@ -793,6 +1187,22 @@ def main() -> int:
         pen, scp_cum = dp_inputs(sctab, t[1], t[2])
         check_dp(t[0], pen.contiguous(), t[2], t[3], scp_cum.contiguous(),
                  f"random case {seed}")
+        if kernel_of(W) == "dp_score":      # and with an SNV overlay
+            ov = torch.from_numpy(make_dp_ov(seed, rd, ref)).to(dev)
+            check_dp(t[0], pen.contiguous(), t[2], t[3],
+                     scp_cum.contiguous(), f"random case {seed} with an "
+                     f"overlay of every kind of nibble", ov)
+    # the one-block kernel has no overlay instantiation: it must refuse one
+    rd, quals, lens, ref = make_dp_case(4, 16, 104, 1104)
+    t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+    pen, scp_cum = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+    try:
+        dp_cuda.dp_score(t[0], pen, t[2], t[3], scp_cum,
+                         ov=torch.zeros_like(t[3]), **consts)
+    except ValueError as e:
+        print(f"[kernels] an overlay at W=1104 is refused: {e}", flush=True)
+    else:
+        check(False, "the one-block kernel took an overlay")
 
     # -- main path -------------------------------------------------------
     t0 = time.perf_counter()
@@ -957,6 +1367,9 @@ def main() -> int:
     fmres = fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel,
                      card)
 
+    # -- graph path ----------------------------------------------------------
+    gres = graph_phase(fm, al, rps, card, args.profile)
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
@@ -967,15 +1380,16 @@ def main() -> int:
                       "SE batch of 16384 reads on index A (FM seeding)")
 
     # -- report ----------------------------------------------------------
-    def bound_ms(rd, rl, ref):
+    def bound_ms(rd, rl, ref, ov=None):
         """(bound, bytes' time, operations' time, bytes, cells) of one
-        launch: every input read once and the scores written once, and
-        DP_OPS_PER_CELL instructions for each cell of a real read row."""
+        launch: every input read once (the overlay too) and the scores
+        written once, and DP_OPS_PER_CELL instructions for each cell of a
+        real read row."""
         C, L = rd.shape
         W = ref.shape[1]
         cells = int(rl.clamp(0, L).sum()) * (W + 1)
         nbytes = 4 * (2 * rd.numel() + rl.numel() + ref.numel()
-                      + C * (L + 1) + C)
+                      + C * (L + 1) + C + (0 if ov is None else ov.numel()))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = cells * DP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), t_bytes, t_ops, nbytes, cells
@@ -1002,19 +1416,31 @@ def main() -> int:
             ("dp_score_wide", captured_wide[0], pe_launches["dp_score_wide"],
              "PE mate rescue"),
             ("dp_score", fmres["captured"], fmres["launches"],
-             "per-read path (Aligner._device_align, index A)")):
-        rd, pen, rl, ref, scp_cum = cap
-        check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs")
+             "per-read path (Aligner._device_align, index A)"),
+            ("dp_score_ov", gres["captured"], gres["launches"],
+             "graph path (SE, PE and FM-seeded graph streams)")):
+        rd, pen, rl, ref, scp_cum = cap[:5]
+        ov = cap[5] if len(cap) > 5 else None
+        check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
         C, L = rd.shape
         W = ref.shape[1]
         ms = time_cuda(lambda: dp_cuda.dp_score(rd, pen, rl, ref, scp_cum,
-                                                **consts), iters=200,
+                                                ov=ov, **consts), iters=200,
                        warmup=20)
         plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
-                                                   **consts), iters=5,
+                                                   ov=ov, **consts), iters=5,
                              warmup=2)
         rows = int(rl.clamp(0, L).sum())
-        bound, t_bytes, t_ops, nbytes, cells = bound_ms(rd, rl, ref)
+        bound, t_bytes, t_ops, nbytes, cells = bound_ms(rd, rl, ref, ov)
+        if ov is not None:
+            # the same inputs through the instantiation without overlay
+            base_ms = time_cuda(lambda: dp_cuda.dp_score(
+                rd, pen, rl, ref, scp_cum, **consts), iters=200, warmup=20)
+            print(f"[report] dp_score_ov: {float((ov != 0).float().mean()):.5f}"
+                  f" of the window bases carry a nibble, "
+                  f"{float((ov != 0).any(dim=1).float().mean()):.4f} of the "
+                  f"candidates hold one; the same inputs without the overlay "
+                  f"{base_ms:.4f} ms [{card}]", flush=True)
         kernels.append(dict(
             name=name, route="cuda",
             source="hisat2_tpu_torch/csrc/dp_score.cu",
@@ -1037,7 +1463,12 @@ def main() -> int:
           f"{fmres['se_A_rps']:.1f} reads/s ({fmres['se_A_rps'] / rps:.3f} of "
           f"the table path's), index B {fmres['se_B_rps']:.1f} reads/s, PE "
           f"on index A {fmres['pe_A_pps']:.1f} pairs/s "
-          f"({fmres['pe_A_pps'] / pps:.3f} of the table path's); whole run "
+          f"({fmres['pe_A_pps'] / pps:.3f} of the table path's) [{card}]",
+          flush=True)
+    print(f"[report] graph index end to end: SE {gres['se_rps']:.1f} reads/s "
+          f"({gres['se_rps'] / rps:.3f} of the linear table path's), PE "
+          f"{gres['pe_pps']:.1f} pairs/s ({gres['pe_pps'] / pps:.3f}), "
+          f"FM-seeded SE {gres['fm_rps']:.1f} reads/s; whole run "
           f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -54,10 +54,17 @@ def submit_se(al: Aligner, batch: ReadBatch):
     """Queue one SE batch's device work and its result copies. Pair with
     finish_se; several submits in flight overlap device work with host
     finishing (align_and_emit_stream). With seed_mode=False the whole
-    batch is aligned at finish time, on the per-read path."""
-    if not al.opts.seed_mode:
+    batch is aligned at finish time, on the per-read path; so is a run
+    with Zs:Z tags on a graph index (the tags come from the per-read
+    finalizers)."""
+    if not al.opts.seed_mode or _zs_run(al):
         return ("legacy", batch)
     return ("fast", batch, *al.device_align_fast(batch))
+
+
+def _zs_run(al: Aligner) -> bool:
+    """Zs:Z tags asked for on an index that has an SNV overlay."""
+    return al.opts.zs_tags and al.overlay is not None
 
 
 def finish_se(al: Aligner, handle, writer) -> dict:
@@ -509,6 +516,8 @@ def _align_and_emit_legacy(al: Aligner, batch: ReadBatch, writer) -> dict:
     F_c3 = np.take_along_axis(fin[:, :, 1], np.minimum(sel, KF - 1), 1)
     F_nmm_all = np.take_along_axis(fin[:, :, 4], np.minimum(sel, KF - 1), 1)
     fast &= ~(in_rep & (F_nmm_all > MAX_FAST_MM)).any(axis=1)
+    if _zs_run(al):
+        fast[:] = False            # Zs tags come from the per-read path
     if al.opts.omit_sec_seq:
         fast &= nrep <= 1          # secondary records go per-read
 
@@ -668,8 +677,9 @@ def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
     """Queue one PE batch pair's device step: the packed step for
     constant-quality batches, else the fused step at finish time. Pair
     with finish_pe. With seed_mode=False the pair batch takes the
-    per-pair path at finish time."""
-    if not al.opts.seed_mode:
+    per-pair path at finish time, as does a Zs:Z-tag run on a graph
+    index."""
+    if not al.opts.seed_mode or _zs_run(al):
         return ("legacy", b1, b2)
     out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, al.opts.khits + 3))
     if out is None:                      # per-base qualities
@@ -851,7 +861,7 @@ def _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h, m2h, l1, l2, ex, stats):
     """
     o = al.opts
     sc = al.scoring
-    if o.no_mixed or slow.size == 0:
+    if o.no_mixed or o.zs_tags or slow.size == 0:
         return {}, slow
     S = slow[nvalid[slow] == 0]
     if S.size == 0:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..index.fm_index import FMIndex
+from ..io.annotations import SNP_DEL, SNP_INS, SNP_SGL
 from ..io.reads import ReadBatch
 from ..io import sam as samio
 from ..ops import extend as _extend, locate as _locate, rank as _rank
@@ -100,12 +101,13 @@ class AlignerOpts:
     norc: bool = False             # --norc: skip reverse-complement
     omit_sec_seq: bool = False     # --omit-sec-seq: '*' SEQ/QUAL on
     #                                secondary records (sam.h)
-    # not ported yet: each raises NotImplementedError when set
-    spliced: bool = False          # spliced (RNA) alignment
     seed_mode: bool = True         # stride seeds (fast) + segment fallback;
     #                                False = the per-read reference path
+    zs_tags: bool = False          # emit Zs:Z SNP-edit tags (sam.h:999;
+    #                                graph indexes, via the per-read path)
+    # not ported yet: each raises NotImplementedError when set
+    spliced: bool = False          # spliced (RNA) alignment
     tmo: bool = False              # --tmo: transcriptome-mapping only
-    zs_tags: bool = False          # Zs:Z SNP tags (graph indexes)
 
 
 @dataclass
@@ -241,6 +243,21 @@ def _stage_candidates(idx: dict, sctab: dict, seqs, quals, lens,
         width = hits["bot"] - hits["top"]
         exhausted = torch.where(seg_ok, width <= locs_per_seg,
                                 torch.ones_like(seg_ok)).all(dim=1)
+    if "patch_start" in idx and idx["patch_start"].shape[0] > 0:
+        # graph mode: seed occurrences inside variant patch fragments map
+        # back to primary-text coordinates (with the indel shift when the
+        # seed sits right of the variant) before diagonals are formed, so
+        # the rest of the step only ever sees genomic coordinates. The
+        # translation uses the occurrence position (always inside one
+        # patch), not the diagonal origin (which may precede the patch).
+        ps = idx["patch_start"]
+        pi = torch.searchsorted(ps, locs.contiguous(), right=True) - 1
+        pi = pi.clamp(0, ps.shape[0] - 1)
+        o = locs - ps[pi]
+        shift = torch.where(o >= idx["patch_vpos"][pi],
+                            idx["patch_shift"][pi], 0)
+        locs = torch.where(locs >= idx["primary_n"],
+                           idx["patch_ref"][pi] + o + shift, locs)
     cand = (locs - seed_off[:, :, None]).reshape(R, -1)
     valid = lvalid.reshape(R, -1)
 
@@ -287,18 +304,21 @@ def _stage_dp(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
     """Gapped DP scores for the top candidates of (pre-compacted) rows:
     pos_top (R', T), dp_rows (R',) bool mask. Returns (R', T) scores.
     The fill is ops/dp_cuda.dp_score (the CUDA kernel on a CUDA tensor);
-    sc_const holds its six scoring integers (Scoring.dp_consts)."""
+    sc_const holds its six scoring integers (Scoring.dp_consts). On a
+    graph index the windows' SNV-overlay nibbles go to the kernel too."""
     R, L = seqs2.shape
     T = pos_top.shape[1]
     W = L + 2 * dp_pad
     wstart = pos_top - dp_pad
     ref = _rank.text_window(idx, wstart.reshape(-1), W)          # (R*T, W)
+    ov = (_rank.nib4_window(idx, wstart.reshape(-1), W).contiguous()
+          if "snv_packed" in idx else None)
     rd = seqs2.repeat_interleave(T, dim=0).contiguous()
     q = quals2.repeat_interleave(T, dim=0)
     rl = lens2.repeat_interleave(T).contiguous()
     pen, scp_cum = _sw.dp_inputs(sctab, q, rl)
     score = dp_score(rd, pen.contiguous(), rl, ref.contiguous(),
-                     scp_cum.contiguous(), **sc_const).reshape(R, T)
+                     scp_cum.contiguous(), ov=ov, **sc_const).reshape(R, T)
     # sentinel (invalid) candidates must stay invalid: their all-N windows
     # would otherwise "score" better than real but poor placements
     ok = dp_rows[:, None] & (pos_top < BIG - (1 << 20)) & (pos_top >= 0)
@@ -316,8 +336,9 @@ def _stage_primary_fin(idx: dict, sctab: dict, seqs2, quals2, lens2,
 def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
                     ppos, pfw, read_of, B: int, max_mm: int = 8):
     """Finalization of one ungapped candidate per output row: optimal
-    clips (max-subarray), score, penalized-mismatch count, and the first
-    max_mm (col, refchar) mismatch pairs for MD construction. ppos/pfw/
+    clips (max-subarray), score, mismatch counts (nmm penalized ones; nmm_all
+    every difference, free SNP edits of a graph index included), and the
+    first max_mm (col, refchar) mismatch pairs for MD construction. ppos/pfw/
     read_of are (N,), read_of the read index in [0, B) each row
     finalizes. Returns (N, 5 + 2*max_mm) int32:
     [c5, c3, score, nmm, nmm_all, cols.., chars..]."""
@@ -333,9 +354,13 @@ def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
     rd = torch.where(in_read, rd, 4)
     isn = ((rd >= 4) | (win >= 4)) & in_read
     mm = (rd != win) & ~isn & in_read
-    s = torch.where(mm, -mm_pen_of(sctab, q), 0)
+    mm_sc = mm                                  # penalized mismatches
+    if "snv_packed" in idx:
+        ov = _rank.nib4_window(idx, ppos, L)
+        mm_sc = mm & ~((ov == rd + 1) | (ov == 15))
+    s = torch.where(mm_sc, -mm_pen_of(sctab, q), 0)
     s = torch.where(isn, -sctab["n_pen"], s)
-    s = s + torch.where(~mm & ~isn & in_read, sctab["match_bonus"], 0)
+    s = s + torch.where(~mm_sc & ~isn & in_read, sctab["match_bonus"], 0)
     scp = torch.where(in_read, sc_pen_of(sctab, q), 0)
     N = rd.shape[0]
     P = torch.cat([torch.zeros((N, 1), dtype=I32, device=dev),
@@ -352,15 +377,16 @@ def _stage_fin_rows(idx: dict, sctab: dict, seqs2, quals2, lens2,
     c3 = ln - (k + 1)
     amask = (ar >= c5[:, None]) & (ar <= k[:, None])
     mm_all = (mm | isn) & amask
-    nmm = mm_all.sum(dim=1, dtype=I32)
+    nmm_all = mm_all.sum(dim=1, dtype=I32)
+    nmm = (nmm_all if mm_sc is mm
+           else ((mm_sc | isn) & amask).sum(dim=1, dtype=I32))
     # first max_mm mismatch columns (ascending) + their ref chars
     colkey = torch.where(mm_all, ar, 1 << 20)
     mcols = torch.sort(colkey, dim=1).values[:, :max_mm]
     onehot = ar[:, None, :] == mcols[:, :, None]           # (N, max_mm, L)
     mchars = torch.where(onehot, win[:, None, :], 0).sum(dim=2, dtype=I32)
-    # without an SNV overlay every mismatch is penalized: nmm == nmm_all
     return torch.cat([c5[:, None], c3[:, None], score[:, None], nmm[:, None],
-                      nmm[:, None], mcols, mchars], 1)
+                      nmm_all[:, None], mcols, mchars], 1)
 
 
 def _stage_align_fused(idx: dict, sctab: dict, seqs, quals, lens,
@@ -710,8 +736,7 @@ class Aligner:
         self.opts = opts or AlignerOpts()
         o = self.opts
         for flag, what in ((o.spliced, "spliced alignment"),
-                           (o.tmo, "--tmo"), (o.zs_tags, "Zs:Z SNP tags"),
-                           (scoring.local, "local mode")):
+                           (o.tmo, "--tmo"), (scoring.local, "local mode")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported")
         self.device = torch.device(device)
@@ -731,6 +756,22 @@ class Aligner:
         self.sctab = scoring.device_tables(self.device)
         self.sc_const = scoring.dp_consts()
         self.metrics = Metrics()
+        # graph-index extras (SNP-aware scoring on the host finish)
+        self.overlay = getattr(fm, "snv_overlay", None)
+        if self.overlay is not None and self.overlay.size == 0:
+            self.overlay = None
+        self.snps = getattr(fm, "snps", None)
+        self._del_snps: set[tuple[int, int]] = set()
+        self._ins_snps: dict[int, np.ndarray] = {}
+        if self.snps is not None:
+            for si in range(len(self.snps)):
+                t = int(self.snps.types[si])
+                if t == SNP_DEL:
+                    self._del_snps.add((int(self.snps.jpos[si]),
+                                        int(self.snps.lens[si])))
+                elif t == SNP_INS:
+                    self._ins_snps[int(self.snps.jpos[si])] = \
+                        self.snps.ins_seqs[si]
 
     # ---- device orchestration ----
 
@@ -1042,9 +1083,16 @@ class Aligner:
                        ).astype(np.int64)
         isn = ((rd >= 4) | (win >= 4)) & in_read
         mm = (rd != win) & ~isn & in_read
-        s = np.where(mm, -sc.mm_pens()[q], 0)
+        if self.overlay is not None:
+            ov = np.where(inb, self.overlay[np.clip(wpos, 0,
+                                                    joined.size - 1)], 0)
+            snp_free = mm & ((ov == rd + 1) | (ov == 15))
+        else:
+            snp_free = np.zeros_like(mm)
+        mm_sc = mm & ~snp_free                 # penalized mismatches
+        s = np.where(mm_sc, -sc.mm_pens()[q], 0)
         s = np.where(isn, -sc.n_pen, s)
-        s = s + np.where(~mm & ~isn & in_read, sc.match_bonus, 0)
+        s = s + np.where(~mm_sc & ~isn & in_read, sc.match_bonus, 0)
         scp = np.where(in_read, sc.sc_pens()[q], 0)
         P = np.concatenate([np.zeros((R, 1), np.int64),
                             np.cumsum(s + scp, axis=1)], axis=1)
@@ -1058,9 +1106,11 @@ class Aligner:
         best = ends_m[np.arange(R), k]
         score = best - scp.sum(axis=1)
         c3 = rdlens - (k + 1)
+        # mismatches inside the aligned region: MD shows every diff
+        # (SNP-allele positions included), NM/XM count only penalized ones
         amask = (ar[None, :] >= c5[:, None]) & (ar[None, :] <= k[:, None])
         mm_all = (mm | isn) & amask
-        nmm = mm_all.sum(axis=1)
+        nmm = ((mm_sc | isn) & amask).sum(axis=1)
         # coordinates: fragment containment
         astart = pos + c5
         span = rdlens - c5 - c3
@@ -1103,11 +1153,15 @@ class Aligner:
                 last = cpos
                 p2 += 1
             md_parts.append(str(cc5 + mid - 1 - last))
-            out.append(Alignment(
+            a = Alignment(
                 joined_pos=int(A["astart"][r]), fw=bool(fw[r]),
                 score=int(A["score"][r]), cigar=cigar, nmm=int(A["nmm"][r]),
                 md="".join(md_parts), nm=int(A["nmm"][r]),
-                tidx=int(A["tidx"][r]), toff=int(A["toff"][r])))
+                tidx=int(A["tidx"][r]), toff=int(A["toff"][r]))
+            if self.opts.zs_tags:
+                a.zs_snps = self._zs_string(A["rd"][r], int(pos[r]),
+                                            cc5, rl - cc3)
+            out.append(a)
         return out
 
     def _ranked_candidates(self, merged, i, min_sc, limit=None):
@@ -1142,7 +1196,8 @@ class Aligner:
             q = q[::-1].copy()
         if not gapped:
             window = ref.get_stretch(pos, rdlen)
-            c5, c3, sub_score = _best_clip(self.scoring, rd, q, window)
+            ovw = self._overlay_window(pos, rdlen)
+            c5, c3, sub_score = _best_clip(self.scoring, rd, q, window, ovw)
             mid = rdlen - c5 - c3
             if mid <= 0:
                 return None
@@ -1151,29 +1206,176 @@ class Aligner:
             md, _ = samio.make_md(rd[c5:rdlen - c3], window[c5:rdlen - c3],
                                   [("M", mid)])
             a_rd, a_rf = rd[c5:rdlen - c3], window[c5:rdlen - c3]
-            nd = int(((a_rd != a_rf) | (a_rd >= 4) | (a_rf >= 4)).sum())
+            diff = (a_rd != a_rf) | (a_rd >= 4) | (a_rf >= 4)
+            if ovw is not None:
+                aov = ovw[c5:rdlen - c3]
+                diff &= ~((aov == a_rd + 1) | (aov == 15))
+            nd = int(diff.sum())
             aln = Alignment(joined_pos=pos + c5, fw=fw, score=sub_score,
                             cigar=cigar, nmm=nd, md=md, nm=nd)
+            if self.opts.zs_tags:
+                aln.zs_snps = self._zs_string(rd, pos, c5, rdlen - c3)
         else:
-            pad = self.opts.dp_pad
-            wstart = pos - pad
-            window = ref.get_stretch(wstart, rdlen + 2 * pad)
-            s, ref_start, cigar, mds = _sw.dp_traceback(
-                self.scoring, rd, q, window)
-            span = sum(n for op, n in cigar if op in ("M", "D"))
-            md, nm = samio.make_md(rd, window[ref_start:ref_start + span],
-                                   cigar)
-            aln = Alignment(
-                joined_pos=wstart + ref_start, fw=fw, score=s, cigar=cigar,
-                nmm=len(mds),
-                gap_opens=sum(1 for op, n in cigar if op in ("I", "D")),
-                gap_exts=sum(n - 1 for op, n in cigar if op in ("I", "D")),
-                md=md, nm=nm)
+            aln = self._try_snp_indels(rd, q, pos, rdlen, fw)
+            if aln is None:
+                aln = self._traceback(rd, q, pos, rdlen, fw)
+                self._adjust_snp_gaps(aln, rd)
         loc = ref.joined_to_text(aln.joined_pos, aln.ref_span)
         if loc is None:
             return None
         aln.tidx, aln.toff = loc
         return aln
+
+    def _traceback(self, rd, q, pos, rdlen, fw) -> Alignment:
+        """A gapped candidate's alignment from the native DP traceback
+        over its padded window."""
+        pad = self.opts.dp_pad
+        wstart = pos - pad
+        window = self.fm.ref.get_stretch(wstart, rdlen + 2 * pad)
+        s, ref_start, cigar, mds = _sw.dp_traceback(
+            self.scoring, rd, q, window)
+        span = sum(n for op, n in cigar if op in ("M", "D"))
+        md, nm = samio.make_md(rd, window[ref_start:ref_start + span],
+                               cigar)
+        return Alignment(
+            joined_pos=wstart + ref_start, fw=fw, score=s, cigar=cigar,
+            nmm=len(mds),
+            gap_opens=sum(1 for op, n in cigar if op in ("I", "D")),
+            gap_exts=sum(n - 1 for op, n in cigar if op in ("I", "D")),
+            md=md, nm=nm)
+
+    def _adjust_snp_gaps(self, aln: Alignment, rd: np.ndarray) -> None:
+        """Un-penalize DP gaps that exactly match a known DEL/INS SNP
+        (reference graph extension treats ALT-consistent gaps as free and
+        excludes them from NM/XO/XG)."""
+        if not self._del_snps and not self._ins_snps:
+            return
+        sc = self.scoring
+        r = aln.joined_pos
+        c = 0
+        for op, n in aln.cigar:
+            if op == "D":
+                if (r, n) in self._del_snps:
+                    aln.score += (sc.read_gap_open()
+                                  + (n - 1) * sc.read_gap_extend())
+                    aln.nm -= n
+                    aln.gap_opens -= 1
+                    aln.gap_exts -= n - 1
+                r += n
+            elif op == "I":
+                ins = self._ins_snps.get(r)
+                if ins is not None and ins.size == n and \
+                        np.array_equal(rd[c:c + n], ins):
+                    aln.score += (sc.ref_gap_open()
+                                  + (n - 1) * sc.ref_gap_extend())
+                    aln.nm -= n
+                    aln.gap_opens -= 1
+                    aln.gap_exts -= n - 1
+                c += n
+            elif op in ("M", "=", "X"):
+                r += n
+                c += n
+            elif op == "S":
+                c += n
+            elif op == "N":
+                r += n
+
+    def _zs_string(self, rd: np.ndarray, pos: int, c5: int, e: int
+                   ) -> str | None:
+        """Zs:Z tag for SNP-consistent SNV edits in [c5, e) of an ungapped
+        placement at `pos` (reference format: comma-separated
+        `dist|S|name`, dist = read-offset gap since the previous SNP edit,
+        sam.h:999)."""
+        if self.snps is None or self.overlay is None:
+            return None
+        joined = self.fm.ref.joined
+        parts = []
+        prev = c5 - 1
+        lo = int(np.searchsorted(self.snps.jpos, pos + c5))
+        hi = int(np.searchsorted(self.snps.jpos, pos + e))
+        for si in range(lo, hi):
+            if self.snps.types[si] != SNP_SGL:
+                continue
+            off = int(self.snps.jpos[si]) - pos
+            if rd[off] == self.snps.alt_codes[si] \
+                    and rd[off] != joined[pos + off]:
+                parts.append(f"{off - prev - 1}|S|{self.snps.names[si]}")
+                prev = off
+        return ",".join(parts) if parts else None
+
+    def _overlay_window(self, pos: int, length: int) -> np.ndarray | None:
+        if self.overlay is None:
+            return None
+        out = np.zeros(length, np.uint8)
+        lo, hi = max(0, pos), min(self.overlay.size, pos + length)
+        if hi > lo:
+            out[lo - pos: hi - pos] = self.overlay[lo:hi]
+        return out
+
+    def _try_snp_indels(self, rd, q, pos, rdlen, fw) -> Alignment | None:
+        """Zero-cost known-indel application (graph mode): lay the read on
+        the haplotype with one DEL/INS SNP applied; SNP-consistent gaps
+        cost nothing and are excluded from NM/XO/XG (as hisat2 --snp
+        reports them: e.g. 47M2D53M with AS:i:0 NM:i:0)."""
+        if self.snps is None:
+            return None
+        snps = self.snps
+        joined = self.fm.ref.joined
+        mm_pens = self.scoring.mm_pens()
+        lo = int(np.searchsorted(snps.jpos, pos + 1))
+        hi = int(np.searchsorted(snps.jpos, pos + rdlen + 32))
+        best: Alignment | None = None
+        for si in range(lo, hi):
+            t = int(snps.types[si])
+            if t == SNP_SGL:
+                continue
+            d = int(snps.lens[si])
+            vp = int(snps.jpos[si])
+            a = vp - pos
+            if a <= 0 or a >= rdlen:
+                continue
+            if t == SNP_DEL:
+                b = rdlen - a
+                span = rdlen + d
+                if pos + span > joined.size:
+                    continue
+                hap = np.concatenate([joined[pos:vp],
+                                      joined[vp + d:pos + span]])
+                ovw = None
+                if self.overlay is not None:
+                    ovw = np.concatenate([self._overlay_window(pos, a),
+                                          self._overlay_window(vp + d, b)])
+                cigar = [("M", a), ("D", d), ("M", b)]
+            else:
+                ins = snps.ins_seqs[si]
+                if d != ins.size or a + d >= rdlen:
+                    continue
+                if not np.array_equal(rd[a:a + d], ins):
+                    continue
+                b = rdlen - a - d
+                span = rdlen - d
+                hap = np.concatenate([joined[pos:vp], ins, joined[vp:vp + b]])
+                ovw = None
+                if self.overlay is not None:
+                    o1 = self._overlay_window(pos, a)
+                    o2 = self._overlay_window(vp, b)
+                    ovw = np.concatenate([o1, np.zeros(d, np.uint8), o2])
+                cigar = [("M", a), ("I", d), ("M", b)]
+            if hap.size != rdlen:
+                continue
+            diff = (rd != hap) | (rd >= 4) | (hap >= 4)
+            if ovw is not None:
+                diff &= ~((ovw == rd + 1) | (ovw == 15))
+            score = -int(mm_pens[np.clip(q, 0, 63)][diff].sum())
+            if best is not None and score <= best.score:
+                continue
+            footprint = self.fm.ref.get_stretch(pos, span)
+            md, _ = samio.make_md(rd, footprint, cigar)
+            best = Alignment(joined_pos=pos, fw=fw, score=score, cigar=cigar,
+                             nmm=int(diff.sum()), md=md, nm=int(diff.sum()))
+        if best is not None and best.score < self.scoring.min_score(rdlen):
+            return None
+        return best
 
 
 def _merged_dict(packed: np.ndarray) -> dict:
@@ -1226,16 +1428,19 @@ def _dedup_alns(res: ReadResult, khits: int | None = None) -> None:
         res.alns = res.alns[:khits]
 
 
-def _best_clip(scoring, rd: np.ndarray, q: np.ndarray, window: np.ndarray
-               ) -> tuple[int, int, int]:
+def _best_clip(scoring, rd: np.ndarray, q: np.ndarray, window: np.ndarray,
+               ovw: np.ndarray | None = None) -> tuple[int, int, int]:
     """Optimal 5'/3' soft-clip lengths for an ungapped placement (host
-    mirror of the max-subarray scorer in ops/extend.py). Returns (clip5,
-    clip3, score)."""
+    mirror of the max-subarray scorer in ops/extend.py; `ovw` is the SNV
+    overlay window for graph-mode free alt-allele matches). Returns
+    (clip5, clip3, score)."""
     L = rd.size
     mm_pens = scoring.mm_pens()
     scp = scoring.sc_pens()[np.clip(q, 0, 63)].astype(np.int64)
     isn = (rd >= 4) | (window >= 4)
     mm = (rd != window) & ~isn
+    if ovw is not None:
+        mm &= ~((ovw == rd + 1) | (ovw == 15))
     s = np.where(mm, -mm_pens[np.clip(q, 0, 63)], 0)
     s = np.where(isn, -scoring.n_pen, s)
     s = s + np.where(~mm & ~isn, scoring.match_bonus, 0)

@@ -66,6 +66,28 @@
 // this file refuses a plan that does not cover it. The widest variant uses 128
 // registers a thread, so four blocks fit an SM and the rescue's 512
 // candidates are resident in one wave on 132 SMs.
+//
+// The SNV overlay (graph indexes; template flag OV). The JAX package has
+// no overlay in its TPU kernel and sends a graph index's DP through the
+// plain scan (ops/sw.dp_score_batch with ov); here the kernel takes it.
+// Each window base may carry a 4-bit nibble: 0 none, 1..4 a known alt
+// allele's code + 1, 15 several alts. A cell whose read base and window
+// base are both real and differ scores as a match where the nibble names
+// the read base or is 15. A nibble is fixed per column for the whole
+// launch, as the window base is, and rare (about one base in 250), so it
+// is handled as the window N is: cols_init turns the thread's nibbles
+// into four 8-bit column masks in one register (byte b: the columns where
+// a read base b is a known allele), and the fix-up in fill_g runs only
+// in threads whose mask for the row's read base is not empty. A read N
+// has no mask, and the window-N fix-up runs after this one, so an N on
+// either side keeps -n_pen. The
+// instantiations without OV compile to what they were before the flag
+// (same registers, same row loop). Only the one-warp kernel has overlay
+// instantiations: its caller (align/pipeline._stage_dp) is the only one
+// that passes an overlay, the mate rescue's wide windows take none in
+// either package, and the widest one-block variant (16 columns a lane, at
+// its limit of 128 registers) spilled 28 bytes with the nibble word live
+// (nvcc 12.9.86). An overlay at a wide window is refused.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -160,15 +182,19 @@ struct Cols {
     int ext[CPL];       // rd_ext * j
     int e[CPL];         // -rd_open - rd_ext * (j - 1)
     unsigned nmask;     // bit k: the window base of column k is N
+    unsigned ovm;       // overlay kernels only (CPL <= 8): bit 8 * b + k
+                        // set where read base b is free in column k
     int nreal;          // how many of the columns are <= W
 };
 
-template <int CPL>
+template <int CPL, bool OV>
 __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
-                                          int j0, int W, int rd_open,
-                                          int rd_ext)
+                                          const int32_t* ovc, int j0, int W,
+                                          int rd_open, int rd_ext)
 {
+    static_assert(!OV || CPL <= 8, "the overlay masks hold 8 columns");
     c.nmask = 0;
+    if constexpr (OV) c.ovm = 0;
 #pragma unroll
     for (int k = 0; k < CPL; ++k) {
         const int j = j0 + k;
@@ -177,6 +203,13 @@ __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
         const int b = (j >= 1 && j <= W) ? refc[j - 1] : kColPad;
         c.rf[k] = b;
         if (b == 4) c.nmask |= 1u << k;
+        if constexpr (OV) {             // column 0 and the padding: none
+            const unsigned nib =
+                (j >= 1 && j <= W) ? ((unsigned)ovc[j - 1] & 15u) : 0u;
+            const unsigned hit = nib == 15u ? 0x01010101u   // several alts
+                : (nib >= 1u && nib <= 4u) ? 1u << (8 * (nib - 1u)) : 0u;
+            c.ovm |= hit << k;
+        }
         c.ext[k] = rd_ext * j;
         c.e[k] = -rd_open - rd_ext * (j - 1);
         DP_KEEP(c.ext[k]);
@@ -185,13 +218,14 @@ __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
     c.nreal = min(max(W + 1 - j0, 0), CPL);
     DP_KEEP(c.nmask);
     DP_KEEP(c.nreal);
+    if constexpr (OV) DP_KEEP(c.ovm);
 }
 
 // First half of a row: F and G of the thread's columns and the running
 // max of G + ext * j, seeded with run0. hleft is the row above's H in
 // column j0 - 1; `first` marks the thread that holds column 0. Returns the
 // thread's inclusive run.
-template <int CPL>
+template <int CPL, bool OV>
 __device__ __forceinline__ int fill_g(Cols<CPL>& c, int (&G)[CPL],
                                       int (&M)[CPL], int hleft, const RowK& r,
                                       int sm, int sn, int cf, bool first,
@@ -200,7 +234,20 @@ __device__ __forceinline__ int fill_g(Cols<CPL>& c, int (&G)[CPL],
     int s[CPL];
 #pragma unroll
     for (int k = 0; k < CPL; ++k) s[k] = (c.rf[k] == r.rcx) ? sm : r.sx;
-    if (c.nmask) {                      // a window base of N: rare
+    if constexpr (OV) {
+        // Columns where this row's read base is a known allele: rare. A
+        // read N (rcx = kRowN) has no mask and keeps its -n_pen; where the
+        // bases match anyway, s[k] is sm already.
+        const unsigned m =
+            r.rcx < 4 ? (c.ovm >> (8 * r.rcx)) & 0xffu : 0u;
+        if (m) {
+#pragma unroll
+            for (int k = 0; k < CPL; ++k)
+                if (m & (1u << k)) s[k] = sm;
+        }
+    }
+    if (c.nmask) {                      // a window base of N: rare; it
+                                        // wins over the overlay's fix-up
 #pragma unroll
         for (int k = 0; k < CPL; ++k)
             if (c.nmask & (1u << k)) s[k] = sn;
@@ -285,13 +332,14 @@ __device__ __forceinline__ int warp_scan_max(int v)
     return v;
 }
 
-template <int CPL>
+template <int CPL, bool OV>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 dp_score_kernel(const int32_t* __restrict__ rd,
                 const int32_t* __restrict__ pen,
                 const int32_t* __restrict__ rdlens,
                 const int32_t* __restrict__ ref,
                 const int32_t* __restrict__ scp_cum,
+                const int32_t* __restrict__ ov,     // (C, W), read if OV
                 int32_t* __restrict__ out,
                 int C, int L, int W, int match_bonus, int n_pen,
                 int rd_open, int rd_ext, int rf_open, int rf_ext)
@@ -312,7 +360,9 @@ dp_score_kernel(const int32_t* __restrict__ rd,
     const bool first = lane == 0;
 
     Cols<CPL> col;
-    cols_init(col, ref + (size_t)c * W, lane * CPL, W, rd_open, rd_ext);
+    cols_init<CPL, OV>(col, ref + (size_t)c * W,
+                       OV ? ov + (size_t)c * W : nullptr, lane * CPL, W,
+                       rd_open, rd_ext);
     int best = -scp_tot;                // clip the whole read
     stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, lane, 32);
     __syncwarp();
@@ -322,7 +372,8 @@ dp_score_kernel(const int32_t* __restrict__ rd,
         // the row above's H in this lane's first column - 1
         const int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
         int G[CPL], M[CPL];
-        const int run = fill_g(col, G, M, hleft, r, sm, sn, cf, first, kNeg);
+        const int run = fill_g<CPL, OV>(col, G, M, hleft, r, sm, sn, cf,
+                                        first, kNeg);
         const int tot = warp_scan_max(run);
         int excl = __shfl_up_sync(kFull, tot, 1);
         if (first) excl = kNeg;
@@ -381,8 +432,8 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
     stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, threadIdx.x,
                32 * NW);
     Cols<CPL> col;
-    cols_init(col, ref + (size_t)c * W, threadIdx.x * CPL, W, rd_open,
-              rd_ext);
+    cols_init<CPL, false>(col, ref + (size_t)c * W, nullptr,
+                          threadIdx.x * CPL, W, rd_open, rd_ext);
     // Clipping the whole read is every thread's starting value, in a
     // register of its own: folded as -scp_tot into the last three-way max
     // instead, nvcc 12.9 emitted VIMNMX3 on +scp_tot.
@@ -401,8 +452,8 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
             int pin = kNeg;             // run prefix of the warps to the left
             if (edge) { hleft = lds(hedge_in + o3); pin = lds(pfx_in + o1); }
             int G[CPL], M[CPL];
-            const int run = fill_g(col, G, M, hleft, r, sm, sn, cf, first,
-                                   pin);
+            const int run = fill_g<CPL, false>(col, G, M, hleft, r, sm, sn,
+                                               cf, first, pin);
             const int tot = warp_scan_max(run);
             if (last) sts(pfx_out + o1, tot);
             int excl = __shfl_up_sync(kFull, tot, 1);
@@ -427,7 +478,7 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
 }
 
 struct Args {
-    const int32_t *rd, *pen, *rdlens, *ref, *scp_cum;
+    const int32_t *rd, *pen, *rdlens, *ref, *scp_cum, *ov;
     int32_t* out;
     int C, L, W, mb, np, ro, re, fo, fe;
     cudaStream_t stream;
@@ -446,17 +497,17 @@ cudaError_t allow_smem(K kernel, size_t bytes)
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int CPL>
+template <int CPL, bool OV>
 cudaError_t launch(const Args& a)
 {
     const dim3 block(32 * kWarpsPerBlock);
     const dim3 grid((a.C + kWarpsPerBlock - 1) / kWarpsPerBlock);
     const size_t smem = (size_t)kWarpsPerBlock * a.L * sizeof(int4);
-    const cudaError_t err = allow_smem(dp_score_kernel<CPL>, smem);
+    const cudaError_t err = allow_smem(dp_score_kernel<CPL, OV>, smem);
     if (err != cudaSuccess) return err;
-    dp_score_kernel<CPL><<<grid, block, smem, a.stream>>>(
-        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.out, a.C, a.L, a.W, a.mb,
-        a.np, a.ro, a.re, a.fo, a.fe);
+    dp_score_kernel<CPL, OV><<<grid, block, smem, a.stream>>>(
+        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.ov, a.out, a.C, a.L, a.W,
+        a.mb, a.np, a.ro, a.re, a.fo, a.fe);
     return cudaGetLastError();
 }
 
@@ -480,16 +531,17 @@ extern "C" int dp_score_fused_form() { return DP_FUSED; }
 
 // Plain C entry point. Pointers are device pointers to contiguous int32
 // arrays: rd, pen (C, L); rdlens (C,); ref (C, W); scp_cum (C, L+1);
-// out (C,). The plan names the kernel: warps = 1 is the one-warp kernel
-// with cpl columns per lane, warps = 4 the one-block kernel. A plan
-// this file did not compile, one that covers fewer than W + 1 columns, or
-// a read too long for the staged rows is refused with
-// cudaErrorInvalidValue. Launches on `stream` and returns
+// out (C,); ov (C, W) SNV-overlay nibbles, or null for the
+// instantiations without the overlay. The plan names the kernel: warps =
+// 1 is the one-warp kernel with cpl columns per lane, warps = 4 the
+// one-block kernel. A plan this file did not compile, one that covers
+// fewer than W + 1 columns, an overlay for the one-block kernel, or a read
+// too long for the staged rows is refused with cudaErrorInvalidValue. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int dp_score_launch(const void* rd, const void* pen,
                                const void* rdlens, const void* ref,
-                               const void* scp_cum, void* out,
-                               int C, int L, int W,
+                               const void* scp_cum, const void* ov,
+                               void* out, int C, int L, int W,
                                int match_bonus, int n_pen,
                                int rd_open, int rd_ext,
                                int rf_open, int rf_ext,
@@ -500,6 +552,7 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
                  static_cast<const int32_t*>(rdlens),
                  static_cast<const int32_t*>(ref),
                  static_cast<const int32_t*>(scp_cum),
+                 static_cast<const int32_t*>(ov),
                  static_cast<int32_t*>(out),
                  C, L, W, match_bonus, n_pen, rd_open, rd_ext, rf_open,
                  rf_ext, static_cast<cudaStream_t>(stream)};
@@ -510,7 +563,8 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
     if ((size_t)(warps == 1 ? kWarpsPerBlock : 1) * L * sizeof(int4)
         > kSmemMax)
         return invalid;
-#define DP_NARROW(K) case K: return static_cast<int>(launch<K>(a));
+#define DP_NARROW(K) case K: return static_cast<int>( \
+        a.ov ? launch<K, true>(a) : launch<K, false>(a));
 #define DP_WIDE(K) case K: return static_cast<int>(launch_wide<K>(a));
     if (warps == 1) {
         switch (cpl) {
@@ -518,7 +572,7 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
             DP_NARROW(5) DP_NARROW(6) DP_NARROW(7) DP_NARROW(8)
             default: return invalid;
         }
-    } else if (warps == kWideWarps) {
+    } else if (warps == kWideWarps && !a.ov) {
         switch (cpl) {
             DP_WIDE(3) DP_WIDE(4) DP_WIDE(5) DP_WIDE(6) DP_WIDE(7)
             DP_WIDE(8) DP_WIDE(9) DP_WIDE(10) DP_WIDE(11) DP_WIDE(12)

@@ -236,25 +236,28 @@ class FMIndex:
 
     @staticmethod
     def load(prefix: str) -> "FMIndex":
-        """Read <prefix>.npz + <prefix>.meta.json as the JAX package
-        writes them (FMIndex.save). Reference-built .ht2 indexes and graph
-        indexes are not supported by this package yet."""
-        if not os.path.exists(prefix + ".meta.json"):
-            raise NotImplementedError(
-                f"{prefix}: only .npz/.meta.json indexes are supported")
+        """Read <prefix>.npz + <prefix>.meta.json as either package writes
+        them (FMIndex.save; a graph index comes back as a GraphFMIndex).
+        A prefix with <prefix>.1.ht2 and no .meta.json is a
+        reference-built index: its files are parsed and the index is
+        rebuilt from the recovered text (io/ht2.load_ht2)."""
+        if not os.path.exists(prefix + ".meta.json") \
+                and os.path.exists(prefix + ".1.ht2"):
+            from ..io.ht2 import load_ht2
+            return load_ht2(prefix)
         with open(prefix + ".meta.json") as fh:
             meta = json.load(fh)
         if meta.get("graph"):
-            raise NotImplementedError("graph (SNP) indexes are not ported")
+            from .graph_index import GraphFMIndex
+            return GraphFMIndex.load(prefix)
         with np.load(prefix + ".npz") as z:
             fields = {k: z[k] for k in z.files}
         return FMIndex.from_arrays({**fields, **meta})
 
     @staticmethod
-    def from_object(other) -> "FMIndex":
-        """An FMIndex over the arrays of another index object with this
-        class's fields and a `ref` of JoinedReference's fields (the JAX
-        package's FMIndex, say), so both search the very same arrays."""
+    def fields_of(other) -> dict:
+        """The saved fields (from_arrays' input) of an index object with
+        this class's attributes and a `ref` of JoinedReference's."""
         r = other.ref
         fields = {k: getattr(other, k) for k in (
             "n", "zoff", "ftab_k", "bwt_packed", "text_packed", "occ",
@@ -264,7 +267,17 @@ class FMIndex:
         fields.update(names=r.names, tlens=r.tlens, joined=r.joined,
                       frag_joined=r.frag_joined, frag_toff=r.frag_toff,
                       frag_tidx=r.frag_tidx, frag_len=r.frag_len)
-        return FMIndex.from_arrays(fields)
+        return fields
+
+    @staticmethod
+    def from_object(other) -> "FMIndex":
+        """An FMIndex over the arrays of another index object (the JAX
+        package's FMIndex, say), so both search the very same arrays; a
+        graph index (one with an SNV overlay) gives a GraphFMIndex."""
+        if getattr(other, "snv_overlay", None) is not None:
+            from .graph_index import GraphFMIndex
+            return GraphFMIndex.from_object(other)
+        return FMIndex.from_arrays(FMIndex.fields_of(other))
 
     @staticmethod
     def from_arrays(fields: dict) -> "FMIndex":

@@ -10,7 +10,13 @@ up to 256 columns (W + 1 <= 256, the SE path) the one-warp-per-candidate
 kernel, counted in `launches["dp_score"]`; wider ones, up to 2,048
 columns (the paired-end mate rescue), the one-block-per-candidate kernel
 (4 warps, 3 to 16 columns a lane), counted in
-`launches["dp_score_wide"]`. A window wider than that raises.
+`launches["dp_score_wide"]`. A window wider than that raises. With `ov`
+(the SNV-overlay nibbles of a graph index's windows) the one-warp kernel
+runs in its overlay instantiation, counted in `launches["dp_score_ov"]` as
+well; the JAX package has no such kernel and runs its plain scan there.
+The one-block kernel has no overlay instantiation (its widest variant
+would spill registers, and the mate rescue passes no overlay): an overlay
+at a window of more than 255 bases raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ WIDE_WARPS = 4            # warps per candidate of the one-block kernel
 # capacities of 384 to 2,048 columns in steps of 128
 WIDE_VARIANTS = tuple((WIDE_WARPS, k) for k in range(3, 17))
 
-launches = {"dp_score": 0, "dp_score_wide": 0}
+launches = {"dp_score": 0, "dp_score_wide": 0, "dp_score_ov": 0}
 _state: dict = {}
 
 
@@ -105,7 +111,7 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()[0])
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dp_score_launch.restype = ci
-        lib.dp_score_launch.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+        lib.dp_score_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
         lib.dp_score_fused_form.restype = ci
         lib.dp_score_fused_form.argtypes = []
         _state["lib"] = lib
@@ -122,16 +128,20 @@ def fused_form() -> bool:
 def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
              ref: torch.Tensor, scp_cum: torch.Tensor, *, match_bonus: int,
              n_pen: int, rd_open: int, rd_ext: int, rf_open: int,
-             rf_ext: int, plan: Plan | None = None) -> torch.Tensor:
+             rf_ext: int, ov: torch.Tensor | None = None,
+             plan: Plan | None = None) -> torch.Tensor:
     """Batched DP scores. rd (C, L) codes, pen (C, L) per-position
     mismatch penalties, rdlens (C,), ref (C, W) codes, scp_cum (C, L+1)
     cumulative soft-clip penalties (scp_cum[:, j] = clip cost of
-    rd[0:j)); all int32. Returns (C,) int32 scores. `plan` overrides
-    dispatch_plan's choice of variant (measurements only)."""
+    rd[0:j)); ov, where given, (C, W) SNV-overlay nibbles of the window
+    bases (0 none, 1..4 alt code + 1, 15 several: a mismatch on a known
+    alt allele scores as a match; on a CUDA tensor only for W + 1 <=
+    256); all int32. Returns (C,) int32 scores. `plan` overrides dispatch_plan's choice of variant (measurements
+    only)."""
     consts = dict(match_bonus=match_bonus, n_pen=n_pen, rd_open=rd_open,
                   rd_ext=rd_ext, rf_open=rf_open, rf_ext=rf_ext)
     if rd.device.type == "cpu":
-        return dp_fill_plain(rd, pen, rdlens, ref, scp_cum, **consts)
+        return dp_fill_plain(rd, pen, rdlens, ref, scp_cum, ov=ov, **consts)
     if rd.device.type != "cuda":
         raise ValueError(f"dp_score: no kernel for device {rd.device}")
     C, L = rd.shape
@@ -139,6 +149,8 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
     shapes = {"rd": (rd, (C, L)), "pen": (pen, (C, L)),
               "rdlens": (rdlens, (C,)), "ref": (ref, (C, W)),
               "scp_cum": (scp_cum, (C, L + 1))}
+    if ov is not None:
+        shapes["ov"] = (ov, (C, W))
     for name, (t, shape) in shapes.items():
         if t.device != rd.device:
             raise ValueError(f"dp_score: {name} on {t.device}, rd on "
@@ -152,6 +164,9 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
             raise ValueError(f"dp_score: {name} must be contiguous")
     if plan is None:
         plan = dispatch_plan(W)
+    if ov is not None and plan.kernel != "dp_score":
+        raise ValueError(f"dp_score: no overlay kernel for W={W}, {plan}: "
+                         f"the one-block kernel takes no overlay")
     lib = _lib()
     out = torch.empty(C, dtype=torch.int32, device=rd.device)
     if C == 0:
@@ -160,10 +175,13 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dp_score_launch(
             rd.data_ptr(), pen.data_ptr(), rdlens.data_ptr(), ref.data_ptr(),
-            scp_cum.data_ptr(), out.data_ptr(), C, L, W, match_bonus, n_pen,
+            scp_cum.data_ptr(), None if ov is None else ov.data_ptr(),
+            out.data_ptr(), C, L, W, match_bonus, n_pen,
             rd_open, rd_ext, rf_open, rf_ext, plan.warps, plan.cpl, stream)
     if err != 0:
         raise RuntimeError(f"dp_score kernel launch refused or failed for "
                            f"W={W}, {plan}: CUDA error {err}")
     launches[plan.kernel] += 1
+    if ov is not None:
+        launches["dp_score_ov"] += 1
     return out

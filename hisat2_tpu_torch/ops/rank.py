@@ -205,3 +205,25 @@ def text_window(idx: dict, start: torch.Tensor, length: int) -> torch.Tensor:
     inb = (pos >= 0) & (pos < idx["n"])
     return torch.where(inb, out, torch.full((), 4, dtype=torch.int32,
                                             device=out.device))
+
+
+def nib4_window(idx: dict, start: torch.Tensor, length: int) -> torch.Tensor:
+    """SNV-overlay window of a graph index: the 4-bit nibbles (0 none,
+    1..4 alt code + 1, 15 several alts) at primary-text positions
+    [start, start+length), int32; positions outside [0, primary_n) come
+    back 0. start: (...,) int32; result (..., length).
+
+    One formulation for every length (the JAX version's three differ only
+    in how they gather): each position reads its word of idx["snv_packed"]
+    (int64 holding uint32 words, 8 nibbles LSB first) and shifts its
+    nibble down, so there is no word alignment and no 32-bit shift by 32.
+    """
+    start = start.to(torch.int32)
+    packed = idx["snv_packed"]
+    pos = start.unsqueeze(-1) + torch.arange(length, dtype=torch.int32,
+                                             device=start.device)
+    word = packed[(pos >> 3).long().clamp(0, packed.shape[0] - 1)]
+    nib = ((word >> (4 * (pos & 7)).long()) & 15).to(torch.int32)
+    inb = (pos >= 0) & (pos < idx["primary_n"])
+    return torch.where(inb, nib, torch.zeros((), dtype=torch.int32,
+                                             device=nib.device))

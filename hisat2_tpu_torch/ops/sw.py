@@ -30,7 +30,8 @@ NEG = -(1 << 28)
 def dp_fill_plain(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
                   ref: torch.Tensor, scp_cum: torch.Tensor, *,
                   match_bonus: int, n_pen: int, rd_open: int, rd_ext: int,
-                  rf_open: int, rf_ext: int) -> torch.Tensor:
+                  rf_open: int, rf_ext: int,
+                  ov: torch.Tensor | None = None) -> torch.Tensor:
     """Score-only DP, one score per candidate.
 
     rd (C, L) codes 0..4; pen (C, L) per-position mismatch penalties;
@@ -39,7 +40,11 @@ def dp_fill_plain(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
     (scp_cum[:, i] = clip cost of rd[0:i)). A 5' clip of i bases enters as
     a floor of -scp_cum[:, i] on row i; a 3' clip after row i costs the
     rest of the read's clip penalty; rows past a read's length are frozen.
-    Returns (C,) int32.
+    `ov` (C, W), the SNV-overlay nibble at each window base (graph
+    indexes: 0 none, 1..4 alt code + 1, 15 several alts): a cell whose
+    read and window bases are both real and differ scores match_bonus
+    where ov == read base + 1 or ov == 15; an N on either side keeps
+    -n_pen. Returns (C,) int32.
     """
     C, L = rd.shape
     W = ref.shape[1]
@@ -59,10 +64,15 @@ def dp_fill_plain(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
     ref_n = ref >= 4
     n_sub = torch.tensor(-n_pen, dtype=i32, device=dev)
     m_sub = torch.tensor(match_bonus, dtype=i32, device=dev)
+    if ov is not None:
+        ov = ov.to(i32)
+        ov_any = ov == 15
     for i in range(L):
         rc = rd[:, i:i + 1]
         isn = (rc >= 4) | ref_n
         mm = (rc != ref) & ~isn
+        if ov is not None:
+            mm = mm & ~((ov == rc + 1) | ov_any)
         s = torch.where(mm, -pen[:, i:i + 1], torch.where(isn, n_sub, m_sub))
         col0 = torch.full((C, 1), -(rf_open + i * rf_ext), dtype=i32,
                           device=dev)
@@ -105,15 +115,13 @@ def dp_score_batch(sctab: dict, rd: torch.Tensor, quals: torch.Tensor,
                    ov: torch.Tensor | None = None) -> torch.Tensor:
     """Affine-gap DP score with soft clips, batched over candidates:
     rd (C, L) codes 0..4, quals (C, L), rdlens (C,), ref (C, W).
-    Returns score (C,) int32. The SNV overlay `ov` is not ported."""
-    if ov is not None:
-        raise NotImplementedError("SNV-overlay DP is not ported")
+    ov (C, W) optional SNV-overlay nibbles. Returns score (C,) int32."""
     pen, scp_cum = dp_inputs(sctab, quals, rdlens)
     return dp_fill_plain(
         rd, pen, rdlens, ref, scp_cum, match_bonus=int(sctab["match_bonus"]),
         n_pen=int(sctab["n_pen"]), rd_open=int(sctab["rd_open"]),
         rd_ext=int(sctab["rd_ext"]), rf_open=int(sctab["rf_open"]),
-        rf_ext=int(sctab["rf_ext"]))
+        rf_ext=int(sctab["rf_ext"]), ov=ov)
 
 
 def ungapped_place_batch(sctab: dict, rd: torch.Tensor, quals: torch.Tensor,

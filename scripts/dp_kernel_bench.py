@@ -6,10 +6,16 @@
 Builds hisat2_tpu_torch/csrc/dp_score.cu, prints the compiler's report
 and the SASS counts of every variant, holds both kernels to the plain
 version (ops/sw.dp_fill_plain, exact) at every edge window of
-chip_smoke.edge_windows, and then times, on chip_smoke.make_dp_case
+chip_smoke.edge_windows, the one-warp kernel also with an SNV overlay
+(chip_smoke.make_dp_ov), and then times, on chip_smoke.make_dp_case
 inputs with CUDA events (50 launches after 10):
 
   * the one-warp kernel at the SE path's shape C=8192, L=104, W=136;
+  * every variant of the one-warp kernel (1 to 8 columns a lane) at the
+    widest window it covers, C=8192: the instantiation without the overlay,
+    then the overlay one with a nibble on one window base in 250 (a graph
+    genome's density) and on one in 4, then the first again, so what the
+    overlay costs each variant can be read on one card in one run;
   * the one-block kernel at C=512, L=104 for W = 604, 1104 and 2047, under
     the dispatch plan's variant and under every other compiled variant
     that covers the window, so the plan's choice can be read against its
@@ -74,29 +80,39 @@ def main() -> int:
         pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
         return t[0], pen, t[2], t[3], scp
 
+    def overlay(a, seed, density, stress=True):
+        ov = cs.make_dp_ov(seed, a[0].cpu().numpy(), a[3].cpu().numpy(),
+                           density, stress)
+        return torch.from_numpy(ov).to(dev)
+
     if not args.no_edges:
         bad = 0
         for W in cs.edge_windows("dp_score") + cs.edge_windows(
                 "dp_score_wide"):
             a = case(100 + W, *cs.edge_case_shape(W), W)
-            got = dp_cuda.dp_score(*a, **consts)
-            want = dp_fill_plain(*a, **consts)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad += 1
-                rows = torch.nonzero(got != want).flatten().tolist()
-                print(f"[edges] W={W} {dp_cuda.dispatch_plan(W)} differs in "
-                      f"rows {rows}: {got[rows].tolist()} != "
-                      f"{want[rows].tolist()}", flush=True)
-        print(f"[edges] {bad} windows differ from the plain version",
+            narrow = dp_cuda.dispatch_plan(W).kernel == "dp_score"
+            for ov in (None, overlay(a, 300 + W, 0.25)) if narrow else (None,):
+                got = dp_cuda.dp_score(*a, **consts, ov=ov)
+                want = dp_fill_plain(*a, **consts, ov=ov)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    bad += 1
+                    rows = torch.nonzero(got != want).flatten().tolist()
+                    print(f"[edges] W={W} {dp_cuda.dispatch_plan(W)} "
+                          f"{'with' if ov is not None else 'without'} overlay"
+                          f" differs in rows {rows}: {got[rows].tolist()} != "
+                          f"{want[rows].tolist()}", flush=True)
+        print(f"[edges] {bad} cases differ from the plain version (every "
+              f"edge window; the one-warp kernel's also with an overlay)",
               flush=True)
         if bad:
             return 1
 
-    def timed(a, plan):
-        got = dp_cuda.dp_score(*a, **consts, plan=plan)
-        ok = torch.equal(got, dp_fill_plain(*a, **consts))
-        ms = cs.time_cuda(lambda: dp_cuda.dp_score(*a, **consts, plan=plan),
+    def timed(a, plan, ov=None):
+        got = dp_cuda.dp_score(*a, **consts, ov=ov, plan=plan)
+        ok = torch.equal(got, dp_fill_plain(*a, **consts, ov=ov))
+        ms = cs.time_cuda(lambda: dp_cuda.dp_score(*a, **consts, ov=ov,
+                                                   plan=plan),
                           iters=50, warmup=10)
         return ms, ok
 
@@ -105,6 +121,18 @@ def main() -> int:
         ms, ok = timed(a, None)
         print(f"[time] dp_score C=8192 L=104 W=136 {dp_cuda.dispatch_plan(136)}"
               f": {ms:.4f} ms exact={ok} [{card}]", flush=True)
+    for cpl in range(1, dp_cuda.NARROW_MAX_COLS // 32 + 1):
+        W = 32 * cpl - 1
+        a = case(60 + cpl, 8192, cs.edge_case_shape(W)[1], W)
+        plan = dp_cuda.dispatch_plan(W)
+        for what, ov in (
+                ("no overlay", None),
+                ("overlay, 1 base in 250", overlay(a, cpl, 0.004, False)),
+                ("overlay, 1 base in 4", overlay(a, cpl, 0.25, False)),
+                ("no overlay", None)):
+            ms, ok = timed(a, plan, ov)
+            print(f"[time] dp_score C=8192 L={a[0].shape[1]} W={W} {plan} "
+                  f"{what}: {ms:.4f} ms exact={ok} [{card}]", flush=True)
     for W in (604, 1104, 2047):
         a = case(40 + W, 512, 104, W)
         chosen = dp_cuda.dispatch_plan(W)

@@ -25,6 +25,7 @@ dovetail, no_contain, no_overlap) on random candidate grids, and the SAM
 bytes and stats of the packed step, the fused step and the
 seed_mode=False per-pair path (align_pairs + pairs_to_sam) on A and B."""
 
+import dataclasses
 import io
 
 import jax.numpy as jnp
@@ -277,9 +278,15 @@ def test_legacy_emit_in_seed_mode(world):
 
 def test_unported_options_still_raise(world):
     _, tfms, _, _ = world
-    for kw in (dict(spliced=True), dict(tmo=True), dict(zs_tags=True)):
+    for kw in (dict(spliced=True), dict(tmo=True)):
         with pytest.raises(NotImplementedError):
             TAligner(tfms["A"], opts=TOpts(**kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        TAligner(tfms["A"], scoring=dataclasses.replace(TSCORING, local=True),
+                 device="cpu")
+    # Zs:Z tags are ported: on a linear index the option changes nothing
+    assert TAligner(tfms["A"], opts=TOpts(zs_tags=True),
+                    device="cpu").overlay is None
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """The SE path on the card against the same path on the CPU (plain
 versions of the kernels): identical SAM bytes, on the table index and on
 every FM configuration (no table; sampled SA; seed_mode=False, SE and PE;
-the paired-k-mer and stride-sampled table modes). Skips where CUDA is
-absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
+the paired-k-mer and stride-sampled table modes), and on a graph index
+(SE, PE, FM-seeded, seed_mode=False, Zs:Z tags); the DP kernel's overlay
+instantiations against the plain version at the edge windows. Skips where
+CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
 import io
 
@@ -110,3 +112,87 @@ def test_fm_sam_on_card_equals_cpu(name, seed_mode, how):
     on_card = sam("cuda")
     assert dp_cuda.launches["dp_score"] > before
     assert on_card == sam("cpu")
+
+
+@pytest.mark.gpu
+def test_overlay_kernel_matches_plain_at_edge_windows():
+    """The one-warp kernel's overlay instantiations against the plain
+    version at every window where one of its variants ends, with an overlay
+    holding every kind of nibble; the one-block kernel refuses one."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the overlay kernel runs only on one")
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
+    sc = Scoring()
+    sctab = sc.device_tables("cuda")
+    consts = sc.dp_consts()
+
+    def case(W):
+        rd, quals, lens, ref = chip_smoke.make_dp_case(
+            100 + W, *chip_smoke.edge_case_shape(W), W)
+        ov = chip_smoke.make_dp_ov(W, rd, ref)
+        t = [torch.from_numpy(a).cuda() for a in (rd, quals, lens, ref, ov)]
+        pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+        return (t[0], pen, t[2], t[3], scp), t[4]
+    for W in chip_smoke.edge_windows("dp_score") + [136]:
+        a, ov = case(W)
+        before = dict(dp_cuda.launches)
+        got = dp_cuda.dp_score(*a, ov=ov, **consts)
+        assert dp_cuda.launches["dp_score_ov"] == before["dp_score_ov"] + 1
+        assert dp_cuda.launches["dp_score"] == before["dp_score"] + 1
+        want = dp_fill_plain(*a, ov=ov, **consts)
+        assert torch.equal(got, want), W
+        assert not torch.equal(want, dp_fill_plain(*a, **consts)), W
+        zero = dp_cuda.dp_score(*a, ov=torch.zeros_like(ov), **consts)
+        assert torch.equal(zero, dp_cuda.dp_score(*a, **consts)), W
+    a, ov = case(1104)
+    with pytest.raises(ValueError, match="overlay"):
+        dp_cuda.dp_score(*a, ov=ov, **consts)
+    with pytest.raises(TypeError):
+        a, ov = case(136)
+        dp_cuda.dp_score(*a, ov=ov.long(), **consts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index,opts,how", [
+    ("table", {}, "stream"), ("fm", {}, "stream"), ("table", {}, "pe"),
+    ("table", {}, "pe_perbase"), ("table", dict(seed_mode=False), "stream"),
+    ("table", dict(seed_mode=False), "align_pairs"),
+    ("table", dict(zs_tags=True), "stream")])
+def test_graph_sam_on_card_equals_cpu(index, opts, how):
+    """A graph index on the card against the CPU path: identical SAM bytes
+    for the SE stream, both PE steps, the FM-seeded index, seed_mode=False
+    and Zs:Z tags; every run launches the overlay kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the graph path on the card needs one")
+    import dataclasses
+    from hisat2_tpu_torch.index.graph_index import build_graph_index
+    g = np.random.default_rng(12).integers(0, 4, 60000).astype(np.uint8)
+    ref = reference_from_seqs({"chrG": alphabet.decode(g)})
+    snps, haps = chip_smoke.simulate_variants(ref.joined, 31, 250, 12)
+    fm = build_graph_index(ref, snps, haplotypes=haps)
+    if index == "fm":
+        fm = dataclasses.replace(fm, st_starts=None, st_pos=None, st_k=0)
+    hap = chip_smoke.apply_haplotype(ref.joined, snps, haps, 32)
+    seqs, _ = chip_smoke.simulate_graph_reads(*hap, 256, seed=33)
+    r1, r2, _, _ = chip_smoke.simulate_pairs(hap[0], 128, seed=34)
+    quals = None
+    if how == "pe_perbase":
+        quals = np.random.default_rng(35).integers(
+            2, 42, (128, 2, 100)).astype(np.int8)
+    se = chip_smoke.make_batches(seqs, 0, 256)
+    pe = chip_smoke.make_pair_batches(r1, r2, 0, 128, quals)
+    run = {"stream": chip_smoke.run_stream,
+           "align_pairs": chip_smoke.run_per_pair}.get(
+               how, chip_smoke.run_pe_stream)
+    items = se if how == "stream" else pe
+
+    def sam(device):
+        al = Aligner(fm, opts=AlignerOpts(**opts), device=device)
+        return run(al, items, ref)[0]
+    before = dp_cuda.launches["dp_score_ov"]
+    on_card = sam("cuda")
+    assert dp_cuda.launches["dp_score_ov"] > before
+    assert on_card == sam("cpu")
+    if opts.get("zs_tags"):
+        assert "Zs:Z:" in on_card

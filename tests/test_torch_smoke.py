@@ -176,3 +176,57 @@ def test_refuses_without_card(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_graph_phase_helpers_on_cpu():
+    """The graph phase's variant simulation, haplotype genome, read truth
+    and SAM checks, on a 60 kb genome at one variant per 250 bp."""
+    from hisat2_tpu_torch.index.graph_index import build_graph_index
+    g = np.random.default_rng(8).integers(0, 4, 60000).astype(np.uint8)
+    ref = reference_from_seqs({"chrS": alphabet.decode(g)})
+    snps, haps = chip_smoke.simulate_variants(ref.joined, 31, 250, 12)
+    assert len(haps) == 12 and len(snps) == 60000 // 250 - 1 + 12
+    assert (np.diff(snps.jpos) > 3).all()
+    assert set(np.unique(snps.types)) == {0, 1, 2}
+    sv = snps.types == 0
+    assert (snps.alt_codes[sv] != ref.joined[snps.jpos[sv]]).all()
+    for a, b in haps:
+        assert sv[a] and sv[b] and 6 <= snps.jpos[b] - snps.jpos[a] <= 30
+    hap, refpos, alt, after_del, inserted = chip_smoke.apply_haplotype(
+        ref.joined, snps, haps, 32)
+    assert hap.size == refpos.size == alt.size == inserted.size
+    assert (np.diff(refpos) >= 0).all()
+    plain = ~alt & ~inserted
+    assert (hap[plain] == ref.joined[refpos[plain]]).all()
+    assert (hap[alt] != ref.joined[refpos[alt]]).all()
+    assert 0 < alt.sum() < sv.sum() and after_del.any() and inserted.any()
+    d = np.flatnonzero(after_del)
+    assert (refpos[d] - refpos[d - 1] > 1).all()
+    seqs, info = chip_smoke.simulate_graph_reads(
+        hap, refpos, alt, after_del, inserted, 384, seed=33)
+    assert (info["n_alt"] > 0).any() and not info["err"].all()
+    assert info["kdel"].any() or info["kins"].any()
+    gfm = build_graph_index(ref, snps, haplotypes=haps)
+    batches = chip_smoke.make_batches(seqs, 0, 384)
+    text, stats = chip_smoke.run_stream(Aligner(gfm, device="cpu"), batches,
+                                        ref)
+    res = chip_smoke.check_graph_sam(text, 384, info, "graph stream")
+    assert res["alt_reads"] > 20 and res["alt_free"] >= 0.95
+    assert res["zs"] == 0
+    ztext, _ = chip_smoke.run_stream(
+        Aligner(gfm, opts=AlignerOpts(zs_tags=True), device="cpu"), batches,
+        ref)
+    assert chip_smoke.check_graph_sam(ztext, 384, info, "zs")["zs"] > 20
+    # on the linear index the same alt-allele reads pay for the allele
+    ltext, _ = chip_smoke.run_stream(
+        Aligner(build_fm_index(ref), device="cpu"), batches, ref)
+    clean = ~info["err"] & (info["n_alt"] > 0)
+    assert not any("AS:i:0" in ln for ln in ltext.splitlines()
+                   if clean[int(ln.split("\t")[0][1:])])
+    ov = chip_smoke.make_dp_ov(0, *[chip_smoke.make_dp_case(0, 16, 24, 40)[k]
+                                    for k in (0, 3)])
+    assert ov.shape == (16, 40) and set(np.unique(ov)) == {0, 1, 2, 3, 4, 15}
+    assert chip_smoke.variant_of("_Z15dp_score_kernelILi5ELb1EEvPKi") == \
+        "dp_score_kernel<CPL=5,OV>"
+    assert chip_smoke.variant_of("_Z15dp_score_kernelILi5ELb0EEvPKi") == \
+        "dp_score_kernel<CPL=5>"
