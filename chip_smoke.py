@@ -10,22 +10,26 @@ Phases; any failure exits non-zero:
   1. card      - CUDA must be present; prints the card's name and power
                  limit as nvidia-smi reports them.
   2. build     - compiles the CUDA source of the DP kernels (the one-warp
-                 kernel of the SE windows and the one-block kernel of the
-                 PE rescue's wide windows) with nvcc for sm_90a and prints,
-                 for each variant, the compiler's register/spill report and,
+                 kernel of the SE windows, the one-block kernel of the PE
+                 rescue's wide windows and its column-tiled form past 2,048
+                 columns, each with its SNV-overlay instantiations) with
+                 nvcc for sm_90a and prints, for each variant
+                 (<CPL=k[,OV][,TILED]>), the compiler's register/spill
+                 report and,
                  read from the SASS, how many fused add-max and three-way-max
                  instructions it holds and how many instructions its row
                  loop spans (--sass DIR also writes the SASS there).
   3. kernels   - each kernel against its plain PyTorch version on the
                  card, exact int32 equality: random cases with Ns, gaps,
                  short reads and the stress rows of make_dp_case, at the SE
-                 main path's shape, at the rescue's (W + 1 = 1105), and at
-                 every window where a variant's capacity ends: one column
-                 short of it, exactly at it, and one past it (edge_windows).
-                 The one-warp kernel's cases run a second time with an SNV
-                 overlay holding every kind of nibble (make_dp_ov), through
-                 its overlay instantiations; the one-block kernel must
-                 refuse an overlay.
+                 main path's shape, at the rescue's (W + 1 = 1105), the
+                 tiled form's W + 1 = 2049, 2605 and 8192 (one to four
+                 tiles), at every window where a variant's capacity or a tile count
+                 ends: one column short of it, exactly at it, and one past
+                 it (edge_windows). Every case runs a second time with an
+                 SNV overlay holding every kind of nibble (make_dp_ov),
+                 through the overlay instantiations of every kernel (W =
+                 288 and 1104 among them).
   4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
@@ -46,7 +50,10 @@ Phases; any failure exits non-zero:
                  rescue lane passed its minimum score. Then 2,048
                  constant-quality pairs (the packed step) and 512 pairs with
                  per-base qualities (the fused step) go through the CPU path
-                 and the card: the SAM bytes must be equal.
+                 and the card: the SAM bytes must be equal; so do 512
+                 pairs at -X 2500 (the rescue window stays min(-X, 1000) +
+                 L) and 256 SE reads of 2,100 bp, whose DP window (W =
+                 2136) takes the column-tiled kernel.
   6. FM path   - the same genome without its k-mer table, so that seeding
                  is FM backward search: index A (full suffix array: ftab
                  jump + 12 LF rounds of 22 bp seeds, maximal segments for
@@ -81,15 +88,35 @@ Phases; any failure exits non-zero:
                  known insertion come out with the zero-cost D / I; that
                  zs_tags=True writes Zs:Z; that the card's SAM equals the
                  CPU path's for the SE stream, both PE steps, the FM-seeded
-                 index, seed_mode=False (SE and PE) and zs_tags=True; and
-                 that every graph run launched the overlay kernel.
-  8. report    - the wide kernel's time and bound at W = 604, 1104 and
-                 2047 (-X 500, the default -X 1000, the kernel's maximum);
+                 index, seed_mode=False (SE and PE), zs_tags=True and 2,048
+                 reads of 250 bp (DP window W = 288: the one-block kernel's
+                 overlay instantiation); and that every graph run launched
+                 the overlay kernel.
+  8. RNA       - spliced alignment on the same genome, into which a gene
+                 model was written before the index was built: about 2,000
+                 transcripts of 2-6 exons, introns of 60-50,000 bp with
+                 their canonical motif (GT..AG or CT..AC), 100 bp reads cut
+                 from the spliced transcripts with 1% mismatches, about half
+                 across a junction. The card's SAM must equal the CPU
+                 path's on 2,048 reads for the stream, seed_mode=False and
+                 tmo=True (both with known sites; tmo reports spliced
+                 records only), dta=True and FM seeding (index A). Then 2
+                 batches of 16,384 reads through the stream with every
+                 intron known and 2 without known sites; without them
+                 junction recall must reach 0.90 over the junctions whose
+                 shorter anchor is 7 bp or more, and precision 0.99 (CIGAR
+                 N ops of the primary records against the planted
+                 junctions). One batch alone gives launches and the
+                 device's busy share.
+  9. report    - the wide kernel's time and bound at W = 604, 1104 and
+                 2047 (-X 500, the default -X 1000, one pass's maximum);
                  each DP kernel's time on its main path's own inputs (the
-                 narrow one also on the per-read path's, C = 16,384, and
-                 with the overlay on the graph path's), its plain version's
-                 time and its bound, as one JSON line; end-to-end reads/s
-                 (SE) and pairs/s (PE) and peak device memory beside the
+                 narrow one also on the per-read path's, C = 16,384, on the
+                 RNA path's, and with the overlay on the graph path's; the
+                 tiled one on the 2,100 bp reads', the one-block overlay
+                 one on the 250 bp graph reads'), its plain version's time
+                 and its bound, as one JSON line; end-to-end reads/s (SE,
+                 RNA) and pairs/s (PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
 
 The bound of a kernel is the larger of its bytes over the card's memory
@@ -149,6 +176,12 @@ GRAPH_HAP_PAIRS = 300         # phased SNV pairs with a haplotype patch
 GRAPH_NBATCH = 4              # SE batches on the graph index
 GRAPH_PE_NBATCH = 2
 GRAPH_FM_NBATCH = 2           # SE batches on the FM-seeded graph index
+LONG_N = 256                  # long reads, and their length
+LONG_RDLEN = 2100
+LONG_PAD = 2104
+RNA_TRANSCRIPTS = 2000        # the simulated gene model
+RNA_NBATCH = 2                # RNA batches with known sites, and without
+RNA_CHECK = 2048              # reads of each RNA card == CPU comparison
 
 
 def check(ok: bool, what: str) -> None:
@@ -231,14 +264,19 @@ def make_dp_ov(seed, rd, ref, density=0.25, stress=True):
 
 
 def edge_windows(kernel: str):
-    """Windows W at which a variant of `kernel` ("dp_score" or
-    "dp_score_wide") ends: W + 1 one short of, at and one past each
-    variant's capacity, and the rescue's default W + 1 = 1105."""
+    """Windows W at which a variant of `kernel` ("dp_score",
+    "dp_score_wide" or "dp_score_tiled", with or without the overlay)
+    ends: W + 1 one short of, at and one past each
+    variant's capacity and each count of tiles (1 to 4) of every tiled
+    width, up to W + 1 = 8,193; and the rescue's window W + 1 = 1105, the
+    tiled form's W + 1 = 2605 (two tiles of 12 columns a lane) and the
+    graph SE window of 250 bp reads, 289."""
     from hisat2_tpu_torch.ops import dp_cuda
     caps = {32 * k for k in range(1, dp_cuda.NARROW_MAX_COLS // 32 + 1)}
     caps |= {32 * w * k for w, k in dp_cuda.WIDE_VARIANTS}
-    cols = {c + d for c in caps for d in (-1, 0, 1)} | {1105}
-    return [c - 1 for c in sorted(cols) if c <= dp_cuda.MAX_COLS
+    caps |= {n * 128 * k for k in dp_cuda.TILE_CPLS for n in range(1, 5)}
+    cols = {c + d for c in caps for d in (-1, 0, 1)} | {289, 1105, 2605}
+    return [c - 1 for c in sorted(cols) if c <= 8193
             and dp_cuda.dispatch_plan(c - 1).kernel == kernel]
 
 
@@ -270,15 +308,25 @@ def kernel_of(W: int) -> str:
     return dp_cuda.dispatch_plan(W).kernel
 
 
+def variant_key(W: int, ov: bool) -> str:
+    """The report's name of the kernel a window of W launches: the launch
+    counter's key, with "_ov" for an overlay instantiation of the
+    one-block kernel (the one-warp kernel's is "dp_score_ov")."""
+    k = kernel_of(W)
+    return k if not ov else "dp_score_ov" if k == "dp_score" else k + "_ov"
+
+
 def variant_of(mangled: str):
     """'dp_score_kernel<CPL=5>' or 'dp_score_wide_kernel<CPL=9>' from a
-    mangled kernel name ('...<CPL=5,OV>' for an overlay instantiation), or
-    None."""
-    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E(?:Lb([01])E)?",
-                  mangled)
+    mangled kernel name ('...<CPL=5,OV>' for an overlay instantiation,
+    '...<CPL=8,TILED>' for the column-tiled form), or None."""
+    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E(?:Lb([01])E)?"
+                  r"(?:Lb([01])E)?", mangled)
     if not m:
         return None
-    return f"{m.group(1)}<CPL={m.group(2)}{',OV' if m.group(3) == '1' else ''}>"
+    tags = "".join(t for t, g in ((",OV", 3), (",TILED", 4))
+                   if m.group(g) == "1")
+    return f"{m.group(1)}<CPL={m.group(2)}{tags}>"
 
 
 def ptxas_by_kernel(report: str):
@@ -349,24 +397,25 @@ def read_sass(lib_path: str):
                           text=True, timeout=300, check=True).stdout
 
 
-def simulate_reads(joined: np.ndarray, n: int, seed: int):
-    """n reads of RDLEN: ~1% mismatches, ~5% with one 1-3 bp indel, half
-    reverse-complemented. Returns (codes (n, RDLEN) uint8, true 0-based
+def simulate_reads(joined: np.ndarray, n: int, seed: int,
+                   rdlen: int = RDLEN):
+    """n reads of rdlen: ~1% mismatches, ~5% with one 1-3 bp indel, half
+    reverse-complemented. Returns (codes (n, rdlen) uint8, true 0-based
     start, indel flag)."""
     rng = np.random.default_rng(seed)
-    starts = rng.integers(0, joined.size - RDLEN - 8, n)
-    seqs = joined[starts[:, None] + np.arange(RDLEN)].copy()
+    starts = rng.integers(0, joined.size - rdlen - 8, n)
+    seqs = joined[starts[:, None] + np.arange(rdlen)].copy()
     indel = rng.random(n) < 0.05
     for i in np.flatnonzero(indel):
-        s, d, p = int(starts[i]), int(rng.integers(1, 4)), \
-            int(rng.integers(20, 80))
+        s, d = int(starts[i]), int(rng.integers(1, 4))
+        p = int(rng.integers(rdlen // 5, rdlen - rdlen // 5))
         if rng.random() < 0.5:       # deletion from the read
             seqs[i] = np.concatenate([joined[s:s + p],
-                                      joined[s + p + d:s + RDLEN + d]])
+                                      joined[s + p + d:s + rdlen + d]])
         else:                        # insertion into the read
             seqs[i] = np.concatenate([joined[s:s + p],
                                       rng.integers(0, 4, d).astype(np.uint8),
-                                      joined[s + p:s + RDLEN - d]])
+                                      joined[s + p:s + rdlen - d]])
     mm = rng.random(seqs.shape) < 0.01
     seqs[mm] = (seqs[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
     rc = rng.random(n) < 0.5
@@ -374,14 +423,118 @@ def simulate_reads(joined: np.ndarray, n: int, seed: int):
     return seqs.astype(np.uint8), starts, indel
 
 
-def make_batches(seqs, first: int, batch: int):
+def simulate_gene_model(codes: np.ndarray, seed: int,
+                        n_tx: int = RNA_TRANSCRIPTS):
+    """Plant a gene model into the genome `codes` (uint8, changed in
+    place): n_tx transcripts of 2-6 exons of 60-300 bp with introns of 60
+    to 50,000 bp (log-uniform, so most are short), half on each strand,
+    the canonical motif written at both ends of every intron (GT..AG on
+    the + strand, CT..AC on the -). Transcripts may overlap; one whose
+    motifs a later transcript overwrote is dropped. Returns the kept
+    transcripts as (strand, [(start, end), ...]) exon lists (0-based,
+    end exclusive)."""
+    rng = np.random.default_rng(seed)
+    txs = []
+    for _ in range(n_tx):
+        ne = int(rng.integers(2, 7))
+        ex_len = rng.integers(60, 301, ne)
+        in_len = np.exp(rng.uniform(np.log(60), np.log(50_000),
+                                    ne - 1)).astype(np.int64)
+        span = int(ex_len.sum() + in_len.sum())
+        s = int(rng.integers(1000, codes.size - span - 1000))
+        exons = []
+        for k in range(ne):
+            exons.append((s, s + int(ex_len[k])))
+            s += int(ex_len[k]) + (int(in_len[k]) if k < ne - 1 else 0)
+        strand = "+" if rng.random() < 0.5 else "-"
+        motif = ([2, 3], [0, 2]) if strand == "+" else ([1, 3], [0, 1])
+        for (_, e), (a, _) in zip(exons, exons[1:]):
+            codes[e:e + 2] = motif[0]
+            codes[a - 2:a] = motif[1]
+        txs.append((strand, exons, motif))
+    return [(st, ex) for st, ex, (dn, ac) in txs
+            if all((codes[e:e + 2] == dn).all() and (codes[a - 2:a] == ac).all()
+                   for (_, e), (a, _) in zip(ex, ex[1:]))]
+
+
+def simulate_rna_reads(codes: np.ndarray, txs, n: int, seed: int):
+    """n RDLEN reads cut from the transcripts' spliced sequences (a
+    transcript and an offset in it uniformly at random), ~1% mismatches,
+    half reverse-complemented. Returns (codes (n, RDLEN) uint8, each
+    read's junctions as {(last base of the left exon, first base of the
+    right one): the shorter of the read's two anchors at it}, joined
+    coordinates; an anchor ends at the read's end or its next junction)."""
+    rng = np.random.default_rng(seed)
+    gidx = [np.concatenate([np.arange(a, e) for a, e in ex])
+            for _, ex in txs]
+    pick = rng.integers(0, len(txs), n)
+    seqs = np.empty((n, RDLEN), np.uint8)
+    truth = []
+    for i in range(n):
+        g = gidx[pick[i]]
+        o = int(rng.integers(0, g.size - RDLEN + 1))
+        gp = g[o:o + RDLEN]
+        seqs[i] = codes[gp]
+        jumps = np.flatnonzero(np.diff(gp) > 1)
+        ends = np.concatenate([[-1], jumps, [RDLEN - 1]])
+        truth.append({(int(gp[k]), int(gp[k + 1])):
+                      int(min(k - ends[t], ends[t + 2] - k))
+                      for t, k in enumerate(jumps)})
+    mm = rng.random(seqs.shape) < 0.01
+    seqs[mm] = (seqs[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
+    rc = rng.random(n) < 0.5
+    seqs[rc] = 3 - seqs[rc, ::-1]
+    return seqs, truth
+
+
+def check_junctions(text: str, truth, n: int, min_anchor: int = 7):
+    """Junction calls from the CIGAR N ops of the primary records against
+    the planted truth, per (read, junction): (recall over the junctions
+    whose shorter anchor is at least `min_anchor` bases — the least a
+    novel canonical junction needs (tp.h); shorter ones are found only
+    through known or published sites —, recall over all, precision, reads
+    aligned, reads with a junction, records with an N)."""
+    seen = np.zeros(n, np.int64)
+    aligned = np.zeros(n, bool)
+    tp = tp_a = fp = n_spliced = 0
+    for ln in text.splitlines():
+        f = ln.split("\t", 6)
+        flag = int(f[1])
+        if flag & 256:
+            continue
+        i = int(f[0][1:])
+        seen[i] += 1
+        if flag & 4:
+            continue
+        aligned[i] = True
+        called = set()
+        p = int(f[3]) - 1
+        for num, op in re.findall(r"(\d+)([MIDNS])", f[5]):
+            if op in "MD":
+                p += int(num)
+            elif op == "N":
+                called.add((p - 1, p + int(num)))
+                p += int(num)
+        n_spliced += bool(called)
+        hit = called & truth[i].keys()
+        tp += len(hit)
+        tp_a += sum(truth[i][j] >= min_anchor for j in hit)
+        fp += len(called) - len(hit)
+    check((seen == 1).all(), "every read needs exactly one primary record")
+    n_true = sum(len(t) for t in truth)
+    n_anch = sum(a >= min_anchor for t in truth for a in t.values())
+    return (tp_a / max(n_anch, 1), tp / max(n_true, 1), tp / max(tp + fp, 1),
+            float(aligned.mean()), sum(bool(t) for t in truth), n_spliced)
+
+
+def make_batches(seqs, first: int, batch: int, pad_to: int = PAD_TO):
     from hisat2_tpu_torch.io.reads import Read, batchify
-    q = np.full(RDLEN, 40, np.int8)
+    q = np.full(seqs.shape[1], 40, np.int8)
     out = []
     for b0 in range(0, seqs.shape[0], batch):
         rows = range(b0, min(b0 + batch, seqs.shape[0]))
         out.append(batchify([Read(f"s{first + i}", seqs[i], q, first + i)
-                             for i in rows], pad_to=PAD_TO))
+                             for i in rows], pad_to=pad_to))
     return out
 
 
@@ -743,15 +896,18 @@ def counted(fn, what, need=("dp_score",)):
 
 
 def sam_card_equals_cpu(run, fmx, items, ref, what, tag,
-                        need=("dp_score",), opts=None):
+                        need=("dp_score",), opts=None, prep=None):
     """SAM of `items` through run(aligner, items, ref) on the card and on
     the CPU path: the bytes must be equal, and the card's run must have
-    launched the kernels of `need`. Returns (card aligner, card text)."""
+    launched the kernels of `need`. `prep(aligner)`, where given, readies
+    each aligner first (known splice sites). Returns (card aligner, card
+    text)."""
     from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
     o = opts or {}
-    cpu_text, _ = run(Aligner(fmx, opts=AlignerOpts(**o), device="cpu"),
-                      items, ref)
-    alx = Aligner(fmx, opts=AlignerOpts(**o), device="cuda")
+    prep = prep or (lambda a: a)
+    cpu_text, _ = run(prep(Aligner(fmx, opts=AlignerOpts(**o),
+                                   device="cpu")), items, ref)
+    alx = prep(Aligner(fmx, opts=AlignerOpts(**o), device="cuda"))
     (text, _), got = counted(lambda: run(alx, items, ref), what, need)
     check(text == cpu_text, f"SAM from the card != CPU path on {what}")
     print(f"[{tag}] SAM bytes on the card == CPU path on {what} "
@@ -1071,6 +1227,29 @@ def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
           flush=True)
     del al
 
+    # -- 250 bp reads: the DP window W = 256 + 2 * 16 = 288 takes the
+    # one-block kernel's overlay instantiation
+    s250, _, _ = simulate_reads(hap[0], 2048, seed=36, rdlen=250)
+    captured_w = []
+
+    def recording_w(*a, **kw):
+        if not captured_w and a[0].is_cuda and kw.get("ov") is not None:
+            captured_w.append([x.clone() for x in a] + [kw["ov"].clone()])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording_w
+    try:
+        sam_card_equals_cpu(run_stream, gfm, make_batches(s250, 0, 2048, 256),
+                            ref, "the graph index, 2048 reads of 250 bp "
+                            "(DP window W = 288)", "graph",
+                            ("dp_score_wide", "dp_score_ov"))
+        from hisat2_tpu_torch.ops import dp_cuda
+        out["wide_ov_launches"] = dp_cuda.launches["dp_score_wide"]
+    finally:
+        tpipe.dp_score = real_dp
+    check(bool(captured_w) and captured_w[0][3].shape[1] == 288,
+          "the 250 bp graph reads passed no W = 288 overlay window")
+    out["captured_wide_ov"] = captured_w[0]
+
     # -- the FM-seeded graph index ------------------------------------------
     alf, _ = card_equals_cpu(run_stream, gfm_fm, small,
                              "the FM-seeded graph index, 2048 reads")
@@ -1095,6 +1274,112 @@ def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
           f"{FMIndex.bundle_bytes(alf.idx) / (1 << 20):.1f} MiB [{card}]",
           flush=True)
     del alf
+    torch.cuda.empty_cache()
+    return out
+
+
+def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
+    """Phase 8 (see the module docstring). Returns the DP kernel's inputs
+    as the RNA step built them, the launches of the RNA streams, and the
+    rates and junction scores."""
+    import torch
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    ref = fm.ref
+    n = RNA_NBATCH * BATCH
+    seqs, truth = simulate_rna_reads(ref.joined, txs, 2 * n + RNA_CHECK,
+                                     seed=41)
+    sites = [(e - 1, a, st) for st, ex in txs
+             for (_, e), (a, _) in zip(ex, ex[1:])]
+    span = [ex[-1][1] - ex[0][0] for _, ex in txs]
+    print(f"[rna] gene model: {len(txs)} transcripts (2-6 exons), "
+          f"{len(sites)} introns of 60-50,000 bp, spans up to {max(span)} "
+          f"bp; {sum(bool(t) for t in truth) / len(truth):.4f} of the reads "
+          f"cross a junction", flush=True)
+
+    def known(al):
+        for left, right, strand in sites:
+            al.ssdb.add_known(left, right, strand)
+        return al
+
+    def card_equals_cpu(fmx, what, prep=None, **opts):
+        return sam_card_equals_cpu(run_stream, fmx, small, ref, what, "rna",
+                                   opts=dict(spliced=True, **opts),
+                                   prep=prep)[1]
+
+    small = make_batches(seqs[2 * n:], 0, RNA_CHECK)
+    ctruth = truth[2 * n:]
+    text = card_equals_cpu(fm, f"{RNA_CHECK} RNA reads (SE stream)")
+    rc, _, pc, _, _, _ = check_junctions(text, ctruth, RNA_CHECK)
+    card_equals_cpu(fm, f"{RNA_CHECK} RNA reads, seed_mode=False, known "
+                    f"sites", known, seed_mode=False)
+    card_equals_cpu(fm, f"{RNA_CHECK} RNA reads, dta=True", dta=True)
+    ttext = card_equals_cpu(fm, f"{RNA_CHECK} RNA reads, tmo=True, known "
+                            f"sites", known, tmo=True)
+    trecs = [f for f in (ln.split("\t") for ln in ttext.splitlines())
+             if not int(f[1]) & 4]
+    check(bool(trecs) and all("N" in f[5] for f in trecs),
+          "tmo=True must report spliced records only, and some")
+    card_equals_cpu(fm_fm, f"{RNA_CHECK} RNA reads on index A (FM seeding)")
+
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured and a[0].is_cuda:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    out = {"launches": 0, "check_recall": rc, "check_precision": pc}
+    for tag, prep, rows in (("known", known, slice(0, n)),
+                            ("novel", None, slice(n, 2 * n))):
+        al = Aligner(fm, opts=AlignerOpts(spliced=True), device="cuda")
+        if prep:
+            prep(al)
+        batches = make_batches(seqs[rows], 0, BATCH)
+        tpipe.dp_score = recording_dp
+        torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            (text, stats), got = counted(
+                lambda: run_stream(al, batches, ref),
+                f"the RNA stream ({tag} sites)")
+            dt = time.perf_counter() - t0
+        finally:
+            tpipe.dp_score = real_dp
+        recall, recall_all, precision, rate, njr, nsp = check_junctions(
+            text, truth[rows], n)
+        out["launches"] += got["dp_score"]
+        out[f"rps_{tag}"] = n / dt
+        out[f"recall_{tag}"], out[f"precision_{tag}"] = recall, precision
+        out[f"recall_all_{tag}"] = recall_all
+        print(f"[rna] {'known sites of every intron' if prep else 'no known sites'}"
+              f": {n} reads in {dt:.3f} s = {n / dt:.1f} reads/s end to end "
+              f"({n / dt / dna_rps:.3f} of the DNA table path's); aligned "
+              f"{rate:.4f}; junction recall {recall:.4f} (anchors of 7 bp "
+              f"or more; {recall_all:.4f} over all), precision "
+              f"{precision:.4f} ({njr} reads cross a junction, {nsp} "
+              f"primary records spliced); novel sites published "
+              f"{len(al.ssdb.novel)}; stats {stats}; launches {got} [{card}]",
+              flush=True)
+        if tag == "novel":
+            check(recall >= 0.90 and precision >= 0.99,
+                  f"junction recall {recall:.4f} / precision {precision:.4f}"
+                  f" below 0.90 / 0.99 without known sites")
+            m = measure_batch(al, temit.submit_se, temit.finish_se,
+                              (batches[0],))
+            out["batch"] = m
+            print(f"[rna] one batch of {BATCH} RNA reads alone: queue the "
+                  f"device step {m['queue_ms']:.1f} ms, {m['launches']} "
+                  f"launches, device busy {m['busy_ms']:.2f} ms "
+                  f"({m['busy_ms'] / m['wall_ms']:.4f} of {m['wall_ms']:.1f} "
+                  f"ms wall) [{card}]", flush=True)
+            if profile:
+                profile_batch(al, temit.submit_se, temit.finish_se,
+                              (batches[0],), "RNA batch of 16384 reads")
+        del al
+    check(bool(captured), "the RNA streams launched no DP")
+    out["captured"] = captured[0]
     torch.cuda.empty_cache()
     return out
 
@@ -1159,55 +1444,68 @@ def main() -> int:
               f"{variant} spills registers: {regs}")
         print(line, flush=True)
 
+    elapsed = {}
+
+    def phase_done(name):
+        elapsed[name] = time.perf_counter() - t_start
+        print(f"[time] {name} done at {elapsed[name]:.1f} s", flush=True)
+    phase_done("card and build")
+
     # -- kernels against their plain versions --------------------------
     sc = Scoring()
     consts = sc.dp_consts()
     sctab = sc.device_tables(dev)
-    max_err = {"dp_score": 0, "dp_score_wide": 0, "dp_score_ov": 0}
+    max_err: dict[str, int] = {}
 
-    def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None):
-        name = kernel_of(ref.shape[1]) if ov is None else "dp_score_ov"
+    def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None, quiet=False):
+        name = variant_key(ref.shape[1], ov is not None)
         got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
         want = dp_fill_plain(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
-        max_err[name] = max(max_err[name], err)
+        max_err[name] = max(max_err.get(name, 0), err)
         check(torch.equal(got, want), f"{name} != plain ({what})")
-        print(f"[kernels] {name} == plain on {what}: C={rd.shape[0]} "
-              f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
+        if not quiet:
+            print(f"[kernels] {name} == plain on {what}: C={rd.shape[0]} "
+                  f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
 
+    # every kernel, without and with an SNV overlay of every kind of
+    # nibble: the test shapes, the SE and rescue shapes, the tiled form at
+    # W + 1 = 2049, 2605 and 8192 (one to four tiles), and every edge window
     edges = [(100 + W, *edge_case_shape(W), W)
-             for W in edge_windows("dp_score") + edge_windows("dp_score_wide")]
+             for W in edge_windows("dp_score") + edge_windows("dp_score_wide")
+             + edge_windows("dp_score_tiled")]
+    n_edges = 0
     for seed, C, L, W in [(0, 24, 60, 92), (1, 24, 60, 92),
                           (2, 8192, 104, 136), (3, 37, 104, 256),
-                          (4, 512, 104, 1104), (5, 19, 104, 2047)] + edges:
+                          (4, 512, 104, 1104), (5, 19, 104, 2047),
+                          (6, 64, 104, 2048), (7, 64, 104, 2604),
+                          (8, 64, 104, 8191), (9, 64, 256, 288),
+                          (10, 64, 104, 1104)] + edges:
         rd, quals, lens, ref = make_dp_case(seed, C, L, W)
         t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
-        pen, scp_cum = dp_inputs(sctab, t[1], t[2])
-        check_dp(t[0], pen.contiguous(), t[2], t[3], scp_cum.contiguous(),
-                 f"random case {seed}")
-        if kernel_of(W) == "dp_score":      # and with an SNV overlay
-            ov = torch.from_numpy(make_dp_ov(seed, rd, ref)).to(dev)
-            check_dp(t[0], pen.contiguous(), t[2], t[3],
-                     scp_cum.contiguous(), f"random case {seed} with an "
-                     f"overlay of every kind of nibble", ov)
-    # the one-block kernel has no overlay instantiation: it must refuse one
-    rd, quals, lens, ref = make_dp_case(4, 16, 104, 1104)
-    t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
-    pen, scp_cum = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
-    try:
-        dp_cuda.dp_score(t[0], pen, t[2], t[3], scp_cum,
-                         ov=torch.zeros_like(t[3]), **consts)
-    except ValueError as e:
-        print(f"[kernels] an overlay at W=1104 is refused: {e}", flush=True)
-    else:
-        check(False, "the one-block kernel took an overlay")
+        pen, scp_cum = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+        ov = torch.from_numpy(make_dp_ov(seed, rd, ref)).to(dev)
+        quiet = seed >= 100
+        check_dp(t[0], pen, t[2], t[3], scp_cum, f"random case {seed}",
+                 quiet=quiet)
+        check_dp(t[0], pen, t[2], t[3], scp_cum, f"random case {seed} with "
+                 f"an overlay of every kind of nibble", ov, quiet=quiet)
+        n_edges += quiet
+    print(f"[kernels] and at {n_edges} edge windows (W + 1 one short of, at "
+          f"and one past each variant's capacity and each tile count up to "
+          f"four): every kernel == plain, without and with an overlay; max "
+          f"abs err {max_err}", flush=True)
+
+    phase_done("kernels")
 
     # -- main path -------------------------------------------------------
     t0 = time.perf_counter()
     grng = np.random.default_rng(20240501)
-    genome = alphabet.decode(grng.integers(0, 4, GENOME_LEN).astype(np.uint8))
+    codes = grng.integers(0, 4, GENOME_LEN).astype(np.uint8)
+    txs = simulate_gene_model(codes, seed=40)     # phase 8's gene model
+    genome = alphabet.decode(codes)
     fm = build_fm_index(reference_from_seqs({"NC_000913.3_synthetic":
                                              genome}))
     t_index = time.perf_counter() - t0
@@ -1270,6 +1568,8 @@ def main() -> int:
     check(text_gpu == text_cpu, "SAM from the card != SAM from the CPU path")
     print(f"[main] SAM bytes on the card == CPU path on 2048 reads "
           f"({len(text_gpu)} bytes)", flush=True)
+
+    phase_done("SE path")
 
     # -- PE main path ----------------------------------------------------
     from hisat2_tpu_torch.align import emit as temit
@@ -1357,6 +1657,42 @@ def main() -> int:
         print(f"[pe] SAM bytes on the card == CPU path on {what} "
               f"({len(text_gpu)} bytes)", flush=True)
 
+    # -X 2500 (the rescue window stays min(maxins, 1000) + L = 1104)
+    sam_card_equals_cpu(run_pe_stream, fm,
+                        make_pair_batches(r1[:512], r2[:512], 0, 512),
+                        fm.ref, "512 pairs at -X 2500", "pe",
+                        need=("dp_score", "dp_score_wide"),
+                        opts=dict(maxins=2500))
+
+    # -- long reads: reads of 2,100 bp give _stage_dp a window of W =
+    # 2104 + 2 * 16 = 2136 (W + 1 > 2048): the column-tiled kernel
+    captured_tiled = []
+
+    def recording_tiled(*a, **kw):
+        if (not captured_tiled and a[0].is_cuda
+                and kernel_of(a[3].shape[1]) == "dp_score_tiled"):
+            captured_tiled.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    long_seqs, long_starts, long_indel = simulate_reads(
+        fm.ref.joined, LONG_N, seed=13, rdlen=LONG_RDLEN)
+    tpipe.dp_score = recording_tiled
+    try:
+        _, long_text = sam_card_equals_cpu(
+            run_stream, fm, make_batches(long_seqs, 0, LONG_N, LONG_PAD),
+            fm.ref, f"{LONG_N} reads of {LONG_RDLEN} bp (DP window W = "
+            f"{LONG_PAD + 32})", "long", need=("dp_score_tiled",))
+        tiled_launches = dict(dp_cuda.launches)
+    finally:
+        tpipe.dp_score = real_dp
+    check(bool(captured_tiled), "the long reads launched no tiled DP")
+    lrate = sum(not int(ln.split("\t")[1]) & 4
+                for ln in long_text.splitlines()) / LONG_N
+    check(lrate >= 0.9, f"only {lrate:.4f} of the long reads aligned")
+    print(f"[long] {lrate:.4f} of {LONG_N} reads of {LONG_RDLEN} bp aligned; "
+          f"launches {tiled_launches}", flush=True)
+
+    phase_done("PE path and long reads")
+
     # -- FM path -----------------------------------------------------------
     m = measure_batch(al, temit.submit_se, temit.finish_se, (batches[0],))
     print(f"[fm] the table index for comparison: one batch of {BATCH} reads "
@@ -1367,8 +1703,15 @@ def main() -> int:
     fmres = fm_phase(fm, seqs, starts, indel, r1, r2, m1_true, pe_indel,
                      card)
 
+    phase_done("FM path")
+
     # -- graph path ----------------------------------------------------------
     gres = graph_phase(fm, al, rps, card, args.profile)
+    phase_done("graph path")
+
+    # -- RNA path --------------------------------------------------------------
+    rres = rna_phase(fm, fmres["var"]["A"], txs, rps, card, args.profile)
+    phase_done("RNA path")
 
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
@@ -1418,7 +1761,13 @@ def main() -> int:
             ("dp_score", fmres["captured"], fmres["launches"],
              "per-read path (Aligner._device_align, index A)"),
             ("dp_score_ov", gres["captured"], gres["launches"],
-             "graph path (SE, PE and FM-seeded graph streams)")):
+             "graph path (SE, PE and FM-seeded graph streams)"),
+            ("dp_score_tiled", captured_tiled[0],
+             tiled_launches["dp_score_tiled"], "SE path, 2,100 bp reads"),
+            ("dp_score_wide_ov", gres["captured_wide_ov"],
+             gres["wide_ov_launches"], "graph SE path, 250 bp reads"),
+            ("dp_score", rres["captured"], rres["launches"],
+             "RNA SE path (streams with and without known sites)")):
         rd, pen, rl, ref, scp_cum = cap[:5]
         ov = cap[5] if len(cap) > 5 else None
         check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
@@ -1428,8 +1777,8 @@ def main() -> int:
                                                 ov=ov, **consts), iters=200,
                        warmup=20)
         plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
-                                                   ov=ov, **consts), iters=5,
-                             warmup=2)
+                                                   ov=ov, **consts), iters=3,
+                             warmup=1)
         rows = int(rl.clamp(0, L).sum())
         bound, t_bytes, t_ops, nbytes, cells = bound_ms(rd, rl, ref, ov)
         if ov is not None:
@@ -1445,7 +1794,8 @@ def main() -> int:
             name=name, route="cuda",
             source="hisat2_tpu_torch/csrc/dp_score.cu",
             replaces="hisat2_tpu/ops/dp_pallas.py:113", shape=f"C={C} "
-            f"L={L} W={W}", launches=cnt, max_abs_err=max_err[name], ms=ms,
+            f"L={L} W={W}", launches=cnt, max_abs_err=max_err.get(name, 0),
+            ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None))
@@ -1468,8 +1818,19 @@ def main() -> int:
     print(f"[report] graph index end to end: SE {gres['se_rps']:.1f} reads/s "
           f"({gres['se_rps'] / rps:.3f} of the linear table path's), PE "
           f"{gres['pe_pps']:.1f} pairs/s ({gres['pe_pps'] / pps:.3f}), "
-          f"FM-seeded SE {gres['fm_rps']:.1f} reads/s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
+          f"FM-seeded SE {gres['fm_rps']:.1f} reads/s [{card}]", flush=True)
+    rb = rres["batch"]
+    print(f"[report] RNA end to end: {rres['rps_known']:.1f} reads/s with "
+          f"known sites, {rres['rps_novel']:.1f} without "
+          f"({rres['rps_known'] / rps:.3f} and {rres['rps_novel'] / rps:.3f} "
+          f"of the DNA table path's); junction recall / precision "
+          f"{rres['recall_novel']:.4f} / {rres['precision_novel']:.4f} "
+          f"without known sites, {rres['recall_known']:.4f} / "
+          f"{rres['precision_known']:.4f} with them; one RNA batch alone "
+          f"{rb['launches']} launches, device busy {rb['busy_ms']:.2f} ms "
+          f"({rb['busy_ms'] / rb['wall_ms']:.4f} of {rb['wall_ms']:.1f} ms); "
+          f"whole run {time.perf_counter() - t_start:.1f} s [{card}]",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,14 @@ drop to the per-read ReadResult ladder. Output order is read order.
 With seed_mode=False the batch takes the unpacked path instead
 (_align_and_emit_legacy): the aligner's per-read device path, a NumPy
 selection of the reportable records and the native column formatter
-(format_se_batch2), the same ladder for the odd reads.
+(format_se_batch2), the same ladder for the odd reads. So does --tmo.
+
+In RNA mode (AlignerOpts.spliced) the packed path's host half is
+_finish_fastpack_rna: the splice rescue runs first and the formatting
+after, so contiguous winners rejoin the column formatter and
+single-junction winners take a vectorized spliced finish; the legacy
+path runs the same rescue and ranks spliced candidates in its ladder.
+Spliced paired-end alignment is not ported (paired.refuse_spliced).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from . import paired as _paired
 from .paired import PEPACK_MM, PEPACK_REP
 from .pipeline import (FASTPACK_MM, FASTPACK_REP, NEG_INF, Aligner,
                        ReadResult, _dedup_alns, _filter_reason,
-                       _stage_primary_fin)
+                       _stage_primary_fin, tmo_filter_result)
 
 
 _DEC_ASCII = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -43,6 +50,28 @@ for _a, _b in ((65, 84), (67, 71), (71, 67), (84, 65)):  # A<->T C<->G
 INT32_MIN = np.int32(-(1 << 31))
 MAX_FAST_MM = 8
 NEG_INF_HALF = -(1 << 29)
+
+
+class _MapqCache:
+    """Memoized MAPQ v2: scores are small ints, so per-batch distinct
+    (best, secbest, len, exhausted) tuples number in the dozens."""
+
+    def __init__(self, scoring):
+        self.sc = scoring
+        self.cache: dict[tuple, int] = {}
+
+    def get(self, best: int, secbest, rdlen, exhausted: bool,
+            perfect: int | None = None, minsc: int | None = None) -> int:
+        if perfect is None:
+            perfect = self.sc.perfect_score(rdlen)
+            minsc = self.sc.min_score(rdlen)
+        key = (best, secbest, perfect, minsc, exhausted)
+        v = self.cache.get(key)
+        if v is None:
+            v = _mapq.mapq_v2(best, secbest, perfect, minsc,
+                              local=self.sc.local, exhausted=exhausted)
+            self.cache[key] = v
+        return v
 
 
 def align_and_emit(al: Aligner, batch: ReadBatch, writer) -> dict:
@@ -56,8 +85,8 @@ def submit_se(al: Aligner, batch: ReadBatch):
     finishing (align_and_emit_stream). With seed_mode=False the whole
     batch is aligned at finish time, on the per-read path; so is a run
     with Zs:Z tags on a graph index (the tags come from the per-read
-    finalizers)."""
-    if not al.opts.seed_mode or _zs_run(al):
+    finalizers), and a --tmo run (contiguous records never report)."""
+    if not al.opts.seed_mode or al.opts.tmo or _zs_run(al):
         return ("legacy", batch)
     return ("fast", batch, *al.device_align_fast(batch))
 
@@ -76,7 +105,8 @@ def finish_se(al: Aligner, handle, writer) -> dict:
         ready.synchronize()
     al.metrics.t_fetch += time.perf_counter() - t0
     st = _finish_fastpack(al, batch, fp.numpy(), merged_dev, writer,
-                          {k: v.numpy() for k, v in extras.items()})
+                          {k: v.numpy() if torch.is_tensor(v) else v
+                           for k, v in extras.items()})
     al.metrics.t_host += time.perf_counter() - t0
     return st
 
@@ -91,7 +121,16 @@ def align_and_emit_stream(al: Aligner, batches, writer,
     The finish half (native selection + SAM formatting, slow-read ladder)
     runs in `workers` threads: the native formatter releases the GIL, so
     several batches finish concurrently while the main thread keeps
-    submitting. depth = max in-flight batches."""
+    submitting. depth = max in-flight batches.
+
+    In RNA mode the splice rescue adds to the novel-junction table, so
+    finishes run serially on this thread (later batches see earlier
+    discoveries in order), and at most one batch is in flight: each submit
+    bakes the site table into its step, and a deeper queue leaves every
+    batch's step lanes stale."""
+    if al.opts.spliced:
+        workers = 0
+        depth = min(depth, 1)
     return _stream(al, ((b,) for b in batches), writer, submit_se,
                    finish_se, on_batch, depth, workers)
 
@@ -317,12 +356,16 @@ def _finish_slow_and_stitch(al, batch, ex, merged_dev, writer, fast,
 
 
 def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
-                 stats) -> dict:
+                 stats, spl=None) -> dict:
     """The per-read ladder for the rows `slow` of a host candidate dict:
-    rank each read's candidates, finalize the ungapped ones in one
-    vectorized pass and the gapped ones by traceback, dedup, format.
-    Returns {row: SAM lines} and adds the rows to `stats`."""
+    rank each read's candidates (with `spl`, its spliced candidates too),
+    finalize the ungapped ones in one vectorized pass, the gapped ones by
+    traceback and the spliced ones by _finalize_spliced, dedup, format.
+    Under --tmo only spliced candidates rank, and the survivors pass
+    tmo_filter_result. Returns {row: SAM lines} and adds the rows to
+    `stats`."""
     sc = al.scoring
+    tmo = al.opts.tmo
     slow_out: dict[int, list] = {}
     plans: dict[int, list] = {}
     ug_items: list[tuple[int, int, bool]] = []
@@ -330,12 +373,26 @@ def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
         i = int(i)
         if filtered[i]:
             continue
-        entries = [(s, p, f, g) for s, p, f, g, _, _
+        entries = [("reg", s, p, f, g) for s, p, f, g, _, _
                    in al._ranked_candidates(merged, i, int(min_scs[i]))]
+        if spl and i in spl:
+            entries += [("spl", c["score"], c["posA"], c["fw"], c)
+                        for c in spl[i] if c["score"] >= min_scs[i]]
+            # ties: baked known-site junctions beat contiguous alignments
+            # (runtime novel sites do not — splice_db.is_baked)
+            entries.sort(key=lambda e: (
+                -e[1], 0 if (e[0] == "spl" and e[4]["canon"] == 1
+                             and al.ssdb.is_baked(
+                                 e[4]["posA"] + e[4]["j"] - 1,
+                                 e[4]["posB"] + e[4]["j"])) else 1))
+        if tmo:
+            # contiguous candidates never pass _tmo_pass: drop them before
+            # the -k cut so they do not evict a reportable spliced one
+            entries = [e for e in entries if e[0] == "spl"]
         entries = entries[: al.opts.khits + 1]
         plans[i] = entries
-        for s, p, f, g in entries:
-            if not g:
+        for kind, s, p, f, g in entries:
+            if kind == "reg" and not g:
                 ug_items.append((i, int(p), bool(f)))
     lookup: dict[tuple, object] = {}
     if ug_items:
@@ -354,11 +411,13 @@ def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
             res = ReadResult()
             entries = plans.get(i, [])
             if entries:
-                res.best = entries[0][0]
+                res.best = entries[0][1]
                 if len(entries) > 1:
-                    res.secbest = entries[1][0]
-                for s, p, f, g in entries:
-                    if g:
+                    res.secbest = entries[1][1]
+                for kind, s, p, f, g in entries:
+                    if kind == "spl":
+                        a = al._finalize_spliced(i, batch, g, int(lens[i]))
+                    elif g:
                         a = al._finalize(i, batch, s, p, f, True,
                                          int(lens[i]))
                     else:
@@ -369,6 +428,8 @@ def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
                     _dedup_alns(res, al.opts.khits)
                 else:
                     res = ReadResult()
+                if tmo:
+                    res = tmo_filter_result(al, res)
         lines = _format_slow(al, batch, i, res, sc)
         if not res.aligned:
             stats["unal"] += 1
@@ -394,11 +455,454 @@ def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
            & (np.arange(L)[None, :] < lens[:, None])).sum(axis=1)
     filtered = (lens == 0) | (nNs > sc.n_ceil.I + sc.n_ceil.S * lens)
     KFB = (fp.shape[1] - 4) // FASTPACK_REP
+    if al.opts.spliced:
+        return _finish_fastpack_rna(al, batch, fp, merged_dev, writer, ex,
+                                    lens, L, min_scs, filtered, KFB)
     fast, fbuf, read_end, stats, nvalid = _native_fast_se(
         al, batch, fp, ex, KFB, lens, L)
     return _finish_slow_and_stitch(
         al, batch, ex, merged_dev, writer, fast, filtered, nvalid, min_scs,
         lens, fbuf, read_end, stats)
+
+
+def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
+                         merged_dev, writer, ex: dict | None, lens, L: int,
+                         min_scs, filtered, KFB: int) -> dict:
+    """The RNA-mode host half of the packed SE path (the JAX package's
+    non-native tail of _finish_fastpack): unpack the fastpack's report
+    lanes, hold back the reads whose score can hide a junction, run the
+    splice rescue on them first — the step's pass-1 lanes, then one
+    cleanup for the rows the step missed and the sites published since —
+    and format after: contiguous winners rejoin the column formatter
+    (_format_records3), single-junction winners take the vectorized
+    spliced finish (_spliced_fin_rows + _format_records), the rest the
+    per-read finalization. Output order is read order."""
+    B = len(batch)
+    o = al.opts
+    sc = al.scoring
+    khits = o.khits
+    # tiered multi-report buckets (_stage_fastpack MB extras): tier t
+    # carries a slice of reports >= KFB for reads with enough placements,
+    # scattered to full-B lanes here
+    tier_rows: list = []
+    tier_reps: list = []
+    tier_has: list = []
+    k_tier: dict[int, tuple] = {}        # report k -> (tier, col)
+    KF = KFB
+    if ex is not None:
+        t = 0
+        while f"smrep{t}" in ex:
+            rows_t = ex[f"smrows{t}"]
+            rep_t = ex[f"smrep{t}"].reshape(rows_t.size, -1, FASTPACK_REP)
+            has_t = np.zeros(B, bool)
+            has_t[rows_t[rows_t >= 0]] = True
+            tier_rows.append(rows_t)
+            tier_reps.append(rep_t)
+            tier_has.append(has_t)
+            for c in range(rep_t.shape[1]):
+                k_tier[KF + c] = (t, c)
+            KF += rep_t.shape[1]
+            t += 1
+    nvalid = fp[:, 0].astype(np.int64)
+    best = fp[:, 1].astype(np.int64)
+    secb = fp[:, 2].astype(np.int64)
+    flags = fp[:, 3].astype(np.int64)
+    has_sec = secb != -32768
+
+    def rep(k):
+        if k < KFB:
+            b0 = 4 + FASTPACK_REP * k
+            lanes = fp[:, b0:b0 + FASTPACK_REP].astype(np.int64)
+        else:
+            ti, c = k_tier[k]
+            rows_t, rep_t = tier_rows[ti], tier_reps[ti]
+            bokt = rows_t >= 0
+            lanes = np.zeros((B, FASTPACK_REP), np.int64)
+            lanes[rows_t[bokt]] = rep_t[bokt, c].astype(np.int64)
+        lo = lanes[:, 0].astype(np.uint16).astype(np.uint32)
+        hi = lanes[:, 1].astype(np.uint16).astype(np.uint32)
+        return dict(
+            pos=(lo | (hi << 16)).astype(np.int64),
+            c5=lanes[:, 2],
+            c3=lanes[:, 3],
+            nmm=lanes[:, 4],
+            nmm_all=lanes[:, 5],
+            score=lanes[:, 6],
+            mm=lanes[:, 7:7 + FASTPACK_MM],
+            fw=(flags >> (2 * k)) & 1 > 0,
+            gapped=(flags >> (2 * k + 1)) & 1 > 0)
+    reps = [rep(k) for k in range(KF)]
+
+    aligned = ~filtered & (nvalid >= 1)
+    # unaligned/filtered reads emit exactly one flag-4 record — the native
+    # formatter handles them (rname_idx -1; YF code in the mapq column), so
+    # they stay off the per-read Python path entirely
+    unal = ~aligned
+    nrep = np.minimum(nvalid, khits)
+    fast = aligned & (nrep <= KF)
+    if al.opts.omit_sec_seq:
+        fast &= nrep <= 1          # secondary records go per-read
+    ref = al.fm.ref
+    okfs = []
+    for k in range(KF):
+        r = reps[k]
+        astart = r["pos"] + r["c5"]
+        span = lens - r["c5"] - r["c3"]
+        f = np.searchsorted(ref.frag_joined, astart, side="right") - 1
+        okf = (f >= 0) & (span > 0)
+        fc = np.clip(f, 0, len(ref.frag_joined) - 1)
+        okf &= astart + span <= ref.frag_joined[fc] + ref.frag_len[fc]
+        okf &= ~r["gapped"] & (r["nmm_all"] <= FASTPACK_MM)
+        r["fc"], r["astart"] = fc, astart
+        if k >= KFB:
+            okf &= tier_has[k_tier[k][0]]
+        okfs.append(okf)
+        fast &= (nrep <= k) | okf
+    fastble = fast.copy()     # native eligibility, before the RNA gate
+    fast |= unal
+    # splice-rescue trigger (host source of truth; the device ships
+    # grids for its own prediction of this set): imperfect beyond the
+    # min-anchor clip margin, or a known junction inside the primary
+    # span. Unfiltered unaligned reads may hide junction-only
+    # placements in their sub-threshold grids — they stay slow too.
+    perfect = (sc.match_bonus * lens).astype(np.int64)
+    margin = al._spl_margin(batch)
+    p0 = reps[0]["pos"]
+    trig = aligned & (best < perfect - margin)
+    if len(al.ssdb):
+        kl, _kr = al.ssdb.lefts_rights()
+        kr_sorted, _klr = al.ssdb.rights_sorted()
+        trig |= aligned & (
+            (np.searchsorted(kl, p0 + lens - 1)
+             > np.searchsorted(kl, p0 + 1))
+            | (np.searchsorted(kr_sorted, p0 + lens - 1)
+               > np.searchsorted(kr_sorted, p0 + 1)))
+    fast &= ~(trig | (unal & ~filtered))
+
+    mqc = _MapqCache(sc)
+    stats = dict(reads=B, unal=0, uniq=0, multi=0)
+
+    # slow rows' merged grids normally ship with the fastpack (device
+    # slow-row prediction, _stage_align_packed SB); any rows the device
+    # missed fall back to a gather, dispatched BEFORE formatting fast
+    # reads so its dispatch+transfer latency hides under the host work
+    slow = np.flatnonzero(~fast)
+    # junction reads often have NO contiguous candidate above min score —
+    # their sub-threshold grids still seed the diagonal pairs
+    grows = slow[~filtered[slow]]
+    srows_h = smg_h = None
+    mg_fut = None
+    if ex is not None and "srows" in ex:
+        srows_h = ex["srows"]
+        smg_h = _unpack_smerged(ex["smerged"])
+        miss = grows[~np.isin(grows, srows_h)]
+        mg_fut = (al.gather_merged_async(merged_dev, miss)
+                  if miss.size else None)
+        grows = miss
+    else:
+        mg_fut = al.gather_merged_async(merged_dev, grows)
+
+    def fmt_fast(fastm):
+        fbuf = b""
+        read_end = np.zeros(B, np.int64)
+        frows = np.flatnonzero(fastm)
+        if frows.size:
+            nr = np.where(aligned[frows], nrep[frows], 1)
+            rec_read = np.repeat(frows, nr)
+            rec_lidx = np.repeat(np.arange(frows.size), nr)
+            rec_k = np.arange(rec_read.size) - np.repeat(
+                np.concatenate([[0], np.cumsum(nr)[:-1]]), nr)
+            # stacked (KF, B) field arrays -> per-record select by rec_k
+            stk = {f: np.stack([r[f] for r in reps])
+                   for f in ("pos", "c5", "c3", "nmm", "nmm_all", "score",
+                             "fw", "fc", "astart")}
+            take = lambda fld: stk[fld][rec_k, rec_read]
+            pos = take("pos")
+            c5 = take("c5").astype(np.int32)
+            c3 = take("c3").astype(np.int32)
+            nmm = take("nmm").astype(np.int32)
+            cnt = take("nmm_all")
+            fw = take("fw")
+            score = take("score").astype(np.int32)
+            fc_r = take("fc")
+            astart_r = take("astart")
+            mid = (lens[rec_read] - c5 - c3).astype(np.int32)
+            tidx = ref.frag_tidx[fc_r].astype(np.int32)
+            toff = ref.frag_toff[fc_r] + astart_r - ref.frag_joined[fc_r]
+            flag = (np.where(fw, 0, 16) | np.where(rec_k > 0, 256, 0)
+                    ).astype(np.int32)
+            nh = np.repeat(nr, nr).astype(np.int32)
+            # MAPQ (reference 60 fast path; table only on equal second-best)
+            mapq_read = np.full(frows.size, 60, np.int32)
+            need_tab = (has_sec & (secb == best) & aligned)[frows]
+            for j in np.flatnonzero(need_tab):
+                i = frows[j]
+                mapq_read[j] = mqc.get(int(best[i]), int(secb[i]),
+                                       int(lens[i]), False)
+            mapq = np.where(rec_k == 0, mapq_read[rec_lidx], 255).astype(np.int32)
+            zs = np.where(has_sec[rec_read], secb[rec_read],
+                          np.int64(INT32_MIN)).astype(np.int32)
+            ur = unal[rec_read]
+            if ur.any():
+                # flag-4 records: rname -1, pos1 0, YF code rides the mapq col
+                tidx = np.where(ur, -1, tidx).astype(np.int32)
+                toff = np.where(ur, -1, toff)
+                flag = np.where(ur, 4, flag).astype(np.int32)
+                yf_code = np.where(lens == 0, 2, np.where(filtered, 1, 0))
+                if (lens == 0).any() and batch.reads:
+                    qcf = np.fromiter(
+                        (not getattr(r, "qc_ok", True) for r in batch.reads),
+                        bool, B)
+                    yf_code = np.where(qcf & (lens == 0), 3, yf_code)
+                mapq = np.where(ur, yf_code[rec_read], mapq).astype(np.int32)
+                cnt = np.where(ur, 0, cnt)
+
+            mmstk = np.stack([r["mm"] for r in reps])      # (KF, B, MM)
+            mmpk = mmstk[rec_k, rec_read]
+            cnt = cnt.astype(np.int32)
+
+            fbuf, rec_ends = _format_records3(
+                al, batch, frows, rec_read, flag, tidx,
+                toff, mapq, c5, mid, c3, score, nmm, zs, nh,
+                mmpk.astype(np.int16), cnt)
+            last_rec = np.cumsum(nr) - 1
+            read_end[frows] = rec_ends[last_rec]
+            fal = aligned[frows]
+            stats["uniq"] += int((fal & (nvalid[frows] == 1)).sum())
+            stats["multi"] += int((fal & (nvalid[frows] >= 2)).sum())
+            stats["unal"] += int((~fal).sum())
+
+        return fbuf, read_end
+
+    def build_merged():
+        K2 = (smg_h.shape[1] if smg_h is not None
+              else merged_dev.shape[1])
+        msc = np.full((B, K2), NEG_INF, np.int64)
+        mpos = np.zeros((B, K2), np.int64)
+        mfw = np.zeros((B, K2), bool)
+        mgap = np.zeros((B, K2), bool)
+
+        def fill(rows, g):
+            msc[rows] = g[:, :, 0]
+            mpos[rows] = g[:, :, 1]
+            mfw[rows] = (g[:, :, 2] & 1) > 0
+            mgap[rows] = (g[:, :, 2] & 2) > 0
+        if smg_h is not None:
+            sv = srows_h >= 0
+            if sv.any():
+                fill(srows_h[sv], smg_h[sv])
+        if mg_fut is not None:
+            mg = mg_fut()
+            if mg.size:
+                fill(grows, mg)
+        return dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
+
+    slow_out: dict[int, list] = {}
+    # RNA: rescue FIRST, format after — contiguous winners rejoin
+    # the native fast path instead of the per-read ladder, and
+    # spliced winners format through the vectorized column path.
+    merged = build_merged()
+    allowed = np.zeros(B, bool)
+    allowed[slow] = True
+    allowed &= ~filtered
+    n_ss0 = len(al.ssdb)
+    ssv0 = al.ssdb.version()
+    # fused pass-1 lanes from the submit dispatch (spliced_stage):
+    # legacy rescue runs only for rows the device missed
+    dev_lanes = None
+    if ex is not None and "splanes16" in ex:
+        dev_lanes = (ex["splanes32"], ex["splanes16"],
+                     ex["spl_cov"], int(ex["spl_nsel"]),
+                     int(ex["spl_ssv"]),
+                     ex.get("splanes32b"), ex.get("splanes16b"),
+                     int(ex.get("spl_nsel2", 0)))
+    resid = al._splice_rescue(batch, merged, rows=allowed,
+                              dev_lanes=dev_lanes, defer_resid=True)
+    cleanup = resid if resid is not None else np.zeros(B, bool)
+    perfect_v = (al.scoring.match_bonus * lens).astype(np.int64)
+    prev_n, prev_v = n_ss0, ssv0
+    for _round in range(2):
+        newp_mask = np.zeros(B, bool)
+        newp = np.zeros((0, 2), np.int64)
+        if len(al.ssdb) != prev_n:
+            # newly published junctions unlock short-anchor reads
+            # (reference cross-thread splice-site sharing, P5): rows
+            # not yet rescued whose primary span now contains a known
+            # site join the pool; already-rescued rows re-run only
+            # where a new site can add a lane. All of it folds into
+            # ONE cleanup rescue together with the rows the fused
+            # dispatch missed (resid).
+            cand = np.flatnonzero(~allowed & aligned)
+            demoted = np.zeros(0, np.int64)
+            if cand.size:
+                kl, _kr2 = al.ssdb.lefts_rights()
+                kr_sorted, _klr2 = al.ssdb.rights_sorted()
+                p0f = reps[0]["pos"][cand]
+                s_l = p0f + 1
+                s_r = p0f + lens[cand] - 1
+                hit = ((np.searchsorted(kl, s_r)
+                        > np.searchsorted(kl, s_l))
+                       | (np.searchsorted(kr_sorted, s_r)
+                          > np.searchsorted(kr_sorted, s_l)))
+                demoted = cand[hit]
+            if demoted.size:
+                all_shipped = (srows_h is not None
+                               and srows_h.size >= B
+                               and (srows_h >= 0).all())
+                if not all_shipped and merged_dev is not None:
+                    mg2 = al.gather_merged_async(merged_dev,
+                                                 demoted)()
+                    merged["score"][demoted] = mg2[:, :, 0]
+                    merged["pos"][demoted] = mg2[:, :, 1]
+                    merged["fw"][demoted] = (mg2[:, :, 2] & 1) > 0
+                    merged["gapped"][demoted] = (mg2[:, :, 2]
+                                                 & 2) > 0
+                # all-B grid ship (RNA SB=B): merged already holds
+                # every row's grid — no gather needed
+                allowed[demoted] = True
+            newp = al.ssdb.added_since(prev_v)
+            if newp.size:
+                aff = allowed & al._spl_affected(merged, lens, newp)
+                # previously-TRIGGERED affected rows only need the
+                # new-site-implied lanes (precision host repair);
+                # affected rows that never triggered (perfect score,
+                # site newly in span) need full enumeration
+                prevtrig = merged["score"][:, 0] < perfect_v
+                newp_mask = aff & prevtrig & ~cleanup
+                cleanup = cleanup | (aff & ~prevtrig)
+            if demoted.size:
+                cleanup[demoted] = True
+                newp_mask[demoted] = False
+        prev_n, prev_v = len(al.ssdb), al.ssdb.version()
+        if not (cleanup.any() or newp_mask.any()):
+            break
+        if newp_mask.any():
+            al._newp_rescue(batch, merged, newp_mask, newp)
+        if cleanup.any():
+            al._splice_rescue(batch, merged, rows=cleanup,
+                              scan_covered=dev_lanes is not None)
+        cleanup = np.zeros(B, bool)
+    # ---- spliced-winner selection (columns) ----
+    spl_map = merged.get("splice", {})
+    swin = np.zeros(B, bool)       # spliced candidate wins selection
+    svec = np.zeros(B, bool)       # eligible for vectorized finish
+    vf: dict[int, dict] = {}
+    msc0 = merged["score"][:, 0]
+    for i, cands in spl_map.items():
+        if not allowed[i]:
+            continue
+        c0 = cands[0]
+        if not (not aligned[i] or c0["score"] > msc0[i]
+                or (c0["score"] == msc0[i] and c0["canon"] == 1
+                    and al.ssdb.is_baked(c0["posA"] + c0["j"] - 1,
+                                         c0["posB"] + c0["j"]))):
+            continue
+        swin[i] = True
+        if (len(cands) == 1 and "segs" not in c0
+                and c0["score"] >= min_scs[i]):
+            svec[i] = True
+            vf[i] = c0
+    # contiguous winners (and unaligned leftovers) rejoin the native
+    # path; spliced winners + non-native-eligible rows handled below
+    fast = (fastble | unal) & ~swin
+    vec_done = np.zeros(B, bool)
+    if svec.any():
+        vr = np.flatnonzero(svec)
+        c0s = [vf[int(i)] for i in vr]
+        vA = np.asarray([c["posA"] for c in c0s], np.int64)
+        vB = np.asarray([c["posB"] for c in c0s], np.int64)
+        vJ = np.asarray([c["j"] for c in c0s], np.int64)
+        vF = np.asarray([c["fw"] for c in c0s], bool)
+        vStr = np.asarray([c["strand"] for c in c0s])
+        vSc = np.asarray([c["score"] for c in c0s], np.int32)
+        fin2 = al._spliced_fin_rows(batch, vr, vA, vB, vJ, vF,
+                                    vStr, lens[vr])
+        okm = fin2["ok"].copy()
+        # every contiguous placement must be redundant with the
+        # spliced span (reference RedundantAlns start/end dedup,
+        # pipeline._dedup_alns); rows keeping a real secondary fall
+        # to the per-read ladder (genuinely multimapped junction
+        # reads), as do rows with more placements than rep slots
+        spl_start = vA + fin2["c5"]
+        spl_end = vB + fin2["c5"] + fin2["mid"]
+        nsurv = np.zeros(vr.size, np.int64)
+        for k in range(KF):
+            r = reps[k]
+            in_rep = nrep[vr] > k
+            st_k = r["astart"][vr]
+            en_k = st_k + (lens[vr] - r["c5"][vr] - r["c3"][vr])
+            same = ((r["fw"][vr] == vF) & ~r["gapped"][vr]
+                    & ((st_k == spl_start) | (en_k == spl_end)))
+            nsurv += (in_rep & ~same).astype(np.int64)
+        okm &= (nsurv == 0) & (nrep[vr] <= KF)
+        if okm.any():
+            sel = np.flatnonzero(okm)
+            elig = vr[sel]
+            ntrip = np.diff(fin2["mm_off"])
+            keep3 = np.repeat(okm, ntrip)
+            mm_off2 = np.zeros(sel.size + 1, np.int64)
+            np.cumsum(ntrip[sel], out=mm_off2[1:])
+            flag2 = np.where(vF[sel], 0, 16).astype(np.int32)
+            ones = np.ones(sel.size, np.int32)
+            sbuf, sends = _format_records(
+                al, batch, elig, elig, flag2,
+                fin2["tidx"][sel], fin2["toff"][sel],
+                60 * ones, fin2["c5"][sel], fin2["mid"][sel],
+                fin2["c3"][sel], vSc[sel], fin2["nm"][sel],
+                np.full(sel.size, INT32_MIN, np.int32), ones,
+                fin2["mm_cols"][keep3], fin2["mm_ref"][keep3],
+                mm_off2, m1=fin2["m1"][sel],
+                gapn=fin2["gap"][sel], xs=fin2["xs"][sel])
+            stext = sbuf.decode("ascii")
+            prev = 0
+            for kk, i in enumerate(elig):
+                slow_out[int(i)] = [stext[prev:int(sends[kk])]]
+                prev = int(sends[kk])
+            vec_done[elig] = True
+            stats["uniq"] += int(elig.size)
+    # ---- per-read stragglers ----
+    pr = np.flatnonzero(~fast & ~vec_done)
+    if pr.size:
+        res_map = al._finalize_results(batch, merged, only_rows=pr)
+        for i in pr:
+            i = int(i)
+            res = res_map.get(i)
+            if res is None:
+                res = ReadResult(filtered=_filter_reason(batch, i,
+                                                         lens))
+            lines = _format_slow(al, batch, i, res, sc)
+            if not res.aligned:
+                stats["unal"] += 1
+            elif len(res.alns) > 1 or (res.secbest is not None
+                                       and res.secbest >= min_scs[i]):
+                stats["multi"] += 1
+            else:
+                stats["uniq"] += 1
+            slow_out[i] = lines
+    fbuf, read_end = fmt_fast(fast)
+    w = writer.out.write
+    if not slow_out:
+        if fbuf:
+            w(fbuf.decode("ascii"))
+        return stats
+    text = fbuf.decode("ascii") if fbuf else ""
+    last_end = np.maximum.accumulate(np.where(fast, read_end, 0))
+    prev_end = 0
+    for i in sorted(slow_out):
+        if text and i > 0:
+            end = int(last_end[i - 1])
+            if end > prev_end:
+                w(text[prev_end:end])
+                prev_end = end
+        for ln in slow_out[i]:
+            w(ln)
+        if text and read_end[i] > 0:
+            # demoted read (RNA second pass): its already-formatted native
+            # record is replaced by the slow lines — skip its bytes
+            prev_end = max(prev_end, int(read_end[i]))
+    if text and prev_end < len(text):
+        w(text[prev_end:])
+    return stats
 
 
 def _refname_cache(al):
@@ -466,6 +970,11 @@ def _align_and_emit_legacy(al: Aligner, batch: ReadBatch, writer) -> dict:
             al._up(merged["pos"][:, 0].astype(np.int32)),
             al._up(merged["fw"][:, 0], torch.bool), B
         ).cpu().numpy()[:, None, :]
+    if al.opts.spliced:
+        n_ss = len(al.ssdb)
+        al._splice_rescue(batch, merged)
+        if len(al.ssdb) != n_ss:
+            al._splice_rescue(batch, merged)
 
     sc = al.scoring
     lens = batch.lens.astype(np.int64)
@@ -518,8 +1027,13 @@ def _align_and_emit_legacy(al: Aligner, batch: ReadBatch, writer) -> dict:
     fast &= ~(in_rep & (F_nmm_all > MAX_FAST_MM)).any(axis=1)
     if _zs_run(al):
         fast[:] = False            # Zs tags come from the per-read path
+    if al.opts.tmo:
+        fast[:] = False            # --tmo: contiguous records never report
     if al.opts.omit_sec_seq:
         fast &= nrep <= 1          # secondary records go per-read
+    spl = merged.get("splice", {})
+    if spl:
+        fast[np.fromiter(spl.keys(), dtype=np.int64)] = False
 
     # fragment containment of every reported record
     ref = al.fm.ref
@@ -589,7 +1103,7 @@ def _align_and_emit_legacy(al: Aligner, batch: ReadBatch, writer) -> dict:
         stats["multi"] += int((nvalid[frows] >= 2).sum())
 
     slow_out = _slow_ladder(al, batch, merged, np.flatnonzero(~fast),
-                            filtered, min_scs, lens, stats)
+                            filtered, min_scs, lens, stats, spl)
     _write_in_order(writer, fbuf, fast, read_end, slow_out)
     return stats
 
@@ -622,10 +1136,12 @@ def _seq_orientations(raw, quals, lens):
 
 
 def _format_records(al, batch, frows, rec_read, flag, tidx, toff, mapq,
-                    c5, mid, c3, score, nmm, zs, nh, mm_cols, mm_ref, mm_off):
+                    c5, mid, c3, score, nmm, zs, nh, mm_cols, mm_ref, mm_off,
+                    m1=None, gapn=None, xs=None):
     """Column arrays -> native formatter (format_se_batch2). frows: fast
     read indices (name/seq data is per read); rec_*: per-record arrays
-    with read indices. Returns (SAM bytes, end offset of every record)."""
+    with read indices; m1/gapn/xs: spliced-record columns (one intron and
+    the XS:A strand). Returns (SAM bytes, end offset of every record)."""
     Nf = frows.size
     lens = batch.lens.astype(np.int64)[frows]
     name_buf, name_off, name_lens = _name_buf(
@@ -644,6 +1160,8 @@ def _format_records(al, batch, frows, rec_read, flag, tidx, toff, mapq,
                + 2 * lens[read_of] + 12 * np.diff(mm_off))
     cap = int(per_rec.sum()) + 1024
     z = np.zeros(nrec, np.int32)
+    m1, gapn, xs = (z if a is None else np.ascontiguousarray(
+        a.astype(np.int32)) for a in (m1, gapn, xs))
     out = ctypes.create_string_buffer(cap)
     ends = np.zeros(nrec, np.int64)
     total = samfmt_lib().format_se_batch2(
@@ -654,9 +1172,57 @@ def _format_records(al, batch, frows, rec_read, flag, tidx, toff, mapq,
         name_buf, name_off, sf, qf, sr, qr, seq_off,
         np.ascontiguousarray(mm_cols), mm_ref, mm_off,
         np.ascontiguousarray(rn_buf), rn_off,
-        out, np.int64(cap), ends, z, z, z)
+        out, np.int64(cap), ends, m1, gapn, xs)
     if total < 0:
         raise RuntimeError("format_se_batch2: SAM buffer overflow")
+    return out.raw[:total], ends
+
+
+def _format_records3(al, batch, frows, rec_read, flag, tidx, toff, mapq,
+                     c5, mid, c3, score, nmm, zs, nh, mm_lanes, mm_cnt):
+    """Threaded native formatter (format_se_batch3): takes the batch's raw
+    code/quality arrays and the fastpack's mismatch lanes, decodes SEQ and
+    QUAL in both orientations, assembles MD and formats the records with
+    the GIL released. Returns (SAM bytes, end offset of every record)."""
+    Nf = frows.size
+    lens_l = batch.lens.astype(np.int32)[frows]
+    name_buf, name_off, name_lens = _name_buf(
+        [batch.names[int(i)] for i in frows])
+    l_of = np.zeros(int(frows.max()) + 1 if Nf else 1, np.int64)
+    l_of[frows] = np.arange(Nf)
+    read_of = l_of[rec_read].astype(np.int32)
+
+    rn_buf, rn_off, rn_lens = _refname_cache(al)
+    nrec = rec_read.size
+    per_rec = (240 + name_lens[read_of]
+               + np.where(tidx >= 0, rn_lens[np.clip(tidx, 0, None)], 0)
+               + 2 * lens_l[read_of].astype(np.int64)
+               + 12 * mm_cnt.astype(np.int64))
+    cap = int(per_rec.sum()) + 1024
+    q = batch.quals
+    qconst = -1
+    if q.size and bool((q == q.flat[0]).all()):
+        qconst = int(q.flat[0])
+    z = np.zeros(nrec, np.int32)
+    out = ctypes.create_string_buffer(cap)
+    ends = np.zeros(nrec, np.int64)
+    seqs = batch.seqs if batch.seqs.dtype == np.uint8 \
+        else batch.seqs.astype(np.uint8)
+    total = samfmt_lib().format_se_batch3(
+        np.int32(nrec), np.int32(3), read_of, flag,
+        np.ascontiguousarray(tidx.astype(np.int32)),
+        np.ascontiguousarray((toff + 1).astype(np.int32)),
+        mapq, c5, mid, c3, score, nmm, zs, nh,
+        np.ascontiguousarray(mm_lanes),
+        np.ascontiguousarray(mm_cnt.astype(np.int32)),
+        np.int32(mm_lanes.shape[1] if mm_lanes.ndim == 2 else FASTPACK_MM),
+        name_buf, name_off,
+        np.ascontiguousarray(frows.astype(np.int32)),
+        np.ascontiguousarray(seqs), np.ascontiguousarray(_u8(q)),
+        np.int32(qconst), np.int64(seqs.shape[1]), lens_l,
+        rn_buf, rn_off, out, np.int64(cap), ends, z, z, z)
+    if total < 0:
+        raise RuntimeError("format_se_batch3: SAM buffer overflow")
     return out.raw[:total], ends
 
 
@@ -678,7 +1244,8 @@ def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
     constant-quality batches, else the fused step at finish time. Pair
     with finish_pe. With seed_mode=False the pair batch takes the
     per-pair path at finish time, as does a Zs:Z-tag run on a graph
-    index."""
+    index. Spliced PE is not ported and raises."""
+    _paired.refuse_spliced(al)
     if not al.opts.seed_mode or _zs_run(al):
         return ("legacy", b1, b2)
     out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, al.opts.khits + 3))

@@ -22,7 +22,8 @@ assembly (_rescue_mates) and the SAM lines of one pair (pair_lines). With
 seed_mode=False align_pairs runs each mate through the aligner's per-read
 device path and forms the concordance grid on the host
 (_concordant_grid).
-Spliced PE, --tmo and the sharded genomes' host rescue are not ported.
+Spliced PE (with its --tmo) and the sharded genomes' host rescue are not
+ported: an aligner in RNA mode is refused here (refuse_spliced).
 """
 
 from __future__ import annotations
@@ -697,11 +698,20 @@ def _grid_from_pairtop(pair_top, m1, m2):
                 sec=sec, t1s=t1, t2s=t2, totals=total)
 
 
+def refuse_spliced(aligner: Aligner) -> None:
+    """Spliced paired-end alignment is not ported: raise rather than
+    align the pairs as DNA."""
+    if aligner.opts.spliced:
+        raise NotImplementedError("spliced paired-end alignment is not "
+                                  "ported")
+
+
 def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch
                 ) -> list[PairResult]:
     """The per-pair path: the fused step (or, with seed_mode=False, each
     mate's per-read device path and the host grid), then the ladder for
     every pair (the oracle of the fast emit paths)."""
+    refuse_spliced(aligner)
     o = aligner.opts
     B = len(b1)
     pair_top = None

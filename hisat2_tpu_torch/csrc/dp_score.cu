@@ -50,8 +50,9 @@
 // staged row constants; each thread keeps its own 3'-clip maximum and the
 // warp reduces once at the end.
 //
-// Wider windows, up to 2048 columns (the mate rescue, W = maxins + L): one
-// block of 4 warps per candidate, 128 * CPL columns, CPL = 3..16 (more
+// Wider windows, up to 2048 columns in one pass (the mate rescue, W =
+// min(maxins, 1000) + L; graph reads of 224 bp and more with the overlay):
+// one block of 4 warps per candidate, 128 * CPL columns, CPL = 3..16 (more
 // warps with fewer columns each were slower at every window measured:
 // the per-row scan and hand-off are paid per warp). The warps are
 // skewed: at step t warp w fills row t - w. What a warp needs from its
@@ -67,6 +68,23 @@
 // registers a thread, so four blocks fit an SM and the rescue's 512
 // candidates are resident in one wave on 132 SMs.
 //
+// Any wider window (reads of about 2 kb and more: W = L + 32 in
+// _stage_dp) takes the same block walking the window in column tiles of
+// 128 * CPL columns (template flag TILED, CPL = 4, 8, 12 or 16; one launch,
+// any number of tiles). A tile's first column needs, for every read row,
+// the H of the row above in the previous tile's last column and the
+// running-max prefix of the row through all tiles before: the thread that
+// holds a tile's last column (warp 3, lane 31) writes both to shared
+// memory (2 * L + 1 int32 behind the staged rows) at the step of that
+// row, and the thread that holds the next tile's first column (warp 0,
+// lane 0) reads them at its step of the row. Warp 0 runs row i at step i
+// and warp 3 at step i + 3, so in a tile the reader takes row i's value
+// before the writer overwrites it: one slot per row. The 3'-clip best and
+// the row maxima are maxima over columns and carry across tiles in
+// registers; the window-N and overlay fix-ups are per column and need
+// nothing at a tile edge. The untiled instantiations compile to what they
+// were before the flag (same registers, same row loop).
+//
 // The SNV overlay (graph indexes; template flag OV). The JAX package has
 // no overlay in its TPU kernel and sends a graph index's DP through the
 // plain scan (ops/sw.dp_score_batch with ov); here the kernel takes it.
@@ -80,16 +98,16 @@
 // a read base b is a known allele), and the fix-up in fill_g runs only
 // in threads whose mask for the row's read base is not empty. A read N
 // has no mask, and the window-N fix-up runs after this one, so an N on
-// either side keeps -n_pen. The
-// instantiations without OV compile to what they were before the flag
-// (same registers, same row loop). Only the one-warp kernel has overlay
-// instantiations: its caller (align/pipeline._stage_dp) is the only one
-// that passes an overlay, the mate rescue's wide windows take none in
-// either package, and the widest one-block variant (16 columns a lane, at
-// its limit of 128 registers) spilled 28 bytes with the nibble word live
-// (nvcc 12.9.86). An overlay at a wide window is refused.
+// either side keeps -n_pen. Above 8 columns a lane the four masks are
+// 16-bit lanes of a 64-bit pair (OvMask): with one 32-bit word of nibbles
+// live the 16-column one-block variant spilled 28 bytes at its 128
+// registers (nvcc 12.9.86); with the masks it does not. Both kernels have
+// overlay instantiations, tiled or not; the instantiations without OV
+// compile to what they were before the flag (same registers, same row
+// loop).
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #if defined(__CUDACC_VER_MAJOR__) && __CUDACC_VER_MAJOR__ >= 12
@@ -174,6 +192,13 @@ __device__ __forceinline__ RowK staged_row(const int4* rows, int i)
     return RowK{q.x, q.y, q.z};
 }
 
+// The overlay's column masks: four byte-lanes of 8 bits in one register
+// up to 8 columns a thread, four 16-bit lanes in a 64-bit pair above.
+template <int CPL>
+constexpr int kOvStride = CPL <= 8 ? 8 : 16;
+template <int CPL>
+using OvMask = std::conditional_t<(CPL <= 8), unsigned, unsigned long long>;
+
 // A thread's CPL adjacent columns j0 .. j0 + CPL - 1.
 template <int CPL>
 struct Cols {
@@ -182,7 +207,7 @@ struct Cols {
     int ext[CPL];       // rd_ext * j
     int e[CPL];         // -rd_open - rd_ext * (j - 1)
     unsigned nmask;     // bit k: the window base of column k is N
-    unsigned ovm;       // overlay kernels only (CPL <= 8): bit 8 * b + k
+    OvMask<CPL> ovm;    // overlay kernels only: bit kOvStride<CPL> * b + k
                         // set where read base b is free in column k
     int nreal;          // how many of the columns are <= W
 };
@@ -192,7 +217,9 @@ __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
                                           const int32_t* ovc, int j0, int W,
                                           int rd_open, int rd_ext)
 {
-    static_assert(!OV || CPL <= 8, "the overlay masks hold 8 columns");
+    static_assert(!OV || CPL <= 16, "the overlay masks hold 16 columns");
+    using M = OvMask<CPL>;
+    constexpr int S = kOvStride<CPL>;
     c.nmask = 0;
     if constexpr (OV) c.ovm = 0;
 #pragma unroll
@@ -206,8 +233,10 @@ __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
         if constexpr (OV) {             // column 0 and the padding: none
             const unsigned nib =
                 (j >= 1 && j <= W) ? ((unsigned)ovc[j - 1] & 15u) : 0u;
-            const unsigned hit = nib == 15u ? 0x01010101u   // several alts
-                : (nib >= 1u && nib <= 4u) ? 1u << (8 * (nib - 1u)) : 0u;
+            const M one = 1;
+            const M hit = nib == 15u                    // several alts
+                ? (one | one << S | one << 2 * S | one << 3 * S)
+                : (nib >= 1u && nib <= 4u) ? one << (S * (nib - 1u)) : M(0);
             c.ovm |= hit << k;
         }
         c.ext[k] = rd_ext * j;
@@ -218,7 +247,12 @@ __device__ __forceinline__ void cols_init(Cols<CPL>& c, const int32_t* refc,
     c.nreal = min(max(W + 1 - j0, 0), CPL);
     DP_KEEP(c.nmask);
     DP_KEEP(c.nreal);
-    if constexpr (OV) DP_KEEP(c.ovm);
+    if constexpr (OV) {
+        if constexpr (sizeof(c.ovm) == 8)
+            asm volatile("" : "+l"(c.ovm));
+        else
+            DP_KEEP(c.ovm);
+    }
 }
 
 // First half of a row: F and G of the thread's columns and the running
@@ -238,8 +272,9 @@ __device__ __forceinline__ int fill_g(Cols<CPL>& c, int (&G)[CPL],
         // Columns where this row's read base is a known allele: rare. A
         // read N (rcx = kRowN) has no mask and keeps its -n_pen; where the
         // bases match anyway, s[k] is sm already.
-        const unsigned m =
-            r.rcx < 4 ? (c.ovm >> (8 * r.rcx)) & 0xffu : 0u;
+        constexpr int S = kOvStride<CPL>;
+        const unsigned m = r.rcx < 4
+            ? unsigned(c.ovm >> (S * r.rcx)) & ((1u << S) - 1u) : 0u;
         if (m) {
 #pragma unroll
             for (int k = 0; k < CPL; ++k)
@@ -388,19 +423,25 @@ dp_score_kernel(const int32_t* __restrict__ rd,
 
 // Four blocks an SM: the 512 candidates of a rescue launch are resident
 // in one wave on 132 SMs, and a thread may use up to 128 registers.
-template <int CPL>
+// OV: the SNV overlay, as in the one-warp kernel. TILED: the window is
+// walked in column tiles of 128 * CPL columns, any number of them (see the
+// note at the top); without it one pass covers W + 1 <= 128 * CPL.
+template <int CPL, bool OV, bool TILED>
 __global__ void __launch_bounds__(32 * kWideWarps, 4)
 dp_score_wide_kernel(const int32_t* __restrict__ rd,
                      const int32_t* __restrict__ pen,
                      const int32_t* __restrict__ rdlens,
                      const int32_t* __restrict__ ref,
                      const int32_t* __restrict__ scp_cum,
+                     const int32_t* __restrict__ ov,    // (C, W), read if OV
                      int32_t* __restrict__ out,
                      int L, int W, int match_bonus, int n_pen,
                      int rd_open, int rd_ext, int rf_open, int rf_ext)
 {
     constexpr int NW = kWideWarps;
-    extern __shared__ int4 rows[];      // RowK of each read row
+    constexpr int CAP = 32 * NW * CPL;  // columns of one pass (tile)
+    extern __shared__ int4 rows[];      // RowK of each read row; TILED:
+                                        // then the tile carries (below)
     __shared__ int pfx[NW][2];          // run prefix through warp w, row r & 1
     __shared__ int hedge[NW][4];        // warp w's last H after row r - 1
     __shared__ int wbest[NW];
@@ -417,7 +458,6 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
     const int sm = match_bonus + rf_ext;
     const int sn = rf_ext - n_pen;
     const int cf = rf_ext - rf_open;
-    const bool first = lane == 0 && warp == 0;
     const bool edge = lane == 0 && warp > 0;    // reads the left warp's values
     const bool last = lane == 31;               // publishes this warp's values
     unsigned pfx_in = smem_addr(pfx[warp > 0 ? warp - 1 : 0]);
@@ -428,44 +468,70 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
     DP_KEEP(hedge_in);
     DP_KEEP(pfx_out);
     DP_KEEP(hedge_out);
+    // Tile carries (TILED): carry_h[i] is the H of read row i - 1 in the
+    // last column of the tile before (carry_h[0], the row above the read,
+    // is 0 in every column), carry_r[i] the running-max prefix of row i
+    // through every tile before. The thread that holds a tile's first
+    // column (warp 0, lane 0) reads row i's at step i; the one that holds
+    // its last column (warp NW - 1, lane 31) writes them for the next tile
+    // at step i + NW - 1, after the reader has taken the old value, so one
+    // slot per row is enough.
+    int* carry_h = reinterpret_cast<int*>(rows + L);
+    int* carry_r = carry_h + L + 1;
 
     stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, threadIdx.x,
                32 * NW);
-    Cols<CPL> col;
-    cols_init<CPL, false>(col, ref + (size_t)c * W, nullptr,
-                          threadIdx.x * CPL, W, rd_open, rd_ext);
+    if constexpr (TILED) {
+        if (threadIdx.x == 0) carry_h[0] = 0;
+    }
     // Clipping the whole read is every thread's starting value, in a
     // register of its own: folded as -scp_tot into the last three-way max
     // instead, nvcc 12.9 emitted VIMNMX3 on +scp_tot.
     int best = -scp_tot;
-    if (last) hedge[warp][0] = col.H[CPL - 1];
-    __syncthreads();
-
-    const int steps = len > 0 ? len + NW - 1 : 0;
-    for (int t = 0; t < steps; ++t) {
-        const int i = t - warp;         // this warp's row at this step
-        if (i >= 0 && i < len) {        // uniform per warp
-            const RowK r = staged_row(rows, i);
-            const unsigned o1 = (i & 1) << 2;   // byte offsets of the slots
-            const unsigned o3 = (i & 3) << 2;
-            int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
-            int pin = kNeg;             // run prefix of the warps to the left
-            if (edge) { hleft = lds(hedge_in + o3); pin = lds(pfx_in + o1); }
-            int G[CPL], M[CPL];
-            const int run = fill_g<CPL, false>(col, G, M, hleft, r, sm, sn,
-                                               cf, first, pin);
-            const int tot = warp_scan_max(run);
-            if (last) sts(pfx_out + o1, tot);
-            int excl = __shfl_up_sync(kFull, tot, 1);
-            if (lane == 0) excl = pin;
-            const int rowmax = fill_h(col, G, M, excl, r.clipx);
-            // 3' soft clip: end the alignment after read position i + 1
-            best = addmax(rowmax, -r.clipx - scp_tot, best);
-            if (last) sts(hedge_out + ((o3 + 4) & 12), col.H[CPL - 1]);
-        }
+    const int ntiles = TILED ? W / CAP + 1 : 1;     // ceil((W + 1) / CAP)
+    for (int tile = 0; tile < ntiles; ++tile) {
+        const bool first = lane == 0 && warp == 0 && tile == 0;
+        const bool lead = TILED && lane == 0 && warp == 0 && tile > 0;
+        const bool tail = TILED && last && warp == NW - 1;
+        Cols<CPL> col;
+        cols_init<CPL, OV>(col, ref + (size_t)c * W,
+                           OV ? ov + (size_t)c * W : nullptr,
+                           tile * CAP + threadIdx.x * CPL, W, rd_open, rd_ext);
+        if (last) hedge[warp][0] = col.H[CPL - 1];
         __syncthreads();
+
+        const int steps = len > 0 ? len + NW - 1 : 0;
+        for (int t = 0; t < steps; ++t) {
+            const int i = t - warp;     // this warp's row at this step
+            if (i >= 0 && i < len) {    // uniform per warp
+                const RowK r = staged_row(rows, i);
+                const unsigned o1 = (i & 1) << 2;   // byte offsets of slots
+                const unsigned o3 = (i & 3) << 2;
+                int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
+                int pin = kNeg;         // run prefix of the columns left
+                if (edge) { hleft = lds(hedge_in + o3); pin = lds(pfx_in + o1); }
+                if constexpr (TILED) {
+                    if (lead) { hleft = carry_h[i]; pin = carry_r[i]; }
+                }
+                int G[CPL], M[CPL];
+                const int run = fill_g<CPL, OV>(col, G, M, hleft, r, sm, sn,
+                                                cf, first, pin);
+                const int tot = warp_scan_max(run);
+                if (last) sts(pfx_out + o1, tot);
+                int excl = __shfl_up_sync(kFull, tot, 1);
+                if (lane == 0) excl = pin;
+                const int rowmax = fill_h(col, G, M, excl, r.clipx);
+                // 3' soft clip: end the alignment after read position i + 1
+                best = addmax(rowmax, -r.clipx - scp_tot, best);
+                if (last) sts(hedge_out + ((o3 + 4) & 12), col.H[CPL - 1]);
+                if constexpr (TILED) {
+                    if (tail) { carry_h[i + 1] = col.H[CPL - 1]; carry_r[i] = tot; }
+                }
+            }
+            __syncthreads();
+        }
+        best = max(best, col_max(col) - len * rf_ext);
     }
-    best = max(best, col_max(col) - len * rf_ext);
     best = __reduce_max_sync(kFull, best);
     if (lane == 0) wbest[warp] = best;
     __syncthreads();
@@ -511,16 +577,42 @@ cudaError_t launch(const Args& a)
     return cudaGetLastError();
 }
 
-template <int CPL>
+template <int CPL, bool OV, bool TILED>
 cudaError_t launch_wide(const Args& a)
 {
-    const size_t smem = (size_t)a.L * sizeof(int4);
-    const cudaError_t err = allow_smem(dp_score_wide_kernel<CPL>, smem);
+    const size_t smem = (size_t)a.L * sizeof(int4)
+        + (TILED ? (2 * (size_t)a.L + 1) * sizeof(int) : 0);
+    const auto kernel = dp_score_wide_kernel<CPL, OV, TILED>;
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    dp_score_wide_kernel<CPL><<<a.C, 32 * kWideWarps, smem, a.stream>>>(
-        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.out, a.L, a.W, a.mb, a.np,
-        a.ro, a.re, a.fo, a.fe);
+    kernel<<<a.C, 32 * kWideWarps, smem, a.stream>>>(
+        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.ov, a.out, a.L, a.W, a.mb,
+        a.np, a.ro, a.re, a.fo, a.fe);
     return cudaGetLastError();
+}
+
+// Which one-block variants this file compiles, with and without the
+// overlay: every CPL of 3..16 in one pass, the column-tiled form at every
+// fourth CPL (ops/dp_cuda.TILE_CPLS). None spills (nvcc 12.9.86).
+constexpr bool wide_compiled(int cpl, bool tiled)
+{
+    return cpl >= 3 && cpl <= 16 && (!tiled || cpl % 4 == 0);
+}
+
+template <bool OV, bool TILED, int K = 16>
+cudaError_t launch_wide_cpl(const Args& a, int cpl)
+{
+    if constexpr (K < 3) {
+        return cudaErrorInvalidValue;
+    } else {
+        if (cpl == K) {
+            if constexpr (wide_compiled(K, TILED))
+                return launch_wide<K, OV, TILED>(a);
+            else
+                return cudaErrorInvalidValue;
+        }
+        return launch_wide_cpl<OV, TILED, K - 1>(a, cpl);
+    }
 }
 
 }  // namespace
@@ -534,9 +626,10 @@ extern "C" int dp_score_fused_form() { return DP_FUSED; }
 // out (C,); ov (C, W) SNV-overlay nibbles, or null for the
 // instantiations without the overlay. The plan names the kernel: warps =
 // 1 is the one-warp kernel with cpl columns per lane, warps = 4 the
-// one-block kernel. A plan this file did not compile, one that covers
-// fewer than W + 1 columns, an overlay for the one-block kernel, or a read
-// too long for the staged rows is refused with cudaErrorInvalidValue. Launches on `stream` and returns
+// one-block kernel, in column tiles where `tiled` is 1. A plan this file
+// did not compile, an untiled one that covers fewer than W + 1 columns,
+// or a read too long for the staged rows is refused with
+// cudaErrorInvalidValue. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int dp_score_launch(const void* rd, const void* pen,
                                const void* rdlens, const void* ref,
@@ -545,7 +638,7 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
                                int match_bonus, int n_pen,
                                int rd_open, int rd_ext,
                                int rf_open, int rf_ext,
-                               int warps, int cpl, void* stream)
+                               int warps, int cpl, int tiled, void* stream)
 {
     const Args a{static_cast<const int32_t*>(rd),
                  static_cast<const int32_t*>(pen),
@@ -557,30 +650,30 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
                  C, L, W, match_bonus, n_pen, rd_open, rd_ext, rf_open,
                  rf_ext, static_cast<cudaStream_t>(stream)};
     const int invalid = static_cast<int>(cudaErrorInvalidValue);
-    if (W < 0 || L < 0 || warps < 1 || cpl < 1 ||
-        (long long)32 * warps * cpl < (long long)W + 1)
+    if (W < 0 || L < 0 || warps < 1 || cpl < 1 || (tiled && warps == 1) ||
+        (!tiled && (long long)32 * warps * cpl < (long long)W + 1))
         return invalid;
-    if ((size_t)(warps == 1 ? kWarpsPerBlock : 1) * L * sizeof(int4)
-        > kSmemMax)
+    const size_t smem = warps == 1
+        ? (size_t)kWarpsPerBlock * L * sizeof(int4)
+        : (size_t)L * sizeof(int4) + (tiled ? (2 * (size_t)L + 1) * 4 : 0);
+    if (smem > kSmemMax)
         return invalid;
 #define DP_NARROW(K) case K: return static_cast<int>( \
         a.ov ? launch<K, true>(a) : launch<K, false>(a));
-#define DP_WIDE(K) case K: return static_cast<int>(launch_wide<K>(a));
     if (warps == 1) {
         switch (cpl) {
             DP_NARROW(1) DP_NARROW(2) DP_NARROW(3) DP_NARROW(4)
             DP_NARROW(5) DP_NARROW(6) DP_NARROW(7) DP_NARROW(8)
             default: return invalid;
         }
-    } else if (warps == kWideWarps && !a.ov) {
-        switch (cpl) {
-            DP_WIDE(3) DP_WIDE(4) DP_WIDE(5) DP_WIDE(6) DP_WIDE(7)
-            DP_WIDE(8) DP_WIDE(9) DP_WIDE(10) DP_WIDE(11) DP_WIDE(12)
-            DP_WIDE(13) DP_WIDE(14) DP_WIDE(15) DP_WIDE(16)
-            default: return invalid;
-        }
     }
-    return invalid;
 #undef DP_NARROW
-#undef DP_WIDE
+    if (warps != kWideWarps)
+        return invalid;
+    const cudaError_t err = a.ov
+        ? (tiled ? launch_wide_cpl<true, true>(a, cpl)
+                 : launch_wide_cpl<true, false>(a, cpl))
+        : (tiled ? launch_wide_cpl<false, true>(a, cpl)
+                 : launch_wide_cpl<false, false>(a, cpl));
+    return static_cast<int>(err);
 }

@@ -4,9 +4,11 @@ via ctypes (no pybind dependency):
   sais.cpp      — linear-time SA-IS suffix array construction
   kmersort.cpp  — threaded counting sort behind the k-mer seed table
   samfmt.cpp    — batched SAM record formatting (finish_se_native,
-                  format_se_batch2; finish_pe_native, format_pe_mix,
-                  format_pe_batch)
+                  format_se_batch2, format_se_batch3; finish_pe_native,
+                  format_pe_mix, format_pe_batch)
   dpkernel.cpp  — single-pair affine-gap DP traceback
+  juncscore.cpp — threaded host junction scorer + acceptance gates
+                  (ops/splice_host.junction_score_gate)
 
 The sources are copies of the JAX package's, so both packages format SAM
 and trace back gapped alignments with the same code. Libraries build into
@@ -152,6 +154,20 @@ def samfmt_lib() -> ctypes.CDLL:
             _u8, _i64,                   # refname buf/off
             ctypes.c_char_p, _c_i64, _i64,  # out, cap, rec_ends
             _i32, _i32, _i32]            # m1, gapN, xs (spliced records)
+        lib.format_se_batch3.restype = _c_i64
+        lib.format_se_batch3.argtypes = [
+            _c_i32, _c_i32,              # nrec, nthreads
+            _i32, _i32,                  # read_of flag
+            _i32, _i32, _i32,            # rname pos1 mapq
+            _i32, _i32, _i32,            # c5 mid c3
+            _i32, _i32, _i32, _i32,      # score nmm zs nh
+            _i16, _i32, _c_i32,          # mm lanes/cnt/stride
+            _u8, _i64,                   # name buf/off (per fast read)
+            _i32, _u8, _u8,              # rows, seq codes, quals
+            _c_i32, _c_i64, _i32,        # qconst, Lp, lens
+            _u8, _i64,                   # refname buf/off
+            ctypes.c_char_p, _c_i64, _i64,  # out, cap, rec_ends
+            _i32, _i32, _i32]            # m1, gapN, xs
         lib._configured = True
     return lib
 
@@ -190,5 +206,28 @@ def kmersort_lib() -> ctypes.CDLL:
         lib.kmer_table.restype = _c_i32
         lib.kmer_table.argtypes = [
             _u8, _c_i64, _c_i32, _i32, _i32, _c_i32, _c_i32]
+        lib._configured = True
+    return lib
+
+
+def juncscore_lib() -> ctypes.CDLL:
+    lib = load("juncscore", "juncscore.cpp")
+    if not getattr(lib, "_configured", False):
+        i8 = ndpointer(np.int8, flags="C_CONTIGUOUS")
+        f32 = ndpointer(np.float32, flags="C_CONTIGUOUS")
+        f64 = ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.junc_score_batch.restype = None
+        lib.junc_score_batch.argtypes = [
+            _u8, _c_i64, ctypes.c_void_p,   # joined, n, overlay or null
+            i8, i8, _i64,                # rd q rdlens
+            _i64, _i64, _c_i64, _c_i64,  # posA posB C L
+            _i64, _i64, _c_i64,          # kleft kright nK
+            _i64, _i64,                  # mm_pens sc_pens
+            _c_i64, _c_i64,              # n_pen match_bonus
+            _c_f64, _c_f64,              # smin I S
+            _c_i64, _c_i32,              # max_intron dta
+            _c_i64, _c_i64,              # canon/noncanon pen
+            f64, f64,                    # donor/acceptor PWM
+            _i64, f32, _c_i32]           # out, out_ps, nthreads
         lib._configured = True
     return lib

@@ -5,18 +5,21 @@ csrc/dp_score.cu (CUDA C++ for sm_90a), built with nvcc on first use into
 the package's git-ignored `_build/kernels/` directory and bound through
 ctypes to a plain C entry point. A CUDA tensor always goes through a
 kernel; a CPU tensor always goes through the plain version,
-ops/sw.dp_fill_plain. `dispatch_plan` picks the kernel by the window:
-up to 256 columns (W + 1 <= 256, the SE path) the one-warp-per-candidate
-kernel, counted in `launches["dp_score"]`; wider ones, up to 2,048
-columns (the paired-end mate rescue), the one-block-per-candidate kernel
-(4 warps, 3 to 16 columns a lane), counted in
-`launches["dp_score_wide"]`. A window wider than that raises. With `ov`
-(the SNV-overlay nibbles of a graph index's windows) the one-warp kernel
-runs in its overlay instantiation, counted in `launches["dp_score_ov"]` as
-well; the JAX package has no such kernel and runs its plain scan there.
-The one-block kernel has no overlay instantiation (its widest variant
-would spill registers, and the mate rescue passes no overlay): an overlay
-at a window of more than 255 bases raises on a CUDA tensor.
+ops/sw.dp_fill_plain. `dispatch_plan` picks the kernel by the window, and
+every window W >= 0 has one:
+  * up to 256 columns (W + 1 <= 256, the SE path): the one-warp-per-
+    candidate kernel, counted in `launches["dp_score"]`;
+  * up to 2,048 columns (the paired-end mate rescue at -X up to 1943 for
+    100 bp reads): the one-block-per-candidate kernel in one pass (4
+    warps, 3 to 16 columns a lane), counted in `launches["dp_score_wide"]`;
+  * wider: the same kernel walking the window in column tiles of 128 *
+    CPL columns (CPL in TILE_CPLS), carrying each read row's last H and
+    running-max prefix from one tile to the next in shared memory, counted
+    in `launches["dp_score_tiled"]`.
+With `ov` (the SNV-overlay nibbles of a graph index's windows) each kernel
+runs in its overlay instantiation, the same variant the window takes
+without one, counted in `launches["dp_score_ov"]` as well. The JAX
+package has no overlay in its TPU kernel and runs its plain scan there.
 """
 
 from __future__ import annotations
@@ -39,13 +42,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 NARROW_MAX_COLS = 256     # widest window (W + 1) of the one-warp kernel
-MAX_COLS = 2048           # widest window (W + 1) of either kernel
+MAX_COLS = 2048           # widest window (W + 1) of one one-block pass
 WIDE_WARPS = 4            # warps per candidate of the one-block kernel
-# (warps, columns per lane) the one-block kernel is compiled for:
-# capacities of 384 to 2,048 columns in steps of 128
+# (warps, columns per lane) the one-block kernel is compiled for in one
+# pass: capacities of 384 to 2,048 columns in steps of 128
 WIDE_VARIANTS = tuple((WIDE_WARPS, k) for k in range(3, 17))
+# columns per lane of the column-tiled form (tiles of 128 * CPL columns)
+TILE_CPLS = (4, 8, 12, 16)
 
-launches = {"dp_score": 0, "dp_score_wide": 0, "dp_score_ov": 0}
+launches = {"dp_score": 0, "dp_score_wide": 0, "dp_score_tiled": 0,
+            "dp_score_ov": 0}
 _state: dict = {}
 
 
@@ -56,21 +62,34 @@ class Plan(NamedTuple):
     cpl: int          # adjacent columns per lane
 
     @property
+    def tiled(self) -> bool:
+        """Walks the window in tiles of `capacity` columns."""
+        return self.kernel == "dp_score_tiled"
+
+    @property
     def capacity(self) -> int:
+        """Columns of one pass (of one tile, where tiled)."""
         return 32 * self.warps * self.cpl
 
 
 def dispatch_plan(W: int) -> Plan:
     """The kernel variant for a window of W reference bases (W + 1 DP
-    columns): the smallest capacity that covers it, so fewer than one
-    thread-row (32 * warps columns) is padding."""
+    columns), with or without the SNV overlay: the smallest one-pass
+    capacity that covers it, so fewer than one thread-row (32 * warps
+    columns) is padding; past the widest one-pass variant, the fewest
+    tiles of the widest tiled variant, each as narrow as TILE_CPLS allows
+    with those tiles still covering the window."""
     cols = W + 1
-    if W < 0 or cols > MAX_COLS:
-        raise ValueError(f"dp_score: window W={W} outside the kernels' "
-                         f"0..{MAX_COLS - 1}")
+    if W < 0:
+        raise ValueError(f"dp_score: window W={W} < 0")
     if cols <= NARROW_MAX_COLS:
         return Plan("dp_score", 1, -(-cols // 32))
-    return Plan("dp_score_wide", WIDE_WARPS, -(-cols // (32 * WIDE_WARPS)))
+    row = 32 * WIDE_WARPS
+    if cols <= row * WIDE_VARIANTS[-1][1]:
+        return Plan("dp_score_wide", WIDE_WARPS, -(-cols // row))
+    ntiles = -(-cols // (row * TILE_CPLS[-1]))
+    cpl = min(c for c in TILE_CPLS if row * c * ntiles >= cols)
+    return Plan("dp_score_tiled", WIDE_WARPS, cpl)
 
 
 def nvcc_path() -> str:
@@ -111,7 +130,7 @@ def _lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()[0])
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dp_score_launch.restype = ci
-        lib.dp_score_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
+        lib.dp_score_launch.argtypes = [vp] * 7 + [ci] * 12 + [vp]
         lib.dp_score_fused_form.restype = ci
         lib.dp_score_fused_form.argtypes = []
         _state["lib"] = lib
@@ -135,9 +154,9 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
     cumulative soft-clip penalties (scp_cum[:, j] = clip cost of
     rd[0:j)); ov, where given, (C, W) SNV-overlay nibbles of the window
     bases (0 none, 1..4 alt code + 1, 15 several: a mismatch on a known
-    alt allele scores as a match; on a CUDA tensor only for W + 1 <=
-    256); all int32. Returns (C,) int32 scores. `plan` overrides dispatch_plan's choice of variant (measurements
-    only)."""
+    alt allele scores as a match); all int32. Any W >= 0. Returns (C,)
+    int32 scores. `plan` overrides dispatch_plan's choice of variant
+    (measurements only)."""
     consts = dict(match_bonus=match_bonus, n_pen=n_pen, rd_open=rd_open,
                   rd_ext=rd_ext, rf_open=rf_open, rf_ext=rf_ext)
     if rd.device.type == "cpu":
@@ -164,9 +183,6 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
             raise ValueError(f"dp_score: {name} must be contiguous")
     if plan is None:
         plan = dispatch_plan(W)
-    if ov is not None and plan.kernel != "dp_score":
-        raise ValueError(f"dp_score: no overlay kernel for W={W}, {plan}: "
-                         f"the one-block kernel takes no overlay")
     lib = _lib()
     out = torch.empty(C, dtype=torch.int32, device=rd.device)
     if C == 0:
@@ -177,7 +193,8 @@ def dp_score(rd: torch.Tensor, pen: torch.Tensor, rdlens: torch.Tensor,
             rd.data_ptr(), pen.data_ptr(), rdlens.data_ptr(), ref.data_ptr(),
             scp_cum.data_ptr(), None if ov is None else ov.data_ptr(),
             out.data_ptr(), C, L, W, match_bonus, n_pen,
-            rd_open, rd_ext, rf_open, rf_ext, plan.warps, plan.cpl, stream)
+            rd_open, rd_ext, rf_open, rf_ext, plan.warps, plan.cpl,
+            int(plan.tiled), stream)
     if err != 0:
         raise RuntimeError(f"dp_score kernel launch refused or failed for "
                            f"W={W}, {plan}: CUDA error {err}")

@@ -4,9 +4,9 @@
     python3 scripts/dp_kernel_bench.py [--sass DIR] [--no-edges]
 
 Builds hisat2_tpu_torch/csrc/dp_score.cu, prints the compiler's report
-and the SASS counts of every variant, holds both kernels to the plain
+and the SASS counts of every variant, holds every kernel to the plain
 version (ops/sw.dp_fill_plain, exact) at every edge window of
-chip_smoke.edge_windows, the one-warp kernel also with an SNV overlay
+chip_smoke.edge_windows, without and with an SNV overlay
 (chip_smoke.make_dp_ov), and then times, on chip_smoke.make_dp_case
 inputs with CUDA events (50 launches after 10):
 
@@ -19,9 +19,18 @@ inputs with CUDA events (50 launches after 10):
   * the one-block kernel at C=512, L=104 for W = 604, 1104 and 2047, under
     the dispatch plan's variant and under every other compiled variant
     that covers the window, so the plan's choice can be read against its
-    alternatives on one card in one run.
+    alternatives on one card in one run;
+  * its column-tiled form at C=512, L=104 for W = 2604 and 8191 (two and
+    four tiles of the widest variant), under the plan's tile width and
+    every other one;
+  * its overlay instantiations at C=2048, L=256, W=288 (graph SE, 250 bp
+    reads) and C=512, L=104, W=1104, without and with a nibble on one
+    window base in 250.
 
-Each line ends in the card's name and power limit.
+The tiled and overlay lines carry the launch's bound as chip_smoke.py
+computes it (bytes over the memory rate, or DP_OPS_PER_CELL instructions
+a real cell over the int32 rate, whichever is longer). Each line ends in
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -87,11 +96,13 @@ def main() -> int:
 
     if not args.no_edges:
         bad = 0
-        for W in cs.edge_windows("dp_score") + cs.edge_windows(
-                "dp_score_wide"):
+        kinds = ("dp_score", "dp_score_wide", "dp_score_tiled")
+        for W, with_ov in sorted(
+                {(W, False) for k in kinds for W in cs.edge_windows(k)}
+                | {(W, True) for k in kinds
+                   for W in cs.edge_windows(k)}):
             a = case(100 + W, *cs.edge_case_shape(W), W)
-            narrow = dp_cuda.dispatch_plan(W).kernel == "dp_score"
-            for ov in (None, overlay(a, 300 + W, 0.25)) if narrow else (None,):
+            for ov in ((overlay(a, 300 + W, 0.25),) if with_ov else (None,)):
                 got = dp_cuda.dp_score(*a, **consts, ov=ov)
                 want = dp_fill_plain(*a, **consts, ov=ov)
                 torch.cuda.synchronize()
@@ -103,7 +114,7 @@ def main() -> int:
                           f" differs in rows {rows}: {got[rows].tolist()} != "
                           f"{want[rows].tolist()}", flush=True)
         print(f"[edges] {bad} cases differ from the plain version (every "
-              f"edge window; the one-warp kernel's also with an overlay)",
+              f"edge window of every kernel, without and with an overlay)",
               flush=True)
         if bad:
             return 1
@@ -115,6 +126,18 @@ def main() -> int:
                                                    plan=plan),
                           iters=50, warmup=10)
         return ms, ok
+
+    def bound(a, ov=None):
+        """chip_smoke's bound of one launch on these inputs: the larger of
+        the bytes over the memory rate and DP_OPS_PER_CELL instructions a
+        real cell over the int32 rate, in ms."""
+        rd, _, rl, ref, _ = a
+        C, L = rd.shape
+        cells = int(rl.clamp(0, L).sum()) * (ref.shape[1] + 1)
+        nbytes = 4 * (2 * rd.numel() + rl.numel() + ref.numel()
+                      + C * (L + 1) + C + (0 if ov is None else ov.numel()))
+        return max(nbytes / cs.HBM_BYTES_PER_S,
+                   cells * cs.DP_OPS_PER_CELL / cs.INT32_OPS_PER_S) * 1e3
 
     a = case(2, 8192, 104, 136)
     for _ in range(2):
@@ -138,12 +161,37 @@ def main() -> int:
         chosen = dp_cuda.dispatch_plan(W)
         plans = [chosen] + [dp_cuda.Plan("dp_score_wide", w, k)
                             for w, k in dp_cuda.WIDE_VARIANTS
-                            if 32 * w * k >= W + 1 and (w, k) != chosen[1:]]
+                            if 32 * w * k >= W + 1 and (w, k) != chosen[1:3]]
         for plan in plans + [chosen]:
             ms, ok = timed(a, plan)
             print(f"[time] dp_score_wide C=512 L=104 W={W} {plan}"
                   f"{' (the plan)' if plan == chosen else ''}: {ms:.4f} ms "
                   f"exact={ok} [{card}]", flush=True)
+    # the column-tiled form (windows past one pass) and the one-block
+    # overlay instantiations, each under its plan and, for the tiled form,
+    # under every other tile width that the C entry point compiles
+    for W in (2604, 8191):
+        a = case(40 + W, 512, 104, W)
+        chosen = dp_cuda.dispatch_plan(W)
+        plans = [chosen] + [dp_cuda.Plan("dp_score_tiled", 4, k)
+                            for k in dp_cuda.TILE_CPLS if k != chosen.cpl]
+        for plan in plans + [chosen]:
+            ms, ok = timed(a, plan)
+            print(f"[time] dp_score_tiled C=512 L=104 W={W} {plan}"
+                  f"{' (the plan)' if plan == chosen else ''}: {ms:.4f} ms "
+                  f"(bound {bound(a):.4f} ms) exact={ok} [{card}]",
+                  flush=True)
+    for C, L, W in ((2048, 256, 288), (512, 104, 1104)):
+        a = case(50 + W, C, L, W)
+        for what, ov in (("no overlay", None),
+                         ("overlay, 1 base in 250", overlay(a, W, 0.004,
+                                                            False)),
+                         ("no overlay", None)):
+            p = dp_cuda.dispatch_plan(W)
+            ms, ok = timed(a, p, ov)
+            print(f"[time] {p.kernel} C={C} L={L} W={W} {p} {what}: "
+                  f"{ms:.4f} ms (bound {bound(a, ov):.4f} ms) exact={ok} "
+                  f"[{card}]", flush=True)
     return 0
 
 

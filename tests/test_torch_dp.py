@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align.scoring import Scoring as JScoring
 from hisat2_tpu.ops.dp_pallas import dp_score_pallas
 from hisat2_tpu.ops.sw import dp_score_batch as j_dp_score_batch
@@ -128,8 +129,23 @@ def test_dispatch_plan(lo, hi):
 
 @pytest.mark.parametrize("W", [-1, 2048, 5000])
 def test_dispatch_plan_refuses(W):
-    with pytest.raises(ValueError):
-        dp_cuda.dispatch_plan(W)
+    """Only a negative window is refused. Past the widest one-pass
+    variant (W + 1 > 2048: -X 1944 and up) the column-tiled form covers
+    window, with and without the overlay: the fewest tiles of the widest
+    tiled variant, each as narrow as that tile count allows."""
+    if W < 0:
+        with pytest.raises(ValueError):
+            dp_cuda.dispatch_plan(W)
+        return
+    plan = dp_cuda.dispatch_plan(W)
+    assert plan.kernel == "dp_score_tiled" and plan.tiled
+    assert plan.warps == dp_cuda.WIDE_WARPS
+    assert plan.cpl in dp_cuda.TILE_CPLS
+    tiles = -(-(W + 1) // plan.capacity)
+    widest = 32 * plan.warps * max(dp_cuda.TILE_CPLS)
+    assert tiles == -(-(W + 1) // widest)
+    assert all(32 * plan.warps * c * tiles < W + 1
+               for c in dp_cuda.TILE_CPLS if c < plan.cpl)
 
 
 def test_edge_windows_cover_every_variant():
@@ -218,10 +234,11 @@ def test_dp_kernel_refuses_bad_inputs():
         dp_cuda.dp_score(z.long(), z, lens, z, scp, **sc.dp_consts())
     with pytest.raises(ValueError):
         dp_cuda.dp_score(z, z, lens, z, scp[:, :8], **sc.dp_consts())
-    # W + 1 = 2049 columns: past the wide kernel's maximum
+    # W + 1 = 2049 columns: past one pass of the wide kernel, the tiled
+    # form takes it (nothing refused)
     wide = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError):
-        dp_cuda.dp_score(z, z, lens, wide, scp, **sc.dp_consts())
+    assert dp_cuda.dp_score(z, z, lens, wide, scp,
+                            **sc.dp_consts()).shape == (4,)
     # a plan that covers fewer columns than the window, or names a variant
     # that was not compiled, is refused by the library: no launch counted
     before = dict(dp_cuda.launches)

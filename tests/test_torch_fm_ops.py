@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.index.fm_index import build_fm_index, build_sampled_sa
 from hisat2_tpu.index.seed_table import build_seed_table
 from hisat2_tpu.io.reference import reference_from_seqs

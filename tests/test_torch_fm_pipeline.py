@@ -36,6 +36,7 @@ import torch
 import test_torch_paired_emit as pe_base
 import test_torch_pipeline as se_base
 from test_torch_fm_ops import variant
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import emit as jemit
 from hisat2_tpu.align import paired as jpaired
 from hisat2_tpu.align import pipeline as jpipe
@@ -277,10 +278,13 @@ def test_legacy_emit_in_seed_mode(world):
 
 
 def test_unported_options_still_raise(world):
-    _, tfms, _, _ = world
-    for kw in (dict(spliced=True), dict(tmo=True)):
+    """Spliced SE and --tmo are ported (tests/test_torch_splice_*.py);
+    spliced PE and local mode still raise."""
+    _, tfms, _, tb = world
+    for kw in (dict(spliced=True), dict(spliced=True, tmo=True)):
+        al = TAligner(tfms["A"], opts=TOpts(**kw), device="cpu")
         with pytest.raises(NotImplementedError):
-            TAligner(tfms["A"], opts=TOpts(**kw), device="cpu")
+            tpaired.align_pairs(al, tb[0], tb[0])
     with pytest.raises(NotImplementedError):
         TAligner(tfms["A"], scoring=dataclasses.replace(TSCORING, local=True),
                  device="cpu")

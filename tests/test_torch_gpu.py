@@ -116,9 +116,10 @@ def test_fm_sam_on_card_equals_cpu(name, seed_mode, how):
 
 @pytest.mark.gpu
 def test_overlay_kernel_matches_plain_at_edge_windows():
-    """The one-warp kernel's overlay instantiations against the plain
-    version at every window where one of its variants ends, with an overlay
-    holding every kind of nibble; the one-block kernel refuses one."""
+    """The overlay instantiations of every kernel against the plain
+    version at every window where one of their variants ends (the tiled
+    form's tile counts too), with an overlay holding every kind of nibble;
+    W = 288 (graph reads of 250 bp) and 1104 among them."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the overlay kernel runs only on one")
     from hisat2_tpu_torch.align.scoring import Scoring
@@ -134,20 +135,21 @@ def test_overlay_kernel_matches_plain_at_edge_windows():
         t = [torch.from_numpy(a).cuda() for a in (rd, quals, lens, ref, ov)]
         pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
         return (t[0], pen, t[2], t[3], scp), t[4]
-    for W in chip_smoke.edge_windows("dp_score") + [136]:
+    for W in (chip_smoke.edge_windows("dp_score")
+              + chip_smoke.edge_windows("dp_score_wide")
+              + chip_smoke.edge_windows("dp_score_tiled")
+              + [136, 288, 1104]):
         a, ov = case(W)
+        kernel = dp_cuda.dispatch_plan(W).kernel
         before = dict(dp_cuda.launches)
         got = dp_cuda.dp_score(*a, ov=ov, **consts)
         assert dp_cuda.launches["dp_score_ov"] == before["dp_score_ov"] + 1
-        assert dp_cuda.launches["dp_score"] == before["dp_score"] + 1
+        assert dp_cuda.launches[kernel] == before[kernel] + 1
         want = dp_fill_plain(*a, ov=ov, **consts)
         assert torch.equal(got, want), W
         assert not torch.equal(want, dp_fill_plain(*a, **consts)), W
         zero = dp_cuda.dp_score(*a, ov=torch.zeros_like(ov), **consts)
         assert torch.equal(zero, dp_cuda.dp_score(*a, **consts)), W
-    a, ov = case(1104)
-    with pytest.raises(ValueError, match="overlay"):
-        dp_cuda.dp_score(*a, ov=ov, **consts)
     with pytest.raises(TypeError):
         a, ov = case(136)
         dp_cuda.dp_score(*a, ov=ov.long(), **consts)
@@ -196,3 +198,101 @@ def test_graph_sam_on_card_equals_cpu(index, opts, how):
     assert on_card == sam("cpu")
     if opts.get("zs_tags"):
         assert "Zs:Z:" in on_card
+
+
+@pytest.mark.gpu
+def test_splice_floats_on_card_equal_cpu():
+    """The spliced scorer's float32 pieces give the CPU's bits on the card:
+    the intron-length penalty at every length from 20 to 500,000 (and past
+    it to the int32 limit at the thresholds), exp and the probscore."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from hisat2_tpu_torch.ops import splice as tsp
+    d = torch.cat([torch.arange(-5, 500001),
+                   torch.tensor([t + k for t in tsp._ilp_thresholds()
+                                 for k in (-1, 0, 1)])]).to(torch.int32)
+    assert torch.equal(tsp._intron_len_pen(d.cuda()).cpu(),
+                       tsp._intron_len_pen(d))
+    x = torch.linspace(-80, 80, 1 << 20)
+    assert torch.equal(tsp._exp_f32(x.cuda()).cpu().view(torch.int32),
+                       tsp._exp_f32(x).view(torch.int32))
+    rng = np.random.default_rng(3)
+    dw = torch.from_numpy(rng.integers(0, 4, (1 << 18, 9)).astype(np.int32))
+    aw = torch.from_numpy(rng.integers(0, 4, (1 << 18, 15)).astype(np.int32))
+    assert torch.equal(tsp._probscore(dw.cuda(), aw.cuda()).cpu()
+                       .view(torch.int32),
+                       tsp._probscore(dw, aw).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts,known,how", [
+    ({}, False, "stream"), ({}, True, "stream"), (dict(dta=True), False,
+                                                  "stream"),
+    (dict(tmo=True), True, "stream"), (dict(seed_mode=False), True,
+                                       "stream"),
+    ({}, False, "fm"), ({}, True, "align_batch")])
+def test_rna_sam_on_card_equals_cpu(opts, known, how):
+    """Spliced SE on the card against the CPU path: identical SAM bytes
+    for the stream without and with known sites, dta, tmo, seed_mode=False,
+    an FM-seeded index and align_batch + results_to_sam, on a genome with
+    chip_smoke's gene model; the DP kernel is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the RNA path on the card needs one")
+    codes = np.random.default_rng(21).integers(0, 4, 300000).astype(
+        np.uint8)
+    txs = chip_smoke.simulate_gene_model(codes, 22, n_tx=100)
+    fm = build_fm_index(reference_from_seqs({"chrR": alphabet.decode(
+        codes)}))
+    if how == "fm":
+        fm = chip_smoke.fm_variants(fm)["A"]
+    seqs, _ = chip_smoke.simulate_rna_reads(fm.ref.joined, txs, 512, 23)
+    items = chip_smoke.make_batches(seqs, 0, 256)
+    run = (chip_smoke.run_per_read if how == "align_batch"
+           else chip_smoke.run_stream)
+
+    def sam(device):
+        al = Aligner(fm, opts=AlignerOpts(spliced=True, **opts),
+                     device=device)
+        if known:
+            for st, ex in txs:
+                for (_, e), (a, _) in zip(ex, ex[1:]):
+                    al.ssdb.add_known(e - 1, a, st)
+        return run(al, items, fm.ref)[0]
+    before = dp_cuda.launches["dp_score"]
+    on_card = sam("cuda")
+    assert dp_cuda.launches["dp_score"] > before
+    assert on_card == sam("cpu")
+    assert sum("N" in ln.split("\t")[5] for ln in on_card.splitlines()) > 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["long", "graph250"])
+def test_wide_windows_sam_on_card_equals_cpu(what):
+    """Reads of 2,100 bp (DP window W = 2136: the tiled kernel) and graph
+    reads of 250 bp (W = 288 with the overlay: the one-block kernel's
+    overlay instantiation): the card's SAM equals the CPU path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    g = np.random.default_rng(24).integers(0, 4, 60000).astype(np.uint8)
+    ref = reference_from_seqs({"chrW": alphabet.decode(g)})
+    if what == "long":
+        fm = build_fm_index(ref)
+        seqs, _, _ = chip_smoke.simulate_reads(ref.joined, 48, 25, rdlen=2100)
+        items = chip_smoke.make_batches(seqs, 0, 48, 2104)
+        kernel = "dp_score_tiled"
+    else:
+        from hisat2_tpu_torch.index.graph_index import build_graph_index
+        snps, haps = chip_smoke.simulate_variants(ref.joined, 31, 250, 12)
+        fm = build_graph_index(ref, snps, haplotypes=haps)
+        hap = chip_smoke.apply_haplotype(ref.joined, snps, haps, 32)
+        seqs, _, _ = chip_smoke.simulate_reads(hap[0], 256, 26, rdlen=250)
+        items = chip_smoke.make_batches(seqs, 0, 256, 256)
+        kernel = "dp_score_wide"
+
+    def sam(device):
+        return chip_smoke.run_stream(Aligner(fm, device=device), items,
+                                     ref)[0]
+    before = dp_cuda.launches[kernel]
+    on_card = sam("cuda")
+    assert dp_cuda.launches[kernel] > before
+    assert on_card == sam("cpu")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.index import graph_index as jgraph
 from hisat2_tpu.index.fm_index import FMIndex as JFMIndex
 from hisat2_tpu.io import annotations as jann

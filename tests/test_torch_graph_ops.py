@@ -23,6 +23,7 @@ from chip_smoke import make_dp_case, make_dp_ov
 from test_torch_dp import consts, kernel_inputs
 from test_torch_graph_index import MULTI_AT, graph_world
 from test_torch_graph_pipeline import haplotype, strip_table
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import pipeline as jpipe
 from hisat2_tpu.align.pipeline import Aligner as JAligner
 from hisat2_tpu.align.scoring import Scoring as JScoring

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from test_torch_graph_index import HAP_AT, MULTI_AT, graph_world
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import emit as jemit
 from hisat2_tpu.align import paired as jpaired
 from hisat2_tpu.align import pipeline as jpipe
@@ -401,6 +402,10 @@ def test_align_pairs_and_pairs_to_sam(world, seed_mode):
 
 
 def test_options_still_unported_raise(world):
-    for kw in (dict(spliced=True), dict(tmo=True)):
+    """Spliced SE and --tmo are ported (tests/test_torch_splice_*.py);
+    spliced PE on a graph index still raises."""
+    for kw in (dict(spliced=True), dict(spliced=True, tmo=True)):
+        al = TAligner(world["tfms"]["table"], opts=TOpts(**kw),
+                      device="cpu")
         with pytest.raises(NotImplementedError):
-            TAligner(world["tfms"]["table"], opts=TOpts(**kw), device="cpu")
+            temit.submit_pe(al, *world["pe"]["const"]["t"])

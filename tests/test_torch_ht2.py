@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import emit as jemit
 from hisat2_tpu.align.pipeline import Aligner as JAligner
 from hisat2_tpu.index.fm_index import FMIndex as JFMIndex

@@ -44,7 +44,11 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.index.fm_index",
                 "hisat2_tpu_torch.index.graph_index",
                 "hisat2_tpu_torch.io.annotations",
-                "hisat2_tpu_torch.io.ht2"):
+                "hisat2_tpu_torch.io.ht2",
+                "hisat2_tpu_torch.ops.splice",
+                "hisat2_tpu_torch.ops.splice_host",
+                "hisat2_tpu_torch.align.splice_db",
+                "hisat2_tpu_torch.align.splice_model"):
         assert mod in expected
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import pipeline as jpipe
 from hisat2_tpu.align import scoring as jscoring
 from hisat2_tpu.align.scoring import Scoring as JScoring

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align.scoring import Scoring as JScoring
 from hisat2_tpu.ops import wire as jwire
 from hisat2_tpu.ops.dp_pallas import dp_score_pallas
@@ -209,11 +210,21 @@ def test_wide_kernel_matches_plain(seed, C, W):
 
 @pytest.mark.gpu
 def test_wide_kernel_refuses_past_its_maximum():
+    """Past the one-block kernel's single pass (W + 1 > 2048) nothing is
+    refused any more: the column-tiled form takes the window, counted in
+    launches["dp_score_tiled"], equal to the plain version."""
     _need_card()
     sc = Scoring()
-    z = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
-    lens = torch.full((4,), 8, dtype=torch.int32, device="cuda")
-    scp = torch.zeros((4, 9), dtype=torch.int32, device="cuda")
-    ref = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError):
-        dp_cuda.dp_score(z, z, lens, ref, scp, **sc.dp_consts())
+    dev = torch.device("cuda")
+    for seed, W in ((23, 2048), (24, 2604), (25, 8191)):
+        rd, quals, lens, ref = make_dp_case(seed, 33, L, W)
+        t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
+        pen, scp_cum = dp_inputs(sc.device_tables(dev), t[1], t[2])
+        args = (t[0], pen.contiguous(), t[2], t[3], scp_cum.contiguous())
+        before = dict(dp_cuda.launches)
+        got = dp_cuda.dp_score(*args, **sc.dp_consts())
+        torch.cuda.synchronize()
+        assert dp_cuda.launches["dp_score_tiled"] \
+            == before["dp_score_tiled"] + 1
+        assert dp_cuda.launches["dp_score_wide"] == before["dp_score_wide"]
+        assert torch.equal(got, dp_fill_plain(*args, **sc.dp_consts()))

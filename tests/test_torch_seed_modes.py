@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.index.fm_index import build_fm_index
 from hisat2_tpu.io.reference import reference_from_seqs
 from hisat2_tpu.ops import search as jsearch
