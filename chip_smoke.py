@@ -108,15 +108,39 @@ Phases; any failure exits non-zero:
                  N ops of the primary records against the planted
                  junctions). One batch alone gives launches and the
                  device's busy share.
-  9. report    - the wide kernel's time and bound at W = 604, 1104 and
+  9. RNA PE    - spliced paired-end alignment on phase 8's genome and
+                 gene model: FR pairs of 100 bp mates from fragments of
+                 200-500 bp measured along the spliced transcripts (mate 2
+                 the reverse complement of the far end, half the pairs
+                 swapped, 1% mismatches). The card's SAM and stats must
+                 equal the CPU path's on 1,024 pairs for the stream,
+                 seed_mode=False and tmo=True (both with known sites; tmo
+                 reports spliced records only), no_temp_splicesite=True and
+                 FM seeding (index A). Then 2 batches of 16,384 pairs
+                 through align_and_emit_pe_stream with every intron known
+                 and 2 without (each batch one spliced step over 32,768
+                 rows, mates concatenated). Guards: proper pairs >= 0.90;
+                 without known sites junction recall >= 0.90 (shorter
+                 anchor 7 bp or more) and precision >= 0.99 over both
+                 mates' primary records; with them |TLEN| equal to the
+                 fragment's transcript length for >= 0.90 of the proper
+                 pairs whose mates both sit at their true position
+                 unclipped and whose inter-mate gap holds no other
+                 transcript's intron (TLEN leaves out every known intron
+                 there). Both DP kernels must run: the one-warp one in
+                 the step, the one-block one in the ladder's mate rescue.
+                 One batch alone gives launches, busy share and peak
+                 device memory.
+ 10. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, one pass's maximum);
                  each DP kernel's time on its main path's own inputs (the
                  narrow one also on the per-read path's, C = 16,384, on the
                  RNA path's, and with the overlay on the graph path's; the
                  tiled one on the 2,100 bp reads', the one-block overlay
-                 one on the 250 bp graph reads'), its plain version's time
+                 one on the 250 bp graph reads'; both on the RNA PE path's
+                 own inputs), its plain version's time
                  and its bound, as one JSON line; end-to-end reads/s (SE,
-                 RNA) and pairs/s (PE) and peak device memory beside the
+                 RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
 
 The bound of a kernel is the larger of its bytes over the card's memory
@@ -182,6 +206,8 @@ LONG_PAD = 2104
 RNA_TRANSCRIPTS = 2000        # the simulated gene model
 RNA_NBATCH = 2                # RNA batches with known sites, and without
 RNA_CHECK = 2048              # reads of each RNA card == CPU comparison
+RNA_PE_NBATCH = 2             # RNA PE batches with known sites, and without
+RNA_PE_CHECK = 1024           # pairs of each RNA PE card == CPU comparison
 
 
 def check(ok: bool, what: str) -> None:
@@ -457,6 +483,18 @@ def simulate_gene_model(codes: np.ndarray, seed: int,
                    for (_, e), (a, _) in zip(ex, ex[1:]))]
 
 
+def read_junctions(gp: np.ndarray) -> dict:
+    """The junctions of a read whose bases sit at genome positions gp:
+    {(last base of the left exon, first base of the right one): the
+    shorter of the read's two anchors at it}; an anchor ends at the read's
+    end or its next junction."""
+    jumps = np.flatnonzero(np.diff(gp) > 1)
+    ends = np.concatenate([[-1], jumps, [gp.size - 1]])
+    return {(int(gp[k]), int(gp[k + 1])):
+            int(min(k - ends[t], ends[t + 2] - k))
+            for t, k in enumerate(jumps)}
+
+
 def simulate_rna_reads(codes: np.ndarray, txs, n: int, seed: int):
     """n RDLEN reads cut from the transcripts' spliced sequences (a
     transcript and an offset in it uniformly at random), ~1% mismatches,
@@ -475,11 +513,7 @@ def simulate_rna_reads(codes: np.ndarray, txs, n: int, seed: int):
         o = int(rng.integers(0, g.size - RDLEN + 1))
         gp = g[o:o + RDLEN]
         seqs[i] = codes[gp]
-        jumps = np.flatnonzero(np.diff(gp) > 1)
-        ends = np.concatenate([[-1], jumps, [RDLEN - 1]])
-        truth.append({(int(gp[k]), int(gp[k + 1])):
-                      int(min(k - ends[t], ends[t + 2] - k))
-                      for t, k in enumerate(jumps)})
+        truth.append(read_junctions(gp))
     mm = rng.random(seqs.shape) < 0.01
     seqs[mm] = (seqs[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
     rc = rng.random(n) < 0.5
@@ -487,13 +521,104 @@ def simulate_rna_reads(codes: np.ndarray, txs, n: int, seed: int):
     return seqs, truth
 
 
-def check_junctions(text: str, truth, n: int, min_anchor: int = 7):
+def simulate_rna_pairs(codes: np.ndarray, txs, n: int, seed: int):
+    """n FR pairs of RDLEN reads from fragments of 200-500 bp measured
+    along the transcripts' spliced sequences (a fragment is cut only from
+    a transcript at least as long; transcript and offset uniformly at
+    random): mate 1 the fragment's first RDLEN bases, mate 2 the reverse
+    complement of its last; ~1% mismatches; half the pairs with mates
+    swapped. Returns (mate-1 codes, mate-2 codes, truth): truth["junc"]
+    and truth["left"] hold read 2i + m's junctions (read_junctions) and
+    leftmost genome position for mate m of pair i, truth["frag"] each
+    pair's fragment length and truth["fjunc"] the junctions of the whole
+    fragment."""
+    rng = np.random.default_rng(seed)
+    gidx = [np.concatenate([np.arange(a, e) for a, e in ex])
+            for _, ex in txs]
+    tl = np.array([g.size for g in gidx])
+    by_len = np.argsort(tl, kind="stable")
+    frag = rng.integers(200, 501, n)
+    first = np.searchsorted(tl[by_len], frag)          # shortest long enough
+    pick = by_len[first + (rng.random(n) * (len(txs) - first)).astype(
+        np.int64)]
+    reads = np.empty((2, n, RDLEN), np.uint8)
+    junc = [None] * (2 * n)
+    left = np.zeros(2 * n, np.int64)
+    fjunc = [None] * n
+    swap = rng.random(n) < 0.5
+    for i in range(n):
+        g = gidx[pick[i]]
+        o = int(rng.integers(0, g.size - frag[i] + 1))
+        fjunc[i] = set(read_junctions(g[o:o + frag[i]]))
+        for m, gp in enumerate((g[o:o + RDLEN],
+                                g[o + frag[i] - RDLEN:o + frag[i]])):
+            reads[m, i] = codes[gp]
+            k = 2 * i + (m ^ int(swap[i]))
+            junc[k] = read_junctions(gp)
+            left[k] = gp[0]
+    mm = rng.random(reads.shape) < 0.01
+    reads[mm] = (reads[mm] + rng.integers(1, 4, int(mm.sum()))) % 4
+    r1, r2 = reads[0], 3 - reads[1, :, ::-1]
+    r1[swap], r2[swap] = r2[swap], r1[swap].copy()
+    return (np.ascontiguousarray(r1), np.ascontiguousarray(r2),
+            dict(junc=junc, left=left, frag=frag, fjunc=fjunc))
+
+
+def check_rna_pairs(text: str, truth: dict, n: int, sites=None):
+    """Proper pairs (flag 2 on mate 1's primary record) as a share of the
+    n pairs; with `sites` (the known (left, right) sites), the TLEN
+    figures over the proper pairs whose two mates both sit at their true
+    leftmost position without a soft clip: the share whose |TLEN| is the
+    fragment's transcript length, over those pairs whose inter-mate gap
+    holds no known intron but the fragment's own (TLEN leaves out every
+    known intron wholly inside the gap, splice_site.h
+    templateLenAdjustment, so another transcript's intron there shortens
+    it), and over them all; with their counts."""
+    proper = np.zeros(n, bool)
+    exact = np.ones(n, bool)
+    tlen = np.zeros(n, np.int64)
+    span = np.zeros((2 * n, 2), np.int64)
+    for ln in text.splitlines():
+        f = ln.split("\t", 9)
+        flag = int(f[1])
+        if flag & 256:
+            continue
+        i = int(f[0][1:])
+        if flag & 4:
+            exact[i] = False
+            continue
+        k = 2 * i + bool(flag & 128)
+        exact[i] &= (int(f[3]) - 1 == truth["left"][k]) and "S" not in f[5]
+        ref_len = sum(int(x) for x, op in re.findall(r"(\d+)([MDN])", f[5]))
+        span[k] = (int(f[3]) - 1, int(f[3]) - 1 + ref_len)
+        if not flag & 128:
+            proper[i] = bool(flag & 2)
+            tlen[i] = abs(int(f[8]))
+    if sites is None:
+        return float(proper.mean())
+    kl = np.array(sorted(sites))
+    sel = np.flatnonzero(proper & exact)
+    clean = np.zeros(sel.size, bool)
+    for t, i in enumerate(sel):
+        lo = min(span[2 * i, 1], span[2 * i + 1, 1])
+        hi = max(span[2 * i, 0], span[2 * i + 1, 0])
+        a, b = np.searchsorted(kl[:, 0], [lo, hi]) if kl.size else (0, 0)
+        inside = {(int(x), int(y)) for x, y in kl[a:b] if y <= hi}
+        clean[t] = inside <= truth["fjunc"][i]
+    right = tlen[sel] == truth["frag"][sel]
+    return (float(proper.mean()), float(right[clean].mean()),
+            int(clean.sum()), float(right.mean()), int(sel.size))
+
+
+def check_junctions(text: str, truth, n: int, min_anchor: int = 7,
+                    paired: bool = False):
     """Junction calls from the CIGAR N ops of the primary records against
     the planted truth, per (read, junction): (recall over the junctions
     whose shorter anchor is at least `min_anchor` bases — the least a
     novel canonical junction needs (tp.h); shorter ones are found only
     through known or published sites —, recall over all, precision, reads
-    aligned, reads with a junction, records with an N)."""
+    aligned, reads with a junction, records with an N). `paired`: the
+    records are pairs', read 2i + m is mate m of pair i, n counts reads."""
     seen = np.zeros(n, np.int64)
     aligned = np.zeros(n, bool)
     tp = tp_a = fp = n_spliced = 0
@@ -503,6 +628,8 @@ def check_junctions(text: str, truth, n: int, min_anchor: int = 7):
         if flag & 256:
             continue
         i = int(f[0][1:])
+        if paired:
+            i = 2 * i + bool(flag & 128)
         seen[i] += 1
         if flag & 4:
             continue
@@ -898,18 +1025,19 @@ def counted(fn, what, need=("dp_score",)):
 def sam_card_equals_cpu(run, fmx, items, ref, what, tag,
                         need=("dp_score",), opts=None, prep=None):
     """SAM of `items` through run(aligner, items, ref) on the card and on
-    the CPU path: the bytes must be equal, and the card's run must have
-    launched the kernels of `need`. `prep(aligner)`, where given, readies
-    each aligner first (known splice sites). Returns (card aligner, card
-    text)."""
+    the CPU path: the bytes and the stats must be equal, and the card's
+    run must have launched the kernels of `need`. `prep(aligner)`, where
+    given, readies each aligner first (known splice sites). Returns (card
+    aligner, card text)."""
     from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
     o = opts or {}
     prep = prep or (lambda a: a)
-    cpu_text, _ = run(prep(Aligner(fmx, opts=AlignerOpts(**o),
-                                   device="cpu")), items, ref)
+    cpu_text, cpu_stats = run(prep(Aligner(fmx, opts=AlignerOpts(**o),
+                                           device="cpu")), items, ref)
     alx = prep(Aligner(fmx, opts=AlignerOpts(**o), device="cuda"))
-    (text, _), got = counted(lambda: run(alx, items, ref), what, need)
+    (text, stats), got = counted(lambda: run(alx, items, ref), what, need)
     check(text == cpu_text, f"SAM from the card != CPU path on {what}")
+    check(stats == cpu_stats, f"stats on the card != CPU path on {what}")
     print(f"[{tag}] SAM bytes on the card == CPU path on {what} "
           f"({len(text)} bytes; launches {got})", flush=True)
     return alx, text
@@ -1384,6 +1512,156 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
     return out
 
 
+def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
+    """Phase 9 (see the module docstring). Returns the DP kernels' inputs
+    as the PE RNA step and its ladder rescue built them, their launches,
+    the rates and the guards' figures."""
+    import torch
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import paired as tpaired
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    ref = fm.ref
+    n = RNA_PE_NBATCH * PE_BATCH
+    r1, r2, truth = simulate_rna_pairs(ref.joined, txs, 2 * n + RNA_PE_CHECK,
+                                       seed=42)
+    sites = [(e - 1, a, st) for st, ex in txs
+             for (_, e), (a, _) in zip(ex, ex[1:])]
+
+    def part(lo, hi):
+        return dict(junc=truth["junc"][2 * lo:2 * hi],
+                    left=truth["left"][2 * lo:2 * hi],
+                    frag=truth["frag"][lo:hi], fjunc=truth["fjunc"][lo:hi])
+    nj = sum(bool(t) for t in truth["junc"])
+    print(f"[rna-pe] {len(truth['frag'])} pairs of {RDLEN} bp mates from "
+          f"fragments of 200-500 bp along the transcripts; "
+          f"{nj / len(truth['junc']):.4f} of the mates cross a junction",
+          flush=True)
+
+    def known(al):
+        for left, right, strand in sites:
+            al.ssdb.add_known(left, right, strand)
+        return al
+
+    small = make_pair_batches(r1[2 * n:], r2[2 * n:], 0, RNA_PE_CHECK)
+
+    def card_equals_cpu(fmx, what, prep=None, **opts):
+        return sam_card_equals_cpu(
+            run_pe_stream, fmx, small, ref, f"{RNA_PE_CHECK} RNA pairs{what}",
+            "rna-pe", opts=dict(spliced=True, **opts), prep=prep)[1]
+
+    text = card_equals_cpu(fm, " (PE stream)")
+    ctruth = part(2 * n, 2 * n + RNA_PE_CHECK)
+    rc, _, pc, _, _, _ = check_junctions(text, ctruth["junc"],
+                                         2 * RNA_PE_CHECK, paired=True)
+    card_equals_cpu(fm, ", seed_mode=False, known sites", known,
+                    seed_mode=False)
+    ttext = card_equals_cpu(fm, ", tmo=True, known sites", known, tmo=True)
+    trecs = [f for f in (ln.split("\t") for ln in ttext.splitlines())
+             if not int(f[1]) & 4]
+    check(bool(trecs) and all("N" in f[5] for f in trecs),
+          "tmo=True must report spliced records only, and some")
+    card_equals_cpu(fm, ", no_temp_splicesite=True", no_temp_splicesite=True)
+    card_equals_cpu(fm_fm, " on index A (FM seeding)")
+
+    captured, captured_wide = [], []
+    real_dp, real_pe_dp = tpipe.dp_score, tpaired.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured and a[0].is_cuda:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+
+    def recording_pe_dp(*a, **kw):
+        if not captured_wide and a[0].is_cuda and \
+                kernel_of(a[3].shape[1]) == "dp_score_wide":
+            captured_wide.append([x.clone() for x in a])
+        return real_pe_dp(*a, **kw)
+    out = {"launches": {}, "check_recall": rc, "check_precision": pc,
+           "n_known_sites": len(sites)}
+    for tag, prep, lo in (("known", known, 0), ("novel", None, n)):
+        al = Aligner(fm, opts=AlignerOpts(spliced=True), device="cuda")
+        if prep:
+            prep(al)
+        batches = make_pair_batches(r1[lo:lo + n], r2[lo:lo + n], 0,
+                                    PE_BATCH)
+        tpipe.dp_score, tpaired.dp_score = recording_dp, recording_pe_dp
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            (text, stats), got = counted(
+                lambda: run_pe_stream(al, batches, ref),
+                f"the RNA PE stream ({tag} sites)")
+            dt = time.perf_counter() - t0
+        finally:
+            tpipe.dp_score, tpaired.dp_score = real_dp, real_pe_dp
+        peak = torch.cuda.max_memory_allocated() / (1 << 20)
+        t = part(lo, lo + n)
+        recall, recall_all, precision, rate, njr, nsp = check_junctions(
+            text, t["junc"], 2 * n, paired=True)
+        if prep:
+            proper, tlen_ok, n_clean, tlen_all, n_exact = check_rna_pairs(
+                text, t, n, [(a, b) for a, b, _ in sites])
+            tl_line = (f"|TLEN| = fragment length for {tlen_ok:.4f} of the "
+                       f"{n_clean} proper pairs with both mates at their "
+                       f"true position unclipped and no other transcript's "
+                       f"intron between them ({tlen_all:.4f} of all "
+                       f"{n_exact} such pairs)")
+            out["tlen_known"], out["tlen_all_known"] = tlen_ok, tlen_all
+        else:
+            proper = check_rna_pairs(text, t, n)
+            tl_line = "TLEN not checked without known sites"
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out[f"pps_{tag}"] = n / dt
+        out[f"peak_{tag}"] = peak
+        out[f"recall_{tag}"], out[f"precision_{tag}"] = recall, precision
+        out[f"proper_{tag}"] = proper
+        rps8 = rres[f"rps_{tag}"]
+        print(f"[rna-pe] {'known sites of every intron' if prep else 'no known sites'}"
+              f": {n} pairs in {dt:.3f} s = {n / dt:.1f} pairs/s = "
+              f"{2 * n / dt:.1f} reads/s end to end ({2 * n / dt / rps8:.3f} "
+              f"of phase 8's {rps8:.1f} RNA SE reads/s, {n / dt / pps:.3f} of "
+              f"phase 5's {pps:.1f} DNA pairs/s); proper pairs {proper:.4f}; "
+              f"{tl_line}; mates aligned {rate:.4f}; junction recall "
+              f"{recall:.4f} (anchors of 7 bp or more; {recall_all:.4f} over "
+              f"all), precision {precision:.4f} ({njr} mates cross a "
+              f"junction, {nsp} primary records spliced); novel sites "
+              f"published {len(al.ssdb.novel)}; peak device memory "
+              f"{peak:.1f} MiB; stats {stats}; launches {got} [{card}]",
+              flush=True)
+        check(proper >= 0.90, f"RNA PE proper pairs {proper:.4f} < 0.90 "
+                              f"({tag} sites)")
+        if tag == "known":
+            check(tlen_ok >= 0.90, f"|TLEN| = fragment length for only "
+                                   f"{tlen_ok:.4f} of {n_clean} pairs")
+        else:
+            check(recall >= 0.90 and precision >= 0.99,
+                  f"RNA PE junction recall {recall:.4f} / precision "
+                  f"{precision:.4f} below 0.90 / 0.99 without known sites")
+            torch.cuda.reset_peak_memory_stats()
+            m = measure_batch(al, temit.submit_pe, temit.finish_pe,
+                              batches[0])
+            m["peak_mb"] = torch.cuda.max_memory_allocated() / (1 << 20)
+            out["batch"] = m
+            print(f"[rna-pe] one batch of {PE_BATCH} RNA pairs alone (a "
+                  f"{2 * PE_BATCH}-row step): queue the device step "
+                  f"{m['queue_ms']:.1f} ms, {m['launches']} launches, device "
+                  f"busy {m['busy_ms']:.2f} ms ({m['busy_ms'] / m['wall_ms']:.4f}"
+                  f" of {m['wall_ms']:.1f} ms wall), peak device memory "
+                  f"{m['peak_mb']:.1f} MiB [{card}]", flush=True)
+            if profile:
+                profile_batch(al, temit.submit_pe, temit.finish_pe,
+                              batches[0], "RNA PE batch of 16384 pairs")
+        del al
+    check(bool(captured), "the RNA PE streams launched no DP")
+    check(bool(captured_wide), "the RNA PE ladder launched no rescue DP")
+    out["captured"], out["captured_wide"] = captured[0], captured_wide[0]
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1713,6 +1991,11 @@ def main() -> int:
     rres = rna_phase(fm, fmres["var"]["A"], txs, rps, card, args.profile)
     phase_done("RNA path")
 
+    # -- RNA PE path -----------------------------------------------------------
+    pres = rna_pe_phase(fm, fmres["var"]["A"], txs, rres, pps, card,
+                        args.profile)
+    phase_done("RNA PE path")
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
@@ -1767,7 +2050,12 @@ def main() -> int:
             ("dp_score_wide_ov", gres["captured_wide_ov"],
              gres["wide_ov_launches"], "graph SE path, 250 bp reads"),
             ("dp_score", rres["captured"], rres["launches"],
-             "RNA SE path (streams with and without known sites)")):
+             "RNA SE path (streams with and without known sites)"),
+            ("dp_score", pres["captured"], pres["launches"]["dp_score"],
+             "RNA PE path (the 2B-row spliced step, streams with and "
+             "without known sites)"),
+            ("dp_score_wide", pres["captured_wide"],
+             pres["launches"]["dp_score_wide"], "RNA PE ladder rescue")):
         rd, pen, rl, ref, scp_cum = cap[:5]
         ov = cap[5] if len(cap) > 5 else None
         check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
@@ -1828,9 +2116,26 @@ def main() -> int:
           f"without known sites, {rres['recall_known']:.4f} / "
           f"{rres['precision_known']:.4f} with them; one RNA batch alone "
           f"{rb['launches']} launches, device busy {rb['busy_ms']:.2f} ms "
-          f"({rb['busy_ms'] / rb['wall_ms']:.4f} of {rb['wall_ms']:.1f} ms); "
-          f"whole run {time.perf_counter() - t_start:.1f} s [{card}]",
-          flush=True)
+          f"({rb['busy_ms'] / rb['wall_ms']:.4f} of {rb['wall_ms']:.1f} ms) "
+          f"[{card}]", flush=True)
+    pb = pres["batch"]
+    print(f"[report] RNA PE end to end: {pres['pps_known']:.1f} pairs/s with "
+          f"known sites, {pres['pps_novel']:.1f} without "
+          f"({2 * pres['pps_known'] / rres['rps_known']:.3f} and "
+          f"{2 * pres['pps_novel'] / rres['rps_novel']:.3f} of the RNA SE "
+          f"reads/s in reads, {pres['pps_known'] / pps:.3f} and "
+          f"{pres['pps_novel'] / pps:.3f} of the DNA PE pairs/s); junction "
+          f"recall / precision {pres['recall_novel']:.4f} / "
+          f"{pres['precision_novel']:.4f} without known sites; proper pairs "
+          f"{pres['proper_known']:.4f} / {pres['proper_novel']:.4f}; |TLEN| "
+          f"right {pres['tlen_known']:.4f} with known sites "
+          f"({pres['tlen_all_known']:.4f} counting pairs with another "
+          f"transcript's intron between the mates); one RNA PE "
+          f"batch alone {pb['launches']} launches, device busy "
+          f"{pb['busy_ms']:.2f} ms ({pb['busy_ms'] / pb['wall_ms']:.4f} of "
+          f"{pb['wall_ms']:.1f} ms), queue {pb['queue_ms']:.1f} ms, peak "
+          f"device memory {pb['peak_mb']:.1f} MiB; whole run "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

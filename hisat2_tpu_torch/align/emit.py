@@ -19,7 +19,9 @@ _finish_fastpack_rna: the splice rescue runs first and the formatting
 after, so contiguous winners rejoin the column formatter and
 single-junction winners take a vectorized spliced finish; the legacy
 path runs the same rescue and ranks spliced candidates in its ladder.
-Spliced paired-end alignment is not ported (paired.refuse_spliced).
+Spliced paired-end batches take align/paired_rna.py (both mates as one
+2B-read spliced step, pairing on the host); with --tmo, or Zs:Z tags on a
+graph index, the per-pair ladder (paired.align_pairs + pairs_to_sam).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..native import samfmt_lib
 from ..ops import wire as _wire
 from . import mapq as _mapq
 from . import paired as _paired
+from . import paired_rna as _prna
 from .paired import PEPACK_MM, PEPACK_REP
 from .pipeline import (FASTPACK_MM, FASTPACK_REP, NEG_INF, Aligner,
                        ReadResult, _dedup_alns, _filter_reason,
@@ -1239,16 +1242,28 @@ def align_and_emit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     return finish_pe(al, submit_pe(al, b1, b2), writer)
 
 
+def _pe_rna_ok(al: Aligner) -> bool:
+    """Spliced PE batches take the vectorized path (paired_rna) unless
+    --tmo or Zs:Z tags on a graph index send them to the per-pair ladder
+    (pairs_to_sam filters), or seed_mode=False to the per-read path."""
+    o = al.opts
+    return o.spliced and o.seed_mode and not o.tmo and not _zs_run(al)
+
+
 def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
-    """Queue one PE batch pair's device step: the packed step for
-    constant-quality batches, else the fused step at finish time. Pair
-    with finish_pe. With seed_mode=False the pair batch takes the
-    per-pair path at finish time, as does a Zs:Z-tag run on a graph
-    index. Spliced PE is not ported and raises."""
-    _paired.refuse_spliced(al)
-    if not al.opts.seed_mode or _zs_run(al):
+    """Queue one PE batch pair's device step: in RNA mode the spliced
+    step over both mates (paired_rna.submit_pe_rna), else the packed step
+    for constant-quality batches. Pair with finish_pe. The other batches
+    are aligned at finish time (_align_and_emit_pe_legacy): seed_mode=False
+    and --tmo on the per-pair path, Zs:Z-tag runs on a graph index, DNA
+    batches with known splice sites (TLEN leaves out their introns) and
+    per-base qualities on the fused step."""
+    o = al.opts
+    if _pe_rna_ok(al):
+        return _prna.submit_pe_rna(al, b1, b2)
+    if not o.seed_mode or o.tmo or _zs_run(al) or len(al.ssdb):
         return ("legacy", b1, b2)
-    out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, al.opts.khits + 3))
+    out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, o.khits + 3))
     if out is None:                      # per-base qualities
         return ("legacy", b1, b2)
     return ("fast", b1, b2, out)
@@ -1257,6 +1272,8 @@ def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
 def finish_pe(al: Aligner, handle, writer) -> dict:
     if handle[0] == "legacy":
         return _align_and_emit_pe_legacy(al, handle[1], handle[2], writer)
+    if handle[0] == "rna":
+        return _prna.finish_pe_rna(al, handle, writer)
     _, b1, b2, out = handle
     ready = out[5]
     t0 = time.perf_counter()
@@ -1274,7 +1291,13 @@ def align_and_emit_pe_stream(al: Aligner, pair_batches, writer,
     """Pipelined PE loop over (mate-1 batch, mate-2 batch) tuples, the
     same overlap structure as the SE stream: finish halves run in
     `workers` threads, output replays in submit order; depth = max
-    queued-but-unfinished batch pairs."""
+    queued-but-unfinished batch pairs. In RNA mode finishes run serially
+    with one batch in flight, as in the SE stream: the splice rescue adds
+    to the novel-site table, so a threaded finish would make the bytes
+    depend on timing."""
+    if al.opts.spliced:
+        workers = 0
+        depth = min(depth, 1)
     return _stream(al, iter(pair_batches), writer, submit_pe, finish_pe,
                    on_batch, depth, workers)
 
@@ -1428,7 +1451,7 @@ def _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h, m2h, l1, l2, ex, stats):
     """
     o = al.opts
     sc = al.scoring
-    if o.no_mixed or o.zs_tags or slow.size == 0:
+    if o.no_mixed or o.tmo or o.zs_tags or slow.size == 0:
         return {}, slow
     S = slow[nvalid[slow] == 0]
     if S.size == 0:
@@ -1824,18 +1847,22 @@ def _finish_pe_slow_and_stitch(al, b1, b2, ex, out, writer, fast, aux,
 def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
                               writer) -> dict:
     """Fused paired-end align + SAM emission for batches with per-base
-    qualities; with seed_mode=False the per-pair path (paired.align_pairs
-    + pairs_to_sam) instead.
+    qualities, Zs:Z-tag runs on a graph index and batches with known
+    splice sites; with seed_mode=False or --tmo the per-pair path
+    (paired.align_pairs + pairs_to_sam, where _tmo_filter_pair gates the
+    pairs) instead.
 
     One device call (paired.stage_pe_fused: both mates' cores, the
-    concordance grid, record finalization), then a vectorized host fast
-    path for concordant pairs, -k secondary pairs included, through the
-    native formatter. Discordant / mixed / rescued pairs take the
+    concordance grid, record finalization), in RNA mode each mate's
+    splice rescue, then a vectorized host fast path for concordant pairs,
+    -k secondary pairs included, through the native formatter.
+    Discordant / mixed / rescued / spliced pairs, and every pair once the
+    site table holds a site (TLEN leaves out known introns), take the
     per-pair ladder (paired._pair_result_one). Output order matches
     pairs_to_sam (pair order, mate 1 then mate 2 per reported pair)."""
     o = al.opts
     B = len(b1)
-    if not o.seed_mode:
+    if not o.seed_mode or o.tmo:
         res = _paired.align_pairs(al, b1, b2)
         return _paired.pairs_to_sam(b1, b2, res, al, writer)
     sc = al.scoring
@@ -1843,6 +1870,14 @@ def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     KP = max(8, khits + 3)
     m1, m2, pt, finp1, finp2, _sfin1, _sfin2 = _paired.stage_pe_fused(
         al, b1, b2, KP=KP, KF=1)
+    if o.spliced:
+        n_ss = len(al.ssdb)
+        al._splice_rescue(b1, m1)
+        al._splice_rescue(b2, m2)
+        if len(al.ssdb) != n_ss:
+            al._splice_rescue(b1, m1)
+            al._splice_rescue(b2, m2)
+    spl_pairs = set(m1.get("splice", {})) | set(m2.get("splice", {}))
 
     l1 = b1.lens.astype(np.int64)
     l2 = b2.lens.astype(np.int64)
@@ -1898,6 +1933,10 @@ def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
                         | np.take_along_axis(cg2, selc, 1))).any(axis=1)
     fast &= ~(in_rep & ((F1["nmm_all"] > MAX_FAST_MM)
                         | (F2["nmm_all"] > MAX_FAST_MM))).any(axis=1)
+    if len(al.ssdb):
+        fast[:] = False        # TLEN leaves out known introns: the ladder
+    if spl_pairs:
+        fast[np.fromiter(spl_pairs, dtype=np.int64)] = False
 
     # fragment containment + coordinates for every reported record
     ref = al.fm.ref
@@ -2030,17 +2069,7 @@ def _align_and_emit_pe_legacy(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     slow_out: dict[int, list] = {}
     if slow.size:
         grid = _paired._grid_from_pairtop(pt, m1, m2)
-
-        def mate_cands(m, batch, i, min_sc, rdlen):
-            return [dict(score=s, pos=p, fw=fw, kind="reg", gapped=gapped,
-                         extent=rdlen)
-                    for s, p, fw, gapped, *_ in al._ranked_candidates(
-                        m, i, min_sc, limit=o.top_cands)][:o.top_cands]
-
-        def finalize(batch, i, c, rdlen):
-            return al._finalize(i, batch, c["score"], c["pos"], c["fw"],
-                                c["gapped"], rdlen)
-
+        mate_cands, finalize = _paired.mate_fns(al)
         rescue: list[tuple] = []
         prs: dict[int, object] = {}
         for i in slow:
@@ -2090,9 +2119,10 @@ def _interleave_runs(src1, src2, nrec):
 
 def _format_pe_records(al, b1, b2, frows, read_of, flag, rname, pos1, mapq,
                        c5, mid, c3, pnext, tlen, yt, score, nmm, zs, nh,
-                       mm_cols, mm_ref, mm_off):
+                       mm_cols, mm_ref, mm_off, m1=None, gapn=None, xs=None):
     """Per-read name/seq buffers hold mate 1 and mate 2 of each fast pair
-    as consecutive rows (read_of = 2*pair + mate)."""
+    as consecutive rows (read_of = 2*pair + mate). m1/gapn/xs: spliced-
+    record columns (one intron and the XS:A strand)."""
     Nf = frows.size
     lens = np.empty(2 * Nf, np.int64)
     lens[0::2] = b1.lens.astype(np.int64)[frows]
@@ -2130,6 +2160,9 @@ def _format_pe_records(al, b1, b2, frows, read_of, flag, rname, pos1, mapq,
     cap = int(per_rec.sum()) + 1024
 
     z = np.zeros(nrec, np.int32)
+    m1 = z if m1 is None else np.ascontiguousarray(m1.astype(np.int32))
+    gapn = z if gapn is None else np.ascontiguousarray(gapn.astype(np.int32))
+    xs = z if xs is None else np.ascontiguousarray(xs.astype(np.int32))
     out = ctypes.create_string_buffer(cap)
     ends = np.zeros(nrec, np.int64)
     total = samfmt_lib().format_pe_batch(
@@ -2145,7 +2178,7 @@ def _format_pe_records(al, b1, b2, frows, read_of, flag, rname, pos1, mapq,
         sf, qf, sr, qr, seq_off,
         np.ascontiguousarray(mm_cols), mm_ref, mm_off,
         np.ascontiguousarray(rn_buf), rn_off,
-        out, np.int64(cap), ends, z, z, z)
+        out, np.int64(cap), ends, m1, gapn, xs)
     if total < 0:
         raise RuntimeError("format_pe_batch: SAM buffer overflow")
     return out.raw[:total], ends

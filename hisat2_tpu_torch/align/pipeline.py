@@ -120,8 +120,7 @@ class AlignerOpts:
     zs_tags: bool = False          # emit Zs:Z SNP-edit tags (sam.h:999;
     #                                graph indexes, via the per-read path)
     # spliced alignment (RNA mode — the reference default; DNA is
-    # --no-spliced-alignment). Paired-end spliced alignment is not ported
-    # yet: align/paired.py refuses it.
+    # --no-spliced-alignment), single-end and paired-end
     spliced: bool = False
     min_intron: int = 20           # --min-intronlen
     max_intron: int = 500000       # --max-intronlen
@@ -803,7 +802,14 @@ class Aligner:
         self.opts = opts or AlignerOpts()
         o = self.opts
         if scoring.local:
-            raise NotImplementedError("local mode is not ported")
+            # hisat2_tpu's device steps evaluate score_min as
+            # ceil(I + S * len) whatever its type, so local mode's G,20,8
+            # asks a 100 bp read for 820 where Scoring.min_score gives 57
+            # (scripts/local_mode_probe.py): nothing aligns there, and a
+            # port would copy that
+            raise NotImplementedError(
+                "local mode is not ported: hisat2_tpu evaluates its "
+                "log-type score_min as linear on the device")
         self.device = torch.device(device)
         # the bundle carries the FM keys exactly when there is no table
         self.idx = fm.device_bundle(self.device)

@@ -208,6 +208,12 @@ def _same_results(tres, jres):
                 assert getattr(a, f) == getattr(b, f), f
 
 
+def _head(b, n):
+    """The first n reads of a batch, as a batch of the same package."""
+    return type(b)(b.seqs[:n], b.quals[:n], b.lens[:n], b.names[:n],
+                   b.rdids[:n])
+
+
 def _sam(emit_fn, sammod, al, ref, *args):
     buf = io.StringIO()
     st = emit_fn(al, *args, sammod.SamWriter(
@@ -278,13 +284,22 @@ def test_legacy_emit_in_seed_mode(world):
 
 
 def test_unported_options_still_raise(world):
-    """Spliced SE and --tmo are ported (tests/test_torch_splice_*.py);
-    spliced PE and local mode still raise."""
-    _, tfms, _, tb = world
+    """Spliced SE and PE and --tmo are ported (tests/test_torch_splice_*.py,
+    tests/test_torch_paired_rna*.py): spliced align_pairs + pairs_to_sam,
+    with and without --tmo, gives the JAX package's SAM bytes and stats on
+    index A (FM seeding, per-base qualities); local mode still raises."""
+    _, tfms, jb, tb = world
+    jb0, tb0 = _head(jb[0], 24), _head(tb[0], 24)
     for kw in (dict(spliced=True), dict(spliced=True, tmo=True)):
-        al = TAligner(tfms["A"], opts=TOpts(**kw), device="cpu")
-        with pytest.raises(NotImplementedError):
-            tpaired.align_pairs(al, tb[0], tb[0])
+        jal, tal = aligners(world, "A", **kw)
+        jtext, jst = _sam(lambda al, w: jpaired.pairs_to_sam(
+            jb0, jb0, jpaired.align_pairs(al, jb0, jb0), al, w),
+            jsam, jal, jal.fm.ref)
+        ttext, tst = _sam(lambda al, w: tpaired.pairs_to_sam(
+            tb0, tb0, tpaired.align_pairs(al, tb0, tb0), al, w),
+            tsam, tal, tal.fm.ref)
+        assert tst == jst and ttext == jtext
+        assert tst["pairs"] == 24
     with pytest.raises(NotImplementedError):
         TAligner(tfms["A"], scoring=dataclasses.replace(TSCORING, local=True),
                  device="cpu")

@@ -2,7 +2,8 @@
 versions of the kernels): identical SAM bytes, on the table index and on
 every FM configuration (no table; sampled SA; seed_mode=False, SE and PE;
 the paired-k-mer and stride-sampled table modes), and on a graph index
-(SE, PE, FM-seeded, seed_mode=False, Zs:Z tags); the DP kernel's overlay
+(SE, PE, FM-seeded, seed_mode=False, Zs:Z tags), and spliced (RNA)
+alignment, single-end and paired-end; the DP kernel's overlay
 instantiations against the plain version at the edge windows. Skips where
 CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
@@ -263,6 +264,39 @@ def test_rna_sam_on_card_equals_cpu(opts, known, how):
     assert dp_cuda.launches["dp_score"] > before
     assert on_card == sam("cpu")
     assert sum("N" in ln.split("\t")[5] for ln in on_card.splitlines()) > 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("known", [False, True])
+def test_rna_pe_sam_on_card_equals_cpu(known):
+    """Spliced PE on the card against the CPU path: 256 pairs of
+    chip_smoke's RNA pairs (fragments along the spliced transcripts of its
+    gene model) in two batches through align_and_emit_pe_stream, without
+    and with known sites: identical SAM bytes and stats, and the spliced
+    step launched the DP kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the RNA PE path on the card needs one")
+    codes = np.random.default_rng(21).integers(0, 4, 300000).astype(
+        np.uint8)
+    txs = chip_smoke.simulate_gene_model(codes, 22, n_tx=100)
+    fm = build_fm_index(reference_from_seqs({"chrR": alphabet.decode(
+        codes)}))
+    r1, r2, _ = chip_smoke.simulate_rna_pairs(fm.ref.joined, txs, 256, 27)
+    items = chip_smoke.make_pair_batches(r1, r2, 0, 128)
+
+    def sam(device):
+        al = Aligner(fm, opts=AlignerOpts(spliced=True), device=device)
+        if known:
+            for st, ex in txs:
+                for (_, e), (a, _) in zip(ex, ex[1:]):
+                    al.ssdb.add_known(e - 1, a, st)
+        return chip_smoke.run_pe_stream(al, items, fm.ref)
+    before = dp_cuda.launches["dp_score"]
+    on_card = sam("cuda")
+    assert dp_cuda.launches["dp_score"] > before
+    assert on_card == sam("cpu")
+    assert sum("N" in ln.split("\t")[5]
+               for ln in on_card[0].splitlines()) > 50
 
 
 @pytest.mark.gpu

@@ -244,6 +244,12 @@ def aligners(world, name, **opts):
             TAligner(world["tfms"][name], opts=TOpts(**opts), device="cpu"))
 
 
+def head(b, n):
+    """The first n reads of a batch, as a batch of the same package."""
+    return type(b)(b.seqs[:n], b.quals[:n], b.lens[:n], b.names[:n],
+                   b.rdids[:n])
+
+
 def _sam(emit_fn, sammod, al, ref, *args):
     buf = io.StringIO()
     st = emit_fn(al, *args, sammod.SamWriter(
@@ -402,10 +408,17 @@ def test_align_pairs_and_pairs_to_sam(world, seed_mode):
 
 
 def test_options_still_unported_raise(world):
-    """Spliced SE and --tmo are ported (tests/test_torch_splice_*.py);
-    spliced PE on a graph index still raises."""
+    """Spliced SE and PE and --tmo are ported (tests/test_torch_splice_*.py,
+    tests/test_torch_paired_rna*.py): spliced PE on a graph index, the
+    vectorized path and with --tmo the per-pair ladder, gives the JAX
+    package's SAM bytes and stats through submit_pe/finish_pe."""
+    jp = [head(b, 24) for b in world["pe"]["const"]["j"]]
+    tp = [head(b, 24) for b in world["pe"]["const"]["t"]]
     for kw in (dict(spliced=True), dict(spliced=True, tmo=True)):
-        al = TAligner(world["tfms"]["table"], opts=TOpts(**kw),
-                      device="cpu")
-        with pytest.raises(NotImplementedError):
-            temit.submit_pe(al, *world["pe"]["const"]["t"])
+        jal, tal = aligners(world, "table", **kw)
+        jtext, jst = _sam(lambda al, w: jemit.finish_pe(
+            al, jemit.submit_pe(al, *jp), w), jsam, jal, world["ref"])
+        ttext, tst = _sam(lambda al, w: temit.finish_pe(
+            al, temit.submit_pe(al, *tp), w), tsam, tal, world["ref"])
+        assert tst == jst and ttext == jtext
+        assert tst["pairs"] == 24

@@ -41,6 +41,7 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.ops.wire",
                 "hisat2_tpu_torch.align.emit",
                 "hisat2_tpu_torch.align.paired",
+                "hisat2_tpu_torch.align.paired_rna",
                 "hisat2_tpu_torch.index.fm_index",
                 "hisat2_tpu_torch.index.graph_index",
                 "hisat2_tpu_torch.io.annotations",

@@ -255,6 +255,31 @@ def test_sam_bytes_match_jax(setup):
     assert any(int(ln.split("\t")[1]) & 256 for ln in lines)
 
 
+def test_dna_pairs_with_known_sites_match_jax(setup):
+    """DNA pairs with known splice sites in the table take the fused step
+    and the per-pair ladder, as in the JAX package (TLEN leaves out the
+    known introns between the mates): identical SAM bytes and stats on the
+    constant-quality batch, and some TLEN shorter than without the sites."""
+    ref = setup["ref"]
+    (jb1, jb2), (tb1, tb2) = setup["jb"][0], setup["tb"][0]
+    jal, tal = JAligner(setup["jal"].fm), TAligner(setup["tal"].fm,
+                                                   device="cpu")
+    for left in range(1000, 45000, 700):
+        jal.ssdb.add_known(left, left + 61, "+")
+        tal.ssdb.add_known(left, left + 61, "+")
+    assert temit.submit_pe(tal, tb1, tb2)[0] == "legacy"
+    jbuf, tbuf, plain = io.StringIO(), io.StringIO(), io.StringIO()
+    jst = jemit.align_and_emit_pe(jal, jb1, jb2, _writer(jsam, ref, jbuf))
+    tst = temit.align_and_emit_pe(tal, tb1, tb2, _writer(tsam, ref, tbuf))
+    assert tst == jst
+    assert tbuf.getvalue() == jbuf.getvalue()
+    temit.align_and_emit_pe(setup["tal"], tb1, tb2, _writer(tsam, ref,
+                                                            plain))
+    tl = [abs(int(ln.split("\t")[8])) for ln in tbuf.getvalue().splitlines()]
+    tl0 = [abs(int(ln.split("\t")[8])) for ln in plain.getvalue().splitlines()]
+    assert len(tl) == len(tl0) and any(a < b for a, b in zip(tl, tl0))
+
+
 @pytest.mark.parametrize("part", [0, 1], ids=["packed", "legacy"])
 def test_fast_path_matches_align_pairs(setup, part):
     """The port's fast emit equals its own per-pair path (align_pairs +

@@ -196,12 +196,36 @@ def test_spliced_results_equal_jax(world):
 
 
 def test_spliced_pe_refused(world):
-    """Spliced paired-end alignment is not ported: both PE entry points
-    raise rather than align the pairs as DNA."""
-    from hisat2_tpu_torch.align.paired import align_pairs
-    _, ta = aligners(world, "table", False)
-    _, tb = batches(world["reads"][:8])
-    with pytest.raises(NotImplementedError):
-        align_pairs(ta, tb, tb)
-    with pytest.raises(NotImplementedError):
-        temit.submit_pe(ta, tb, tb)
+    """Spliced paired-end alignment is ported: both PE entry points that
+    refused it (align_pairs, submit_pe) give the JAX package's SAM bytes,
+    stats and published sites on this file's reads: mate 1 the first 16,
+    mate 2 their reverse complements (fragments of one read length, both
+    mates over the same junction: TLEN counts its intron once)."""
+    from hisat2_tpu.align import paired as jpaired
+    from hisat2_tpu_torch.align import paired as tpaired
+    reads = world["reads"][:16]
+    jb1, tb1 = batches(reads)
+    jb2, tb2 = batches([(n, jalphabet.revcomp(s)) for n, s in reads])
+    ref = world["ref"]
+    for entry in ("align_pairs", "submit_pe"):
+        ja, ta = aligners(world, "table", False)
+        if entry == "align_pairs":
+            jtext, jst = sam(lambda al, w: jpaired.pairs_to_sam(
+                jb1, jb2, jpaired.align_pairs(al, jb1, jb2), al, w),
+                jsam, ja, ref)
+            ttext, tst = sam(lambda al, w: tpaired.pairs_to_sam(
+                tb1, tb2, tpaired.align_pairs(al, tb1, tb2), al, w),
+                tsam, ta, ref)
+        else:
+            jtext, jst = sam(lambda al, w: jemit.finish_pe(
+                al, jemit.submit_pe(al, jb1, jb2), w), jsam, ja, ref)
+            ttext, tst = sam(lambda al, w: temit.finish_pe(
+                al, temit.submit_pe(al, tb1, tb2), w), tsam, ta, ref)
+        assert tst == jst and ttext == jtext
+        assert ta.ssdb.novel == ja.ssdb.novel
+        recs = [ln.split("\t") for ln in ttext.splitlines()]
+        assert sum("N" in f[5] for f in recs) >= 16
+        # j0: 50M{il}N50M on both mates, TLEN one read length
+        s, il = world["introns"][0]
+        assert [(f[5], abs(int(f[8]))) for f in recs if f[0] == "j0"] == \
+            [(f"50M{il}N50M", 100)] * 2
