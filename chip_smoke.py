@@ -131,14 +131,50 @@ Phases; any failure exits non-zero:
                  the step, the one-block one in the ladder's mate rescue.
                  One batch alone gives launches, busy share and peak
                  device memory.
- 10. report    - the wide kernel's time and bound at W = 604, 1104 and
+ 10. sharded   - genome-sharded alignment (ShardedAligner). First a small
+                 sharded genome (small_sharded_case: three chromosomes of
+                 40 kb, one shard each, 600 bp segments of chr1 copied into
+                 chr3, introns with known sites, a variant every 250 bp):
+                 the card's SAM and stats must equal the CPU path's for
+                 2,048 SE reads, 512 pairs (16 with a random mate 2), a
+                 graph sharded index, RNA SE and PE with known sites and
+                 tmo=True, every run launching the DP kernel and the PE
+                 ladder's host-mode mate rescue the one-block kernel; then
+                 all of it again with HISAT2_TPU_HBM_GB below two shards
+                 (evictions counted). Then a genome of real size: 8
+                 chromosomes of 125 Mbp (1.0 Gbp, chicken GRCg7b's size)
+                 with 50 segments of 2 kb copied across shards,
+                 build_sharded(max_bases=400,000,000) into 3 table-only
+                 shards (kt = 13), each shard's estimated bundle bytes
+                 held to the real bundle's; 8 batches of 16,384 SE reads
+                 and 4 of 16,384 pairs (phases 4's and 5's generators and
+                 guards) under the default budget (every shard resident,
+                 uploaded once); reads/s, pairs/s, seconds per shard
+                 upload, one batch alone under the profiler; then 2 SE
+                 batches and 1 PE batch with the budget below two shards:
+                 every pass uploads each shard again, evictions counted,
+                 the SAM bytes equal the resident run's.
+ 11. repeats   - repeat families planted in a copy of phase 4's genome (20
+                 of 300 bp x 50 copies, 20 of 1-6 kb x 8, a third of the
+                 copies reverse-complemented, a quarter with one SNV):
+                 build_repeats(repeat_length=100, repeat_count=5), the
+                 repeat FM index, the minimizer table, classify_repetitive
+                 on 16,384 reads (phase 4's errors) and
+                 RepeatAligner.align_repeats on the card for the
+                 repetitive ones (reads/s, the DP kernel launched);
+                 align_repeats card == CPU on 2,048 of them; 2,048
+                 error-free reads from copies without an SNV must hold
+                 their true position among the placements (>= 0.95).
+ 12. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, one pass's maximum);
                  each DP kernel's time on its main path's own inputs (the
                  narrow one also on the per-read path's, C = 16,384, on the
                  RNA path's, and with the overlay on the graph path's; the
                  tiled one on the 2,100 bp reads', the one-block overlay
                  one on the 250 bp graph reads'; both on the RNA PE path's
-                 own inputs), its plain version's time
+                 own inputs; the narrow one on the per-shard SE step's and
+                 RepeatAligner.align_batch's, the wide one on the sharded
+                 PE ladder's host-mode rescue), its plain version's time
                  and its bound, as one JSON line; end-to-end reads/s (SE,
                  RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
@@ -174,6 +210,7 @@ import io
 import json
 import os
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -208,6 +245,17 @@ RNA_NBATCH = 2                # RNA batches with known sites, and without
 RNA_CHECK = 2048              # reads of each RNA card == CPU comparison
 RNA_PE_NBATCH = 2             # RNA PE batches with known sites, and without
 RNA_PE_CHECK = 1024           # pairs of each RNA PE card == CPU comparison
+SMALL_CHROM = 40_000          # phase 10's small sharded genome: 3 of these,
+SMALL_SHARD = 45_000          # one shard each (build_sharded max_bases)
+SMALL_SE = 2048               # its SE and graph reads,
+SMALL_PE = 512                # its pairs,
+SMALL_RNA = 256               # its RNA reads (RNA pairs: half as many)
+SHARD_CHROMS = 8              # phase 10's genome of real size: 8 x 125 Mbp
+SHARD_CHROM_LEN = 125_000_000  # = 1.0 Gbp, chicken GRCg7b's size
+SHARD_BASES = 400_000_000     # --shard-bases: shards of 375, 375, 250 Mbp
+SHARD_COPIES = 50             # 2 kb segments copied across shards
+REP_SHORT = 20                # phase 11: families of 300 bp x 50 copies
+REP_LONG = 20                 # and of 1-6 kb x 8 copies
 
 
 def check(ok: bool, what: str) -> None:
@@ -675,10 +723,22 @@ def run_stream(al, batches, ref):
     return buf.getvalue(), stats
 
 
-def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray):
+def chrom_coords(ref, joff: np.ndarray):
+    """(reference names, 0-based chromosome offsets) of joined offsets."""
+    f = np.searchsorted(ref.frag_joined, joff, side="right") - 1
+    names = np.asarray(ref.names, dtype=object)[ref.frag_tidx[f]]
+    return names, ref.frag_toff[f] + joff - ref.frag_joined[f]
+
+
+def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray,
+              ref=None):
     """One primary record per read; alignment rate; true placement of the
     indel-free reads (POS minus the leading soft clip is the read's
-    start on the reference)."""
+    start on the reference; with `ref`, on the chromosome its joined
+    start lies in)."""
+    names = None
+    if ref is not None:
+        names, starts = chrom_coords(ref, starts)
     seen = np.zeros(n, np.int64)
     aligned = np.zeros(n, bool)
     placed = np.zeros(n, bool)
@@ -694,7 +754,8 @@ def check_sam(text: str, n: int, starts: np.ndarray, indel: np.ndarray):
         aligned[i] = True
         clip = re.match(r"(\d+)S", f[5])
         lead = int(clip.group(1)) if clip else 0
-        placed[i] = int(f[3]) - 1 - lead == starts[i]
+        placed[i] = (int(f[3]) - 1 - lead == starts[i]
+                     and (names is None or f[2] == names[i]))
     check((seen == 1).all(),
           f"reads emitted != once: {int((seen != 1).sum())}")
     rate = float(aligned.mean())
@@ -973,10 +1034,13 @@ def run_pe_stream(al, pair_batches, ref):
 
 
 def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
-                 indel: np.ndarray):
+                 indel: np.ndarray, ref=None):
     """One primary record per mate; proper-pair share (flag 2); mate 1 of
     the indel-free pairs at its true position (POS minus the leading soft
-    clip)."""
+    clip; with `ref`, on the chromosome its joined start lies in)."""
+    names = None
+    if ref is not None:
+        names, m1_true = chrom_coords(ref, m1_true)
     seen = np.zeros((n, 2), np.int64)
     proper = np.zeros(n, bool)
     placed = np.zeros(n, bool)
@@ -996,7 +1060,8 @@ def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
             proper[i] = bool(flag & 2)
             clip = re.match(r"(\d+)S", f[5])
             lead = int(clip.group(1)) if clip else 0
-            placed[i] = int(f[3]) - 1 - lead == m1_true[i]
+            placed[i] = (int(f[3]) - 1 - lead == m1_true[i]
+                         and (names is None or f[2] == names[i]))
     check((seen == 1).all(),
           f"mates emitted != once: {int((seen != 1).sum())}")
     share = float(proper.mean())
@@ -1662,6 +1727,528 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
     return out
 
 
+def small_sharded_case():
+    """Phase 10's small sharded genome (tests/test_torch_gpu.py's sharded
+    twins use it too): three chromosomes of SMALL_CHROM bp, one shard each;
+    chr1's 600 bp segments at 26-38 kb copied into chr3 at the same
+    offsets (reads there place in two shards: the cross-shard merge and
+    its ladder); GT..AG introns of 400 and 1,500 bp at 5 and 20 kb of
+    every chromosome, all known; a known variant about every 250 bp (90%
+    SNVs) for the graph index. Returns the reference, the linear and the
+    graph ShardedIndex, the known sites (joined: last base of the left
+    exon, first of the right) and the inputs of every configuration as
+    port batches."""
+    from hisat2_tpu_torch.index.sharded import build_sharded
+    from hisat2_tpu_torch.io.annotations import SNPDB
+    from hisat2_tpu_torch.io.reference import reference_from_seqs
+    from hisat2_tpu_torch.utils import alphabet
+    rng = np.random.default_rng(50)
+    codes = [rng.integers(0, 4, SMALL_CHROM).astype(np.uint8)
+             for _ in range(3)]
+    for p in range(26000, 38000, 1500):
+        codes[2][p:p + 600] = codes[0][p:p + 600]
+    introns = []
+    for c in range(3):
+        for start, ilen in ((5000, 400), (20000, 1500)):
+            codes[c][start:start + 2] = [2, 3]
+            codes[c][start + ilen - 2:start + ilen] = [0, 2]
+            introns.append((c * SMALL_CHROM + start, ilen))
+    ref = reference_from_seqs({f"chr{c + 1}": alphabet.decode(codes[c])
+                               for c in range(3)})
+    joined = ref.joined
+    v, _ = simulate_variants(joined, 53, 250, 0)
+    off = v.jpos % SMALL_CHROM
+    sel = np.flatnonzero((off > 64) & (off < SMALL_CHROM - 64))
+    snps = SNPDB(names=[v.names[i] for i in sel], types=v.types[sel],
+                 jpos=v.jpos[sel], lens=v.lens[sel],
+                 alt_codes=v.alt_codes[sel],
+                 ins_seqs=[v.ins_seqs[i] for i in sel],
+                 chroms=[f"chr{int(j) // SMALL_CHROM + 1}"
+                         for j in v.jpos[sel]], tpos=off[sel])
+    se = simulate_reads(joined, SMALL_SE, seed=54)[0]
+    r1, r2, _, _ = simulate_pairs(joined, SMALL_PE, seed=55)
+    # a few pairs with a random mate 2: the ladder's mate rescue scores
+    # their windows (on the host aligner's device)
+    r2[-16:] = rng.integers(0, 4, (16, RDLEN)).astype(np.uint8)
+    # graph reads: the alt allele of every SNV they cover
+    gst = rng.integers(0, joined.size - RDLEN, SMALL_SE)
+    graph = joined[gst[:, None] + np.arange(RDLEN)].copy()
+    snv = np.flatnonzero(snps.types == 0)
+    for i, s in enumerate(gst):
+        for k in snv[(snps.jpos[snv] >= s) & (snps.jpos[snv] < s + RDLEN)]:
+            graph[i, snps.jpos[k] - s] = snps.alt_codes[k]
+    graph[1::2] = 3 - graph[1::2, ::-1]
+    # RNA: reads over a junction (and some exonic ones); pairs whose mate
+    # 1 crosses a junction and mate 2 lies 150 bp past the intron
+    rna = np.empty((SMALL_RNA, RDLEN), np.uint8)
+    m1 = np.empty((SMALL_RNA // 2, RDLEN), np.uint8)
+    m2 = np.empty_like(m1)
+    for i in range(SMALL_RNA):
+        s, ilen = introns[i % len(introns)]
+        j = int(rng.integers(15, RDLEN - 15))
+        if i % 4 == 3:
+            p = int(rng.integers(0, joined.size - RDLEN))
+            rna[i] = joined[p:p + RDLEN]
+        else:
+            rna[i] = np.concatenate(
+                [joined[s - j:s], joined[s + ilen:s + ilen + RDLEN - j]])
+        if i < m1.shape[0]:
+            m1[i] = np.concatenate(
+                [joined[s - j:s], joined[s + ilen:s + ilen + RDLEN - j]])
+            m2[i] = 3 - joined[s + ilen + 150:s + ilen + 150 + RDLEN][::-1]
+    rna[2::3] = 3 - rna[2::3, ::-1]
+    m1[1::2], m2[1::2] = m2[1::2], m1[1::2].copy()
+    return dict(
+        ref=ref, sh=build_sharded(ref, max_bases=SMALL_SHARD),
+        gsh=build_sharded(ref, max_bases=SMALL_SHARD, snps=snps),
+        sites=[(s - 1, s + ilen) for s, ilen in introns],
+        se=make_batches(se, 0, SMALL_SE),
+        pe=make_pair_batches(r1, r2, 0, SMALL_PE),
+        graph=make_batches(graph, 0, SMALL_SE),
+        rna=make_batches(rna, 0, SMALL_RNA),
+        rna_pe=make_pair_batches(m1, m2, 0, SMALL_RNA // 2))
+
+
+# phase 10's card == CPU configurations on small_sharded_case(): (what,
+# index, reads, AlignerOpts, known sites, DP kernels each run launches)
+SMALL_CONFIGS = (
+    ("SE", "sh", "se", {}, False, ("dp_score",)),
+    ("PE", "sh", "pe", {}, False, ("dp_score", "dp_score_wide")),
+    ("graph SE", "gsh", "graph", {}, False, ("dp_score_ov",)),
+    ("RNA SE, known sites", "sh", "rna", {"spliced": True}, True,
+     ("dp_score",)),
+    ("RNA PE, known sites", "sh", "rna_pe", {"spliced": True}, True,
+     ("dp_score",)),
+    ("RNA SE, tmo, known sites", "sh", "rna",
+     {"spliced": True, "tmo": True}, True, ("dp_score",)),
+)
+
+
+def run_sharded(sa, items, ref):
+    """SAM text and stats of `items` (SE batches or (mate 1, mate 2)
+    batch tuples) through a ShardedAligner."""
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    writer = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                             no_head=True)
+    if isinstance(items[0], tuple):
+        stats = sa.align_and_emit_pe(items, writer)
+    else:
+        stats = sa.align_and_emit(items, writer)
+    return buf.getvalue(), stats
+
+
+def sharded_aligner(case, index, opts, known, device):
+    from hisat2_tpu_torch.align.pipeline import AlignerOpts
+    from hisat2_tpu_torch.align.sharded import ShardedAligner
+    sa = ShardedAligner(case[index], opts=AlignerOpts(**opts),
+                        device=device)
+    if known:
+        for left, right in case["sites"]:
+            sa.host.ssdb.add_known(left, right, "+")
+    return sa
+
+
+class HostRescue:
+    """Counts the DP launches of the ladder's mate rescue on a
+    finalization-only aligner (the sharded finish) and keeps the first
+    such call's DP inputs: paired._rescue_mates and paired.dp_score are
+    wrapped while the context is open."""
+
+    def __init__(self):
+        self.launches = 0
+        self.captured = None
+
+    def __enter__(self):
+        from hisat2_tpu_torch.align import paired as tpaired
+        from hisat2_tpu_torch.ops import dp_cuda
+        self._mod = tpaired
+        self._real = tpaired._rescue_mates, tpaired.dp_score
+        real_rescue, real_dp = self._real
+        inside = []
+
+        def rescue(aligner, *a, **kw):
+            if aligner.idx:
+                return real_rescue(aligner, *a, **kw)
+            n0 = dp_cuda.launches["dp_score_wide"]
+            inside.append(True)
+            try:
+                return real_rescue(aligner, *a, **kw)
+            finally:
+                inside.pop()
+                self.launches += dp_cuda.launches["dp_score_wide"] - n0
+
+        def dp(*a, **kw):
+            if inside and self.captured is None and a[0].is_cuda:
+                self.captured = [x.clone() for x in a]
+            return real_dp(*a, **kw)
+        tpaired._rescue_mates, tpaired.dp_score = rescue, dp
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._rescue_mates, self._mod.dp_score = self._real
+        return False
+
+
+def sharded_card_equals_cpu(case, tag, budget_gb=None):
+    """Every SMALL_CONFIGS run through ShardedAligner on the CPU path and
+    on the card: SAM bytes and stats equal, the DP kernels launched, and
+    for PE the one-block kernel launched by the host-mode ladder rescue.
+    With `budget_gb`, the card's aligner holds HISAT2_TPU_HBM_GB at it and
+    must evict."""
+    for what, index, reads, opts, known, need in SMALL_CONFIGS:
+        items = case[reads]
+        cpu = run_sharded(sharded_aligner(case, index, opts, known, "cpu"),
+                          items, case["ref"])
+        old = os.environ.get("HISAT2_TPU_HBM_GB")
+        if budget_gb is not None:
+            os.environ["HISAT2_TPU_HBM_GB"] = repr(budget_gb)
+        try:
+            sa = sharded_aligner(case, index, opts, known, "cuda")
+        finally:
+            if old is None:
+                os.environ.pop("HISAT2_TPU_HBM_GB", None)
+            else:
+                os.environ["HISAT2_TPU_HBM_GB"] = old
+        with HostRescue() as hr:
+            (text, stats), got = counted(
+                lambda: run_sharded(sa, items, case["ref"]),
+                f"the small sharded genome ({what})", need)
+        check(text == cpu[0], f"sharded SAM from the card != CPU path on "
+                              f"{what}{tag}")
+        check(stats == cpu[1], f"sharded stats on the card != CPU path on "
+                               f"{what}{tag}")
+        if reads == "pe":
+            check(hr.launches > 0, f"the host-mode ladder rescue launched "
+                                   f"no one-block DP on {what}{tag}")
+        if budget_gb is not None:
+            check(sa.evictions > 0, f"no eviction under a one-shard budget "
+                                    f"on {what}")
+        print(f"[sharded] SAM bytes on the card == CPU path on the small "
+              f"sharded genome, {what}{tag} ({len(text)} bytes; launches "
+              f"{got}, host-mode ladder rescue {hr.launches}; uploads "
+              f"{sa.uploads}, evictions {sa.evictions})", flush=True)
+        del sa
+
+
+def big_sharded_genome():
+    """SHARD_CHROMS chromosomes of SHARD_CHROM_LEN random bases (chicken
+    GRCg7b's size in all), with SHARD_COPIES segments of 2 kb copied from
+    one shard's chromosomes to another's. Returns the JoinedReference
+    (built directly: no N, one fragment a chromosome)."""
+    from hisat2_tpu_torch.io.reference import JoinedReference
+    rng = np.random.default_rng(60)
+    C, n = SHARD_CHROMS, SHARD_CHROMS * SHARD_CHROM_LEN
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    per = SHARD_BASES // SHARD_CHROM_LEN            # chromosomes a shard
+    shard_of = np.arange(C) // per
+    for k in range(SHARD_COPIES):
+        a, b = rng.choice(C, 2, replace=False)
+        while shard_of[a] == shard_of[b]:
+            a, b = rng.choice(C, 2, replace=False)
+        src = a * SHARD_CHROM_LEN + int(rng.integers(0, SHARD_CHROM_LEN
+                                                     - 2000))
+        dst = b * SHARD_CHROM_LEN + int(rng.integers(0, SHARD_CHROM_LEN
+                                                     - 2000))
+        codes[dst:dst + 2000] = codes[src:src + 2000]
+    starts = np.arange(C, dtype=np.int64) * SHARD_CHROM_LEN
+    return JoinedReference(
+        names=[f"chr{c + 1}" for c in range(C)],
+        tlens=np.full(C, SHARD_CHROM_LEN, np.int64), joined=codes,
+        frag_joined=starts, frag_toff=np.zeros(C, np.int64),
+        frag_tidx=np.arange(C, dtype=np.int32),
+        frag_len=np.full(C, SHARD_CHROM_LEN, np.int64))
+
+
+def sharded_phase(rps, pps, card):
+    """Phase 10 (see the module docstring). Returns the DP kernels'
+    inputs as the per-shard SE step and the host-mode ladder rescue built
+    them, their launches, and the figures of the report."""
+    import torch
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.sharded import DEVICE_HEADROOM, ShardedAligner
+    from hisat2_tpu_torch.index.fm_index import FMIndex
+    from hisat2_tpu_torch.index.sharded import build_sharded
+
+    t0 = time.perf_counter()
+    case = small_sharded_case()
+    print(f"[sharded] small genome: {case['ref'].n} bp in "
+          f"{len(case['sh'])} shards (graph: {len(case['gsh'])}), built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sharded_card_equals_cpu(case, "")
+    one = max(case["sh"].shards[i].bundle_nbytes()
+              for i in range(len(case["sh"])))
+    sharded_card_equals_cpu(case, ", budget one shard",
+                            budget_gb=1.5 * one / (1 << 30))
+
+    # -- a genome of real size ------------------------------------------
+    t0 = time.perf_counter()
+    ref = big_sharded_genome()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh = build_sharded(ref, max_bases=SHARD_BASES)
+    t_build = time.perf_counter() - t0
+    S = len(sh)
+    est = [sh.shards[i].bundle_nbytes() for i in range(S)]
+    check(S == 3 and all(s.table_only and s.st_k == 13 for s in sh.shards),
+          f"{S} shards, kt {[s.st_k for s in sh.shards]}")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+    print(f"[sharded] {ref.n} bp in {SHARD_CHROMS} chromosomes, "
+          f"{SHARD_COPIES} cross-shard copies of 2 kb, generated in "
+          f"{t_gen:.1f} s; {S} table-only shards of "
+          f"{[int(s.ref.n) for s in sh.shards]} bp (kt=13) built in "
+          f"{t_build:.1f} s; estimated bundle bytes {est}; peak host RSS "
+          f"so far {rss:.1f} GiB", flush=True)
+
+    n = BATCH * NBATCH
+    seqs, starts, indel = simulate_reads(ref.joined, n + BATCH, seed=61)
+    batches = make_batches(seqs[:n], 0, BATCH)
+    warm = make_batches(seqs[n:], n, BATCH)
+    pe_n = PE_BATCH * PE_NBATCH
+    r1, r2, m1_true, pe_indel = simulate_pairs(ref.joined, pe_n, seed=62)
+    pe_batches = make_pair_batches(r1, r2, 0, PE_BATCH)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    sa = ShardedAligner(sh, device="cuda")
+    budget = sa.budget
+    run_sharded(sa, warm, ref)           # uploads every shard
+    check(sa.uploads == S and sa.evictions == 0,
+          f"default budget {budget} bytes: {sa.uploads} uploads, "
+          f"{sa.evictions} evictions")
+    real = [FMIndex.bundle_bytes(sa._resident[i].idx) for i in range(S)]
+    check(real == est, f"estimated bundle bytes {est} != real {real}")
+    upload_s = sa.upload_s / sa.uploads
+    print(f"[sharded] default budget {budget / (1 << 30):.2f} GiB (free "
+          f"device memory less {DEVICE_HEADROOM / (1 << 30):.0f} GiB): all "
+          f"{S} shards resident, {sa.uploads} uploads of "
+          f"{upload_s:.3f} s each (host preparation + copy; "
+          f"{sum(real) / sa.upload_s / 1e9:.2f} GB/s); bundle bytes "
+          f"{real}, device memory held {(torch.cuda.memory_allocated() - mem0) / (1 << 30):.2f} GiB "
+          f"[{card}]", flush=True)
+
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured and a[0].is_cuda:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording_dp
+    try:
+        t0 = time.perf_counter()
+        (text_a, st_a), got_a = counted(
+            lambda: run_sharded(sa, batches[:2], ref), "the sharded SE run")
+        (text_b, st_b), got_b = counted(
+            lambda: run_sharded(sa, batches[2:], ref), "the sharded SE run")
+        dt = time.perf_counter() - t0
+    finally:
+        tpipe.dp_score = real_dp
+    check(sa.uploads == S, "the resident SE run uploaded a shard again")
+    se_launches = {k: got_a[k] + got_b[k] for k in got_a}
+    text = text_a + text_b
+    stats = {k: st_a[k] + st_b[k] for k in st_a}
+    rate, true_rate, indel_rate = check_sam(text, n, starts[:n], indel[:n],
+                                            ref=ref)
+    srps = n / dt
+    print(f"[sharded] SE: {n} reads in {dt:.3f} s = {srps:.1f} reads/s end "
+          f"to end ({srps / rps:.3f} of phase 4's {rps:.1f}); aligned "
+          f"{rate:.4f}, indel-free at true position {true_rate:.4f}, indel "
+          f"reads aligned {indel_rate:.4f}; stats {stats}; launches "
+          f"{se_launches} [{card}]", flush=True)
+
+    with HostRescue() as hr:
+        t0 = time.perf_counter()
+        (pe_a, pst_a), pgot_a = counted(
+            lambda: run_sharded(sa, pe_batches[:1], ref),
+            "the sharded PE run", ("dp_score", "dp_score_wide"))
+        (pe_b, pst_b), pgot_b = counted(
+            lambda: run_sharded(sa, pe_batches[1:], ref),
+            "the sharded PE run", ("dp_score", "dp_score_wide"))
+        pe_dt = time.perf_counter() - t0
+    check(sa.uploads == S, "the resident PE run uploaded a shard again")
+    check(hr.launches > 0, "the host-mode ladder rescue launched no "
+                           "one-block DP on the sharded genome")
+    pe_text = pe_a + pe_b
+    pe_stats = {k: pst_a[k] + pst_b[k] for k in pst_a}
+    pe_launches = {k: pgot_a[k] + pgot_b[k] for k in pgot_a}
+    share, m1_rate, mate_rate = check_pe_sam(pe_text, pe_n, m1_true,
+                                             pe_indel, ref=ref)
+    spps = pe_n / pe_dt
+    peak = torch.cuda.max_memory_allocated() / (1 << 20)
+    print(f"[sharded] PE: {pe_n} pairs in {pe_dt:.3f} s = {spps:.1f} "
+          f"pairs/s end to end ({spps / pps:.3f} of phase 5's {pps:.1f}); "
+          f"proper pairs {share:.4f}, mate 1 of indel-free pairs at true "
+          f"position {m1_rate:.4f}, mates aligned {mate_rate:.4f}; stats "
+          f"{pe_stats}; launches {pe_launches}, of them the host-mode "
+          f"ladder rescue's one-block DP {hr.launches}; peak device memory "
+          f"{peak:.1f} MiB [{card}]", flush=True)
+
+    m = measure_batch(sa, lambda s, b: b,
+                      lambda s, b, w: s.align_and_emit([b], w),
+                      (batches[0],))
+    print(f"[sharded] one SE batch of {BATCH} reads alone over {S} "
+          f"resident shards: {m['launches']} launches, device busy "
+          f"{m['busy_ms']:.2f} ms ({m['busy_ms'] / m['wall_ms']:.4f} of "
+          f"{m['wall_ms']:.1f} ms wall) [{card}]", flush=True)
+
+    # -- a budget below two shards: every pass uploads each shard again --
+    held = torch.cuda.memory_allocated()
+    del sa
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_allocated()
+    gb = 1.5 * max(est) / (1 << 30)
+    os.environ["HISAT2_TPU_HBM_GB"] = repr(gb)
+    try:
+        sa = ShardedAligner(sh, device="cuda")
+    finally:
+        os.environ.pop("HISAT2_TPU_HBM_GB")
+    ftext, _ = run_sharded(sa, batches[:2], ref)
+    fpe, _ = run_sharded(sa, pe_batches[:1], ref)
+    check(ftext == text_a, "SE SAM under the forced budget != resident")
+    check(fpe == pe_a, "PE SAM under the forced budget != resident")
+    check(sa.evictions > 0 and sa.uploads == 2 * S,
+          f"forced budget: {sa.uploads} uploads, {sa.evictions} evictions")
+    f_upload_s = sa.upload_s / sa.uploads
+    print(f"[sharded] budget forced to {gb:.3f} GiB (below two shards): 2 "
+          f"SE batches and 1 PE batch, SAM bytes == the resident run's; "
+          f"{sa.uploads} uploads of {f_upload_s:.3f} s each, "
+          f"{sa.evictions} evictions; deleting the resident aligner freed "
+          f"{freed / (1 << 30):.2f} GiB [{card}]", flush=True)
+    del sa
+    torch.cuda.empty_cache()
+    check(bool(captured), "the sharded SE run launched no DP")
+    check(hr.captured is not None, "no host-mode rescue DP captured")
+    return dict(captured=captured[0], launches=se_launches["dp_score"],
+                captured_host=hr.captured, host_launches=hr.launches,
+                rps=srps, pps=spps, upload_s=upload_s,
+                f_upload_s=f_upload_s, batch=m, est=est, real=real,
+                peak_mb=peak, build_s=t_build, rss_gb=rss)
+
+
+def plant_repeats(codes: np.ndarray, seed: int):
+    """Repeat families written into a copy of `codes`: REP_SHORT families
+    of 300 bp x 50 copies and REP_LONG of 1-6 kb x 8 copies, a third of
+    the copies reverse-complemented, a quarter of them with one SNV
+    outside the unit's middle third. Long copies take 6.5 kb slots in the
+    first 2 Mbp, short ones 400 bp slots after 2.1 Mbp. Returns (codes,
+    [(start, length) of every copy without an SNV])."""
+    from hisat2_tpu_torch.utils import alphabet
+    rng = np.random.default_rng(seed)
+    codes = codes.copy()
+    exact = []
+    jobs = [(300, 50)] * REP_SHORT + [(int(rng.integers(1000, 6001)), 8)
+                                      for _ in range(REP_LONG)]
+    long_slots = list(rng.permutation(2_000_000 // 6500) * 6500 + 100)
+    short_slots = list(rng.permutation((codes.size - 2_100_000) // 400)
+                       * 400 + 2_100_000)
+    for length, copies in jobs:
+        unit = rng.integers(0, 4, length).astype(np.uint8)
+        slots = long_slots if length > 300 else short_slots
+        for k in range(copies):
+            p = int(slots.pop())
+            cp = (unit if k % 3 else alphabet.revcomp(unit)).copy()
+            if k % 4 == 3:
+                q = int(rng.integers(0, length // 3))
+                q = q if rng.random() < 0.5 else length - 1 - q
+                cp[q] = (cp[q] + 1) % 4
+            else:
+                exact.append((p, length))
+            codes[p:p + length] = cp
+    return codes, exact
+
+
+def repeat_phase(codes4, card):
+    """Phase 11 (see the module docstring). Returns the DP kernel's
+    inputs as RepeatAligner.align_batch built them, its launches, and the
+    figures of the report."""
+    import torch
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import RepeatAligner
+    from hisat2_tpu_torch.index.fm_index import build_fm_index
+    from hisat2_tpu_torch.index.repeats import (build_kmer_table,
+                                                build_repeats,
+                                                classify_repetitive)
+    from hisat2_tpu_torch.io.reads import Read, batchify
+    from hisat2_tpu_torch.io.reference import reference_from_seqs
+    from hisat2_tpu_torch.utils import alphabet
+    codes, exact = plant_repeats(codes4, seed=70)
+    ref = reference_from_seqs({"rep_synthetic": alphabet.decode(codes)})
+    t0 = time.perf_counter()
+    db = build_repeats(ref, repeat_length=100, repeat_count=5)
+    t_db = time.perf_counter() - t0
+    rep_fm = build_fm_index(reference_from_seqs(
+        {r.name: alphabet.decode(r.seq) for r in db.repeats}))
+    table = build_kmer_table(db)
+    t_build = time.perf_counter() - t0
+    print(f"[repeats] {REP_SHORT} families of 300 bp x 50 and {REP_LONG} "
+          f"of 1-6 kb x 8 planted in phase 4's genome: build_repeats "
+          f"{t_db:.1f} s -> {len(db.repeats)} repeats of "
+          f"{sum(len(r) for r in db.repeats)} bp, repeat index and "
+          f"minimizer table ({table.size}) in {t_build:.1f} s total",
+          flush=True)
+
+    seqs, _, _ = simulate_reads(ref.joined, BATCH, seed=71)
+    lens = np.full(BATCH, RDLEN, np.int64)
+    t0 = time.perf_counter()
+    rep_mask = classify_repetitive(seqs, lens, table)
+    t_cls = time.perf_counter() - t0
+    rows = np.flatnonzero(rep_mask)
+    check(rows.size >= 1000, f"only {rows.size} reads classified repetitive")
+    q = np.full(RDLEN, 40, np.int8)
+
+    def batch_of(rs, sq):
+        return batchify([Read(f"r{i}", sq[i], q, i) for i in rs])
+    ra = RepeatAligner(rep_fm, db, device="cuda")
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured and a[0].is_cuda:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording_dp
+    try:
+        t0 = time.perf_counter()
+        out, got = counted(lambda: ra.align_repeats(batch_of(rows, seqs)),
+                           "RepeatAligner.align_repeats")
+        dt = time.perf_counter() - t0
+    finally:
+        tpipe.dp_score = real_dp
+    placed = sum(o is not None for o in out)
+    print(f"[repeats] classify_repetitive: {rows.size} of {BATCH} reads "
+          f"repetitive in {t_cls:.3f} s; align_repeats on them "
+          f"{rows.size / dt:.1f} reads/s ({dt:.3f} s), {placed} placed, "
+          f"{sum(len(o[4]) for o in out if o)} genomic placements; "
+          f"launches {got} [{card}]", flush=True)
+
+    small = batch_of(rows[:2048], seqs)
+    cpu = RepeatAligner(rep_fm, db, device="cpu").align_repeats(small)
+    check(ra.align_repeats(small) == cpu,
+          "align_repeats on the card != CPU path")
+    # error-free reads cut from copies without an SNV: the true start must
+    # be among the expanded placements
+    rng = np.random.default_rng(72)
+    ex = [exact[int(k)] for k in rng.integers(0, len(exact), 2048)]
+    st = np.asarray([p + int(rng.integers(0, ln - RDLEN + 1))
+                     for p, ln in ex])
+    gseqs = ref.joined[st[:, None] + np.arange(RDLEN)].copy()
+    gseqs[1::2] = 3 - gseqs[1::2, ::-1]
+    gout = ra.align_repeats(batch_of(range(2048), gseqs))
+    hit = np.asarray([o is not None and any(p[2] == s for p in o[4])
+                      for o, s in zip(gout, st)])
+    print(f"[repeats] align_repeats on the card == CPU path on 2048 "
+          f"repetitive reads; {hit.mean():.4f} of 2048 error-free reads "
+          f"from exact copies hold their true position among the "
+          f"placements", flush=True)
+    check(hit.mean() >= 0.95, f"true position among the placements for "
+                              f"only {hit.mean():.4f}")
+    check(bool(captured), "align_repeats launched no DP")
+    return dict(captured=captured[0], launches=got["dp_score"],
+                rps=rows.size / dt, build_s=t_build, hit=float(hit.mean()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1996,6 +2583,14 @@ def main() -> int:
                         args.profile)
     phase_done("RNA PE path")
 
+    # -- sharded genome ------------------------------------------------------
+    shres = sharded_phase(rps, pps, card)
+    phase_done("sharded genome")
+
+    # -- repeats ---------------------------------------------------------------
+    repres = repeat_phase(codes, card)
+    phase_done("repeats")
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
@@ -2055,7 +2650,13 @@ def main() -> int:
              "RNA PE path (the 2B-row spliced step, streams with and "
              "without known sites)"),
             ("dp_score_wide", pres["captured_wide"],
-             pres["launches"]["dp_score_wide"], "RNA PE ladder rescue")):
+             pres["launches"]["dp_score_wide"], "RNA PE ladder rescue"),
+            ("dp_score", shres["captured"], shres["launches"],
+             "sharded genome, the per-shard SE step (1.0 Gbp, 3 shards)"),
+            ("dp_score_wide", shres["captured_host"], shres["host_launches"],
+             "sharded genome, the host-mode ladder rescue (PE)"),
+            ("dp_score", repres["captured"], repres["launches"],
+             "RepeatAligner.align_batch on the repeat index")):
         rd, pen, rl, ref, scp_cum = cap[:5]
         ov = cap[5] if len(cap) > 5 else None
         check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
@@ -2134,7 +2735,22 @@ def main() -> int:
           f"batch alone {pb['launches']} launches, device busy "
           f"{pb['busy_ms']:.2f} ms ({pb['busy_ms'] / pb['wall_ms']:.4f} of "
           f"{pb['wall_ms']:.1f} ms), queue {pb['queue_ms']:.1f} ms, peak "
-          f"device memory {pb['peak_mb']:.1f} MiB; whole run "
+          f"device memory {pb['peak_mb']:.1f} MiB [{card}]", flush=True)
+    sb = shres["batch"]
+    print(f"[report] sharded genome of {SHARD_CHROMS * SHARD_CHROM_LEN} bp "
+          f"in 3 shards: SE {shres['rps']:.1f} reads/s "
+          f"({shres['rps'] / rps:.3f} of phase 4's), PE {shres['pps']:.1f} "
+          f"pairs/s ({shres['pps'] / pps:.3f} of phase 5's); all shards "
+          f"resident under the default budget, an upload "
+          f"{shres['upload_s']:.3f} s ({shres['f_upload_s']:.3f} s under "
+          f"the forced budget); bundle bytes estimated == real "
+          f"{shres['real']}; build {shres['build_s']:.1f} s; one SE batch "
+          f"alone {sb['launches']} launches, device busy "
+          f"{sb['busy_ms']:.2f} ms; peak device memory "
+          f"{shres['peak_mb']:.1f} MiB [{card}]", flush=True)
+    print(f"[report] repeats: index built in {repres['build_s']:.1f} s, "
+          f"align_repeats {repres['rps']:.1f} reads/s, true position among "
+          f"the placements {repres['hit']:.4f}; whole run "
           f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -15,10 +15,13 @@ selection of the reportable records and the native column formatter
 (format_se_batch2), the same ladder for the odd reads. So does --tmo.
 
 In RNA mode (AlignerOpts.spliced) the packed path's host half is
-_finish_fastpack_rna: the splice rescue runs first and the formatting
+_finish_fastpack_cols: the splice rescue runs first and the formatting
 after, so contiguous winners rejoin the column formatter and
 single-junction winners take a vectorized spliced finish; the legacy
 path runs the same rescue and ranks spliced candidates in its ladder.
+The sharded finish (align/sharded.py) takes _finish_fastpack_cols too,
+DNA or RNA, with the host-merged pack, a force_slow mask of cross-shard
+multireads and the merged candidate grid of every read.
 Spliced paired-end batches take align/paired_rna.py (both mates as one
 2B-read spliced step, pairing on the host); with --tmo, or Zs:Z tags on a
 graph index, the per-pair ladder (paired.align_pairs + pairs_to_sam).
@@ -446,10 +449,17 @@ def _slow_ladder(al, batch, merged, slow, filtered, min_scs, lens,
 
 
 def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
-                     merged_dev, writer, ex: dict | None) -> dict:
+                     merged_dev, writer, ex: dict | None, force_slow=None,
+                     merged_full=None) -> dict:
     """Host half of the packed SE path: format fast reads natively from
     the int16 fastpack, run the slow reads' ladder, and stitch output in
-    read order."""
+    read order.
+
+    The sharded finish passes a host-merged fastpack, `ex` = the merged
+    splice lanes (slow_pack, RNA) or None, a force_slow mask (cross-shard
+    multireads take the ladder) and merged_full (every read's candidate
+    grid, global coordinates) with merged_dev None; those take the column
+    formatter, as in hisat2_tpu."""
     sc = al.scoring
     lens = batch.lens.astype(np.int64)
     L = batch.seqs.shape[1]
@@ -458,9 +468,10 @@ def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
            & (np.arange(L)[None, :] < lens[:, None])).sum(axis=1)
     filtered = (lens == 0) | (nNs > sc.n_ceil.I + sc.n_ceil.S * lens)
     KFB = (fp.shape[1] - 4) // FASTPACK_REP
-    if al.opts.spliced:
-        return _finish_fastpack_rna(al, batch, fp, merged_dev, writer, ex,
-                                    lens, L, min_scs, filtered, KFB)
+    if al.opts.spliced or force_slow is not None or merged_full is not None:
+        return _finish_fastpack_cols(al, batch, fp, merged_dev, writer, ex,
+                                     lens, L, min_scs, filtered, KFB,
+                                     force_slow, merged_full)
     fast, fbuf, read_end, stats, nvalid = _native_fast_se(
         al, batch, fp, ex, KFB, lens, L)
     return _finish_slow_and_stitch(
@@ -468,20 +479,24 @@ def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         lens, fbuf, read_end, stats)
 
 
-def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
-                         merged_dev, writer, ex: dict | None, lens, L: int,
-                         min_scs, filtered, KFB: int) -> dict:
-    """The RNA-mode host half of the packed SE path (the JAX package's
-    non-native tail of _finish_fastpack): unpack the fastpack's report
-    lanes, hold back the reads whose score can hide a junction, run the
+def _finish_fastpack_cols(al: Aligner, batch: ReadBatch, fp: np.ndarray,
+                          merged_dev, writer, ex: dict | None, lens, L: int,
+                          min_scs, filtered, KFB: int, force_slow=None,
+                          merged_full=None) -> dict:
+    """The column-formatter host half of the packed SE path (the JAX
+    package's non-native tail of _finish_fastpack): unpack the fastpack's
+    report lanes and format the fast reads with _format_records3. DNA:
+    the slow reads (force_slow ones among them) take the per-read ladder.
+    RNA: hold back the reads whose score can hide a junction, run the
     splice rescue on them first — the step's pass-1 lanes, then one
     cleanup for the rows the step missed and the sites published since —
-    and format after: contiguous winners rejoin the column formatter
-    (_format_records3), single-junction winners take the vectorized
-    spliced finish (_spliced_fin_rows + _format_records), the rest the
-    per-read finalization. Output order is read order."""
+    and format after: contiguous winners rejoin the column formatter,
+    single-junction winners take the vectorized spliced finish
+    (_spliced_fin_rows + _format_records), the rest the per-read
+    finalization. Output order is read order."""
     B = len(batch)
     o = al.opts
+    rna = o.spliced
     sc = al.scoring
     khits = o.khits
     # tiered multi-report buckets (_stage_fastpack MB extras): tier t
@@ -563,24 +578,28 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         fast &= (nrep <= k) | okf
     fastble = fast.copy()     # native eligibility, before the RNA gate
     fast |= unal
-    # splice-rescue trigger (host source of truth; the device ships
-    # grids for its own prediction of this set): imperfect beyond the
-    # min-anchor clip margin, or a known junction inside the primary
-    # span. Unfiltered unaligned reads may hide junction-only
-    # placements in their sub-threshold grids — they stay slow too.
-    perfect = (sc.match_bonus * lens).astype(np.int64)
-    margin = al._spl_margin(batch)
-    p0 = reps[0]["pos"]
-    trig = aligned & (best < perfect - margin)
-    if len(al.ssdb):
-        kl, _kr = al.ssdb.lefts_rights()
-        kr_sorted, _klr = al.ssdb.rights_sorted()
-        trig |= aligned & (
-            (np.searchsorted(kl, p0 + lens - 1)
-             > np.searchsorted(kl, p0 + 1))
-            | (np.searchsorted(kr_sorted, p0 + lens - 1)
-               > np.searchsorted(kr_sorted, p0 + 1)))
-    fast &= ~(trig | (unal & ~filtered))
+    if rna:
+        # splice-rescue trigger (host source of truth; the device ships
+        # grids for its own prediction of this set): imperfect beyond the
+        # min-anchor clip margin, or a known junction inside the primary
+        # span. Unfiltered unaligned reads may hide junction-only
+        # placements in their sub-threshold grids — they stay slow too.
+        perfect = (sc.match_bonus * lens).astype(np.int64)
+        margin = al._spl_margin(batch)
+        p0 = reps[0]["pos"]
+        trig = aligned & (best < perfect - margin)
+        if len(al.ssdb):
+            kl, _kr = al.ssdb.lefts_rights()
+            kr_sorted, _klr = al.ssdb.rights_sorted()
+            trig |= aligned & (
+                (np.searchsorted(kl, p0 + lens - 1)
+                 > np.searchsorted(kl, p0 + 1))
+                | (np.searchsorted(kr_sorted, p0 + lens - 1)
+                   > np.searchsorted(kr_sorted, p0 + 1)))
+        fast &= ~(trig | (unal & ~filtered))
+    if force_slow is not None:
+        fast &= ~force_slow
+        fastble &= ~force_slow
 
     mqc = _MapqCache(sc)
     stats = dict(reads=B, unal=0, uniq=0, multi=0)
@@ -590,19 +609,22 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
     # missed fall back to a gather, dispatched BEFORE formatting fast
     # reads so its dispatch+transfer latency hides under the host work
     slow = np.flatnonzero(~fast)
-    # junction reads often have NO contiguous candidate above min score —
-    # their sub-threshold grids still seed the diagonal pairs
-    grows = slow[~filtered[slow]]
+    if rna:
+        # junction reads often have NO contiguous candidate above min
+        # score — their sub-threshold grids still seed the diagonal pairs
+        grows = slow[~filtered[slow]]
+    else:
+        grows = slow[~filtered[slow] & (nvalid[slow] >= 1)]
     srows_h = smg_h = None
     mg_fut = None
-    if ex is not None and "srows" in ex:
+    if merged_full is None and ex is not None and "srows" in ex:
         srows_h = ex["srows"]
         smg_h = _unpack_smerged(ex["smerged"])
         miss = grows[~np.isin(grows, srows_h)]
         mg_fut = (al.gather_merged_async(merged_dev, miss)
                   if miss.size else None)
         grows = miss
-    else:
+    elif merged_full is None:
         mg_fut = al.gather_merged_async(merged_dev, grows)
 
     def fmt_fast(fastm):
@@ -678,6 +700,8 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         return fbuf, read_end
 
     def build_merged():
+        if merged_full is not None:
+            return merged_full
         K2 = (smg_h.shape[1] if smg_h is not None
               else merged_dev.shape[1])
         msc = np.full((B, K2), NEG_INF, np.int64)
@@ -701,6 +725,12 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         return dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
 
     slow_out: dict[int, list] = {}
+    if not rna:
+        fbuf, read_end = fmt_fast(fast)
+        if slow.size:
+            slow_out = _slow_ladder(al, batch, build_merged(), slow,
+                                    filtered, min_scs, lens, stats)
+        return _stitch_cols(writer, fbuf, fast, read_end, slow_out, stats)
     # RNA: rescue FIRST, format after — contiguous winners rejoin
     # the native fast path instead of the per-read ladder, and
     # spliced winners format through the vectorized column path.
@@ -808,6 +838,8 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
     # contiguous winners (and unaligned leftovers) rejoin the native
     # path; spliced winners + non-native-eligible rows handled below
     fast = (fastble | unal) & ~swin
+    if force_slow is not None:
+        fast &= ~force_slow
     vec_done = np.zeros(B, bool)
     if svec.any():
         vr = np.flatnonzero(svec)
@@ -883,6 +915,13 @@ def _finish_fastpack_rna(al: Aligner, batch: ReadBatch, fp: np.ndarray,
                 stats["uniq"] += 1
             slow_out[i] = lines
     fbuf, read_end = fmt_fast(fast)
+    return _stitch_cols(writer, fbuf, fast, read_end, slow_out, stats)
+
+
+def _stitch_cols(writer, fbuf: bytes, fast, read_end, slow_out: dict,
+                 stats: dict) -> dict:
+    """Write the column formatter's text of the fast reads and the ladder's
+    lines of the slow ones in read order; returns `stats`."""
     w = writer.out.write
     if not slow_out:
         if fbuf:
@@ -1324,10 +1363,12 @@ def _u8(a):
         np.ascontiguousarray(a.astype(np.uint8))
 
 
-def _native_fast_pe(al, b1, b2, fp, ex, NRB):
+def _native_fast_pe(al, b1, b2, fp, ex, NRB, force_slow=None):
     """One-call native PE fast path (finish_pe_native): pair-pack ->
     fast-pair mask + interleaved concordant records + SAM bytes + stats
-    with the GIL released. Returns (fast, fbuf, pair_end, stats)."""
+    with the GIL released. force_slow marks pairs that must take the
+    ladder (the sharded merge's cross-shard multi-placements). Returns
+    (fast, fbuf, pair_end, stats)."""
     lib = samfmt_lib()
     B = len(b1)
     o = al.opts
@@ -1393,7 +1434,9 @@ def _native_fast_pe(al, b1, b2, fp, ex, NRB):
         rn_buf, rn_off, name_buf, name_off,
         float(sc.score_min.I), float(sc.score_min.S),
         np.int32(sc.match_bonus), np.int32(o.khits), np.int32(NR),
-        np.int32(1 if o.omit_sec_seq else 0), np.zeros(B, np.uint8),
+        np.int32(1 if o.omit_sec_seq else 0),
+        np.zeros(B, np.uint8) if force_slow is None else
+        np.ascontiguousarray(np.asarray(force_slow).astype(np.uint8)),
         fast_u8, pair_end, outbuf, np.int64(cap), stats_a,
         cols, mm_out, rec_ends)
     if total < 0:
@@ -1408,14 +1451,21 @@ def _native_fast_pe(al, b1, b2, fp, ex, NRB):
 
 
 def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
-                    writer) -> dict:
+                    writer, force_slow=None) -> dict:
     """Host half of the packed PE step: decode the wire-coded pack,
     format the fast pairs natively, run the slow pairs' ladder, and stitch
-    output in pair order."""
+    output in pair order.
+
+    The sharded finish passes out = (pack, m1, m2, pair_top, None, None)
+    as numpy arrays merged on the host (int16 pack, global coordinates)
+    and a force_slow mask of its cross-shard multi-placement pairs."""
     pack, _m1, _m2, _pt, extras, _ready = out
-    fp = pack.numpy()
-    ex = {k: v.numpy() for k, v in extras.items() if k != "_wire"}
-    if pack.dtype == torch.int32:
+    if isinstance(pack, np.ndarray):
+        fp, ex = pack, None
+    else:
+        fp = pack.numpy()
+        ex = {k: v.numpy() for k, v in extras.items() if k != "_wire"}
+    if torch.is_tensor(pack) and pack.dtype == torch.int32:
         # wire-coded copy (ops/wire.py): expand to int16 lanes
         fp = _wire.as_words(fp)
         Lw, nvb = extras["_wire"]
@@ -1428,7 +1478,8 @@ def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
                                                  wr.shape[1] // NWr)
             t += 1
     NRB = _paired.pepack_nr(fp.shape[1])     # report slots in the base pack
-    fast, fbuf, pair_end, stats = _native_fast_pe(al, b1, b2, fp, ex, NRB)
+    fast, fbuf, pair_end, stats = _native_fast_pe(al, b1, b2, fp, ex, NRB,
+                                                  force_slow)
     return _finish_pe_slow_and_stitch(
         al, b1, b2, ex, out, writer, fast, fp[:, -1].astype(np.int64),
         fp[:, 0].astype(np.int64), b1.lens.astype(np.int64),
@@ -1732,7 +1783,13 @@ def _finish_pe_slow_and_stitch(al, b1, b2, ex, out, writer, fast, aux,
     else:
         hit = np.zeros(grows.size, bool)
     miss = grows[~hit]
-    g_fut = _paired._gather_pe_slow(m1_dev, m2_dev, pt_dev, miss)
+    if isinstance(m1_dev, np.ndarray):
+        # host-merged global grids (the sharded finish): slice directly,
+        # keeping int64 global positions
+        g_fut = ((lambda: (m1_dev[miss], m2_dev[miss], pt_dev[miss]))
+                 if miss.size else None)
+    else:
+        g_fut = _paired._gather_pe_slow(m1_dev, m2_dev, pt_dev, miss)
 
     slow_out: dict[int, list] = {}
     if slow.size:

@@ -745,16 +745,23 @@ def mate_fns(aligner: Aligner):
     return mate_cands, finalize
 
 
-def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch
-                ) -> list[PairResult]:
+def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch,
+                premerged=None, dev_lanes=None) -> list[PairResult]:
     """The per-pair path: the fused step (or, with seed_mode=False, each
     mate's per-read device path and the host grid), in RNA mode each
     mate's splice rescue (paired_rna.rescue_pair_rna), then the ladder for
-    every pair (the oracle of the fast emit paths)."""
+    every pair (the oracle of the fast emit paths).
+
+    premerged: optional (m1, m2) candidate dicts already computed (the
+    sharded path merges per-shard grids into global coordinates and runs
+    the rest of the pairing on the host). dev_lanes: optional per-mate
+    splice-lane tuples of the device steps, fed to the splice rescue."""
     o = aligner.opts
     B = len(b1)
     pair_top = None
-    if o.seed_mode:
+    if premerged is not None:
+        m1, m2 = premerged
+    elif o.seed_mode:
         m1, m2, pair_top, _f1, _f2, _s1, _s2 = stage_pe_fused(
             aligner, b1, b2, KP=max(8, o.khits + 3), KF=1)
     else:
@@ -764,7 +771,8 @@ def align_pairs(aligner: Aligner, b1: ReadBatch, b2: ReadBatch
         m2 = aligner._merged_host(st2, dp2, B)
     if o.spliced:
         from .paired_rna import rescue_pair_rna
-        rescue_pair_rna(aligner, b1, b2, m1, m2)
+        rescue_pair_rna(aligner, b1, b2, m1, m2,
+                        dev_lanes=dev_lanes or (None, None))
     mate_cands, finalize = mate_fns(aligner)
 
     if pair_top is not None:
@@ -899,7 +907,11 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
     concordant. One batched DP (ops/dp_cuda.dp_score: the wide kernel on
     a card) and one ungapped placement over all rescue lanes, or none
     when `dev_cache` (the packed step's rescue rows) already carries each
-    lane's DP score and placement."""
+    lane's DP score and placement. A finalization-only aligner (the
+    sharded finish, Aligner.host_only) has no text on the device: its
+    windows come from the host reference, the same DP kernel scores them
+    on the aligner's device, and the ungapped placement runs on the host
+    (_rescue_ungapped), in global coordinates."""
     o = aligner.opts
     sc = aligner.scoring
     lanes = []
@@ -937,8 +949,9 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
         q[k, :rdlen] = qq
         rls[k] = rdlen
         wstarts[k] = wstart
+    host_mode = not aligner.idx
     cached = None
-    if dev_cache is not None:
+    if dev_cache is not None and not host_mode:
         cached = []
         for (i, anchored, ac, wstart, mate_fw, rdlen) in lanes:
             ent = dev_cache.get(i)
@@ -959,14 +972,21 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev, I32)
         rd_t, q_t, rl_t = up(rd), up(q), up(rls)
-        win = _rank.text_window(aligner.idx, up(wstarts), W).contiguous()
+        if host_mode:
+            # global windows (int64 starts, past 2^31 on a human genome)
+            win = up(np.stack([aligner.fm.ref.get_stretch(int(l[3]), W)
+                               for l in lanes]))
+        else:
+            win = _rank.text_window(aligner.idx, up(wstarts), W)
+        win = win.contiguous()
         pen, scp_cum = _sw.dp_inputs(aligner.sctab, q_t, rl_t)
         scores = dp_score(rd_t, pen.contiguous(), rl_t, win,
                           scp_cum.contiguous(), **aligner.sc_const
                           ).cpu().numpy()
-        ub, ut0, ui1, ui2 = (x.cpu().numpy() for x in
-                             _sw.ungapped_place_batch(aligner.sctab, rd_t,
-                                                      q_t, rl_t, win))
+        if not host_mode:
+            ub, ut0, ui1, ui2 = (x.cpu().numpy() for x in
+                                 _sw.ungapped_place_batch(
+                                     aligner.sctab, rd_t, q_t, rl_t, win))
 
     # vectorized ungapped placement for every passing lane: most rescued
     # mates align without gaps, and where the best diagonal scores the
@@ -975,23 +995,28 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
                if scores[k] >= sc.min_score(rl)]
     windows = {k: aligner.fm.ref.get_stretch(int(lanes[k][3]), W)
                for k in passing}
-    ung = {}
-    for k in passing:
-        if int(ub[k]) < scores[k]:
-            continue                                  # gapped optimum
-        t0, i1, i2 = int(ut0[k]), int(ui1[k]), int(ui2[k])
-        rdlen = int(rls[k])
-        cigar = []
-        if i1:
-            cigar.append(("S", i1))
-        cigar.append(("M", i2 - i1))
-        if rdlen - i2:
-            cigar.append(("S", rdlen - i2))
-        wl = windows[k][t0 + i1:t0 + i2].astype(np.int64)
-        rl_ = rd[k, i1:i2]
-        bad = (wl != rl_) | (wl >= 4) | (rl_ >= 4)
-        mds = [(int(i + i1), int(t0 + i + i1)) for i in np.flatnonzero(bad)]
-        ung[k] = (int(ub[k]), t0 + i1, cigar, mds)
+    if host_mode:
+        ung = _rescue_ungapped(sc, rd, q, rls, lanes, windows, scores,
+                               passing)
+    else:
+        ung = {}
+        for k in passing:
+            if int(ub[k]) < scores[k]:
+                continue                                  # gapped optimum
+            t0, i1, i2 = int(ut0[k]), int(ui1[k]), int(ui2[k])
+            rdlen = int(rls[k])
+            cigar = []
+            if i1:
+                cigar.append(("S", i1))
+            cigar.append(("M", i2 - i1))
+            if rdlen - i2:
+                cigar.append(("S", rdlen - i2))
+            wl = windows[k][t0 + i1:t0 + i2].astype(np.int64)
+            rl_ = rd[k, i1:i2]
+            bad = (wl != rl_) | (wl >= 4) | (rl_ >= 4)
+            mds = [(int(i + i1), int(t0 + i + i1))
+                   for i in np.flatnonzero(bad)]
+            ung[k] = (int(ub[k]), t0 + i1, cigar, mds)
 
     for k, (i, anchored, ac, wstart, mate_fw, rdlen) in enumerate(lanes):
         min_sc = sc.min_score(rdlen)
@@ -1043,6 +1068,76 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
         pr.best = ac["score"] + int(s2)
         pr.secbest = None
         pr.res1 = pr.res2 = None
+
+
+def _rescue_ungapped(sc, rd, q, rls, lanes, windows, scores, passing):
+    """Exact ungapped placements for rescue lanes, vectorized.
+
+    For each passing lane, scores every diagonal placement of the mate in
+    its window with the same substitution/soft-clip model as the DP
+    (ops/sw.py): per-diagonal best clip pair is a max-subarray over
+    A[i] = cumsum(sub) + SCP(i). A lane whose best ungapped score equals
+    its device DP score needs no traceback — the optimum IS ungapped.
+    Returns {lane_k: (score, ref_start, cigar, mds)}.
+    """
+    out = {}
+    if not passing:
+        return out
+    mm_pens = sc.mm_pens()
+    sc_pens = sc.sc_pens()
+    mb, npen = sc.match_bonus, sc.n_pen
+    L = rd.shape[1]
+    BAD = -(10 ** 6)
+    for c0 in range(0, len(passing), 64):
+        ks = passing[c0:c0 + 64]
+        P2 = len(ks)
+        rdp = rd[ks].astype(np.int32)                      # (P2, L)
+        qp = np.clip(q[ks].astype(np.int32), 0, 63)
+        win = np.stack([windows[k] for k in ks]).astype(np.int32)
+        W = win.shape[1]
+        # pad L sentinel columns each side: covers diagonals whose clipped
+        # ends overhang the window (the DP clips them too — sentinel cols
+        # are BAD so no aligned base ever lands outside the real window)
+        wp = np.full((P2, W + 2 * L), 5, np.int32)
+        wp[:, L:L + W] = win
+        sv = np.lib.stride_tricks.sliding_window_view(wp, L, axis=1)
+        T = sv.shape[1]                                    # W + L + 1 diags
+        mm = sv != rdp[:, None, :]
+        isn = (sv >= 4) | (rdp >= 4)[:, None, :]
+        sub = np.where(mm & ~isn, -mm_pens[qp][:, None, :], 0)
+        sub = sub + np.where(~mm & ~isn, mb, 0)
+        sub = np.where(isn, -npen, sub)
+        sub = np.where(sv == 5, BAD, sub)
+        in_read = np.arange(L)[None, :] < rls[ks][:, None]
+        sub = np.where(in_read[:, None, :], sub, BAD)
+        scp = np.where(in_read, sc_pens[qp], 0)
+        SCP = np.concatenate(
+            [np.zeros((P2, 1), np.int64), np.cumsum(scp, axis=1)], axis=1)
+        A = SCP[:, None, :] + np.concatenate(
+            [np.zeros((P2, T, 1), np.int64), np.cumsum(sub, axis=2)],
+            axis=2)
+        runmin = np.minimum.accumulate(A, axis=2)
+        gains = A[:, :, 1:] - runmin[:, :, :-1]            # (P2, T, L)
+        best_it = gains.max(axis=2)
+        best = best_it.max(axis=1) - SCP[:, -1]
+        for kk, k in enumerate(ks):
+            if best[kk] < scores[k]:
+                continue                                   # gapped optimum
+            ti = int(best_it[kk].argmax())
+            i2 = int(gains[kk, ti].argmax()) + 1
+            i1 = int(A[kk, ti, :i2].argmin())
+            t = ti - L                                     # undo left pad
+            rdlen = int(rls[k])
+            cigar = []
+            if i1:
+                cigar.append(("S", i1))
+            cigar.append(("M", i2 - i1))
+            if rdlen - i2:
+                cigar.append(("S", rdlen - i2))
+            bad = mm[kk, ti] | isn[kk, ti]
+            mds = [(int(i), int(t + i)) for i in range(i1, i2) if bad[i]]
+            out[k] = (int(best[kk]), t + i1, cigar, mds)
+    return out
 
 
 def _mate_result(aligner, batch, i, cands, min_sc, rdlen, finalize

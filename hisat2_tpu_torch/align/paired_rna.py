@@ -70,7 +70,7 @@ def submit_pe_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch):
 def _rna_rescue_rounds(al: Aligner, bcat: ReadBatch, merged, ex,
                        lens) -> None:
     """Splice rescue and novel-site repair rounds over the 2B concatenated
-    rows (the PE mirror of emit._finish_fastpack_rna's rescue): the step's
+    rows (the PE mirror of emit._finish_fastpack_cols's rescue): the step's
     pass-1 lanes first, then the batch's newly published junctions fold
     into one combined cleanup rescue (cross-read site sharing)."""
     B2 = len(bcat)

@@ -27,7 +27,7 @@ turns it into the same SAM bytes.
 RNA mode (AlignerOpts.spliced): the same step also runs the splice pass 1
 (ops/splice.spliced_stage: junction lanes from the candidate grid and the
 site table, scored and gated, the anchor scan for short far anchors) and
-ships every row's grid; the host finish (emit._finish_fastpack_rna) runs
+ships every row's grid; the host finish (emit._finish_fastpack_cols) runs
 Aligner._splice_rescue and its cleanup rounds, publishes novel sites to
 the site table (Aligner.ssdb), chains further introns
 (_splice_second_pass) and finalizes spliced winners (_spliced_fin_rows,
@@ -787,6 +787,46 @@ def _stage_merge(pos, score, dp_score, B: int, K2: int):
 # Aligner: device orchestration + host-side finalization
 # ---------------------------------------------------------------------------
 
+class RepeatAligner:
+    """Repeat-index alignment (reference RFM path, hi_aligner.h:4151+):
+    reads that multi-map in the genome are aligned once against the
+    assembled repeat sequences (the per-read path, Aligner.align_batch,
+    on `device`); RepeatDB.expand recovers every genomic placement
+    (ht2_repeat_expand contract)."""
+
+    def __init__(self, rep_fm: FMIndex, repeat_db,
+                 scoring: Scoring = DEFAULT_SCORING, device="cuda"):
+        self.aligner = Aligner(rep_fm, scoring, device=device)
+        self.db = repeat_db
+
+    def align_repeats(self, batch: ReadBatch):
+        """Returns per read: None or (repeat_name, offset, fw, score,
+        genomic placements list)."""
+        results = self.aligner.align_batch(batch)
+        out = []
+        for res in results:
+            if not res.aligned:
+                out.append(None)
+                continue
+            a = res.alns[0]
+            name = self.aligner.fm.ref.names[a.tidx]
+            placements = self.db.expand(name, a.toff, a.ref_span)
+            out.append((name, a.toff, a.fw, a.score, placements))
+        return out
+
+
+def _refuse_local(scoring: Scoring) -> None:
+    if scoring.local:
+        # hisat2_tpu's device steps evaluate score_min as
+        # ceil(I + S * len) whatever its type, so local mode's G,20,8
+        # asks a 100 bp read for 820 where Scoring.min_score gives 57
+        # (scripts/local_mode_probe.py): nothing aligns there, and a
+        # port would copy that
+        raise NotImplementedError(
+            "local mode is not ported: hisat2_tpu evaluates its "
+            "log-type score_min as linear on the device")
+
+
 class Aligner:
     """Batched aligner over a built FM index, DNA or (opts.spliced)
     spliced RNA with a splice-site table of its own (ssdb). An index with
@@ -801,15 +841,7 @@ class Aligner:
         self.scoring = scoring
         self.opts = opts or AlignerOpts()
         o = self.opts
-        if scoring.local:
-            # hisat2_tpu's device steps evaluate score_min as
-            # ceil(I + S * len) whatever its type, so local mode's G,20,8
-            # asks a 100 bp read for 820 where Scoring.min_score gives 57
-            # (scripts/local_mode_probe.py): nothing aligns there, and a
-            # port would copy that
-            raise NotImplementedError(
-                "local mode is not ported: hisat2_tpu evaluates its "
-                "log-type score_min as linear on the device")
+        _refuse_local(scoring)
         self.device = torch.device(device)
         # the bundle carries the FM keys exactly when there is no table
         self.idx = fm.device_bundle(self.device)
@@ -844,6 +876,37 @@ class Aligner:
                 elif t == SNP_INS:
                     self._ins_snps[int(self.snps.jpos[si])] = \
                         self.snps.ins_seqs[si]
+
+    @classmethod
+    def host_only(cls, ref, scoring: Scoring = DEFAULT_SCORING,
+                  opts: AlignerOpts | None = None,
+                  device="cuda") -> "Aligner":
+        """Finalization-only Aligner over a (sharded-global) reference:
+        no index bundle (`idx` is empty), just the host-side candidate
+        ranking, CIGAR/MD and formatting machinery. The sharded path
+        (align/sharded.py) runs its device steps on per-shard Aligners and
+        finishes here; the ladder's mate rescue scores its windows with
+        the DP kernel on `device` (paired._rescue_mates)."""
+        from types import SimpleNamespace
+        _refuse_local(scoring)
+        self = cls.__new__(cls)
+        self.fm = SimpleNamespace(ref=ref, st_k=0, ftab_k=1,
+                                  n=int(ref.joined.size))
+        self.scoring = scoring
+        self.opts = opts or AlignerOpts()
+        self.device = torch.device(device)
+        self.idx = {}
+        self.seeder = self.fb_seeder = "host"
+        self.min_seg_len = 8
+        self.sctab = scoring.device_tables(self.device)
+        self.sc_const = scoring.dp_consts()
+        self.metrics = Metrics()
+        self.ssdb = SpliceSiteDB()
+        self.overlay = None
+        self.snps = None
+        self._del_snps = set()
+        self._ins_snps = {}
+        return self
 
     # ---- device orchestration ----
 
@@ -1219,14 +1282,16 @@ class Aligner:
             srows = trigger[live0]
         else:
             srows = np.zeros(0, np.int64)
-        if (P1 or srows.size) and (scan_covered
+        if (P1 or srows.size) and (not self.idx or scan_covered
                                    or dev_lanes is not None):
-            # host-scored legacy for the small lane sets of the stream's
-            # cleanup: a mid-finish device call queues behind the next
-            # batch's submit while the NumPy mirror scores a few
-            # thousand lanes in milliseconds. No anchor scan here: the
-            # fused dispatch's scan lanes are kept for uncovered trigger
-            # rows (bit 6), so only seeded re-enumeration is needed.
+            # host-scored legacy: (a) a finalization-only aligner (the
+            # sharded finish: no shard's arrays are at hand); (b) the small
+            # lane sets of the stream's cleanup: a mid-finish device call
+            # queues behind the next batch's submit while the NumPy mirror
+            # scores a few thousand lanes in milliseconds. No anchor scan
+            # here: the fused dispatch's scan lanes are kept for uncovered
+            # trigger rows (bit 6), so only seeded re-enumeration is
+            # needed.
             if P1:
                 rd_h, q_h = self._host_oriented(batch, s_row, s_fa)
                 kl_h, kr_h = self.ssdb.lefts_rights()
@@ -1878,9 +1943,10 @@ class Aligner:
         seglen = np.where(lside_L, lj, rlv - lj)
         pA2 = np.where(lside_L, lpd, lpB + lj).astype(np.int32)
         pB2 = np.where(lside_L, lpA, lpd + lj).astype(np.int32)
-        if P <= 131072:
+        if not self.idx or P <= 131072:
             # NumPy segment scoring against the joined text
-            # (ops/splice_host): small lane sets beat a mid-finish device
+            # (ops/splice_host): a finalization-only aligner has no index
+            # on the device, and small lane sets beat a mid-finish device
             # round trip
             li, lfw, start, seglen = (x[:P] for x in
                                       (li, lfw, start, seglen))

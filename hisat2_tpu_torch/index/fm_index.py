@@ -81,6 +81,9 @@ class FMIndex:
     # positions %% st_stride == 0 are stored; seed offsets jitter by
     # residue so every diagonal stays reachable (ops/search.table_seed)
     st_stride: int = 1
+    # a table-only index (index/sharded.build_table_index) holds 1-block
+    # dummies in its FM fields; its bundle, having a table, uploads none
+    table_only: bool = False
 
     @property
     def m(self) -> int:
@@ -191,6 +194,32 @@ class FMIndex:
                     samp_ival=int(1 << self.offrate))
         return out
 
+    def bundle_nbytes(self) -> int:
+        """Bytes device_bundle() would put on the device, from the host
+        arrays' shapes alone (nothing is built or uploaded): what a shard
+        costs before it is brought to the card."""
+        tot = 0
+        has_table = bool(self.st_k and self.st_starts is not None)
+        if has_table:
+            rw = 128 if self.n > 3 * (4 ** self.st_k) else 32
+            tot += 4 * self.st_starts.size
+            tot += 4 * (-(-self.st_pos.size // rw) + 1) * rw
+            if self.st_starts.size <= (1 << 24) + 1:
+                tot += 8 * (self.st_starts.size - 1)
+        wt = self.text_packed.size
+        tot += 8 * wt                                   # text_packed
+        tot += 8 * 16 * (-(-wt // 16) + 1)              # text_rows
+        tot += 8 * 16 * (max(1, -(-(wt + 8) // 8)) + 1)  # text_rows_ov
+        tot += 3 * 4 * self.ref.frag_joined.size        # fragment tables
+        if not has_table:
+            tot += 8 * 12 * (self.occ.shape[0] - 1)      # sides
+            tot += 8 * self.bwt_packed.size
+            tot += 4 * (self.ccount.size + self.sa.size + self.ftab.size)
+            if self.offrate and self.samp_bits is not None:
+                tot += 8 * self.samp_bits.size
+                tot += 4 * (self.samp_rank.size + self.samp_vals.size)
+        return tot
+
     @staticmethod
     def bundle_bytes(bundle: dict) -> int:
         """Bytes the tensors of a device bundle hold."""
@@ -264,6 +293,7 @@ class FMIndex:
             "ccount", "sa", "ftab", "known_ss", "known_exons",
             "excluded_ss", "offrate", "samp_bits", "samp_rank", "samp_vals",
             "st_starts", "st_pos", "st_k", "st_stride")}
+        fields["table_only"] = bool(getattr(other, "table_only", False))
         fields.update(names=r.names, tlens=r.tlens, joined=r.joined,
                       frag_joined=r.frag_joined, frag_toff=r.frag_toff,
                       frag_tidx=r.frag_tidx, frag_len=r.frag_len)
@@ -312,7 +342,8 @@ class FMIndex:
                        samp_vals=fields.get("samp_vals"),
                        st_k=int(fields.get("st_k", 0)),
                        st_stride=int(fields.get("st_stride", 1)),
-                       st_starts=opt("st_starts"), st_pos=opt("st_pos"))
+                       st_starts=opt("st_starts"), st_pos=opt("st_pos"),
+                       table_only=bool(fields.get("table_only", False)))
 
 
 def _pack_to_blocks(codes: np.ndarray) -> np.ndarray:

@@ -56,7 +56,6 @@ class GraphFMIndex(FMIndex):
     patch_len: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
     snv_overlay: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
     # dense uint8 per primary position: 0 none, 1..4 alt+1, 15 multi
-    table_only: bool = False     # built without BWT/SA (build_graph_table_index)
 
     @property
     def is_graph(self) -> bool:
@@ -83,6 +82,13 @@ class GraphFMIndex(FMIndex):
                                    device=device),
             **{k: dev(getattr(self, k), torch.int32) for k in _PATCH_KEYS})
         return d
+
+    def bundle_nbytes(self) -> int:
+        """FMIndex.bundle_nbytes plus the graph keys."""
+        return (super().bundle_nbytes()
+                + 8 * -(-max(self.snv_overlay.size, 1) // 8)   # snv_packed
+                + 4                                             # primary_n
+                + 4 * len(_PATCH_KEYS) * self.patch_start.size)
 
     # ---------------- persistence ----------------
 
@@ -146,8 +152,7 @@ class GraphFMIndex(FMIndex):
         fields = FMIndex.fields_of(other)
         fields.update({k: getattr(other, k) for k in _PATCH_KEYS})
         fields.update(snps=snps, primary_n=other.primary_n,
-                      snv_overlay=other.snv_overlay,
-                      table_only=bool(getattr(other, "table_only", False)))
+                      snv_overlay=other.snv_overlay)
         return GraphFMIndex.from_arrays(fields)
 
     @staticmethod
@@ -158,7 +163,6 @@ class GraphFMIndex(FMIndex):
         return GraphFMIndex(
             **kw, snps=fields["snps"], primary_n=int(fields["primary_n"]),
             snv_overlay=fields["snv_overlay"],
-            table_only=bool(fields.get("table_only", False)),
             **{k: fields[k] for k in _PATCH_KEYS})
 
 

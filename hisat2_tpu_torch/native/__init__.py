@@ -196,6 +196,8 @@ def sais_lib() -> ctypes.CDLL:
     if not getattr(lib, "_configured", False):
         lib.sais_u8_i32.argtypes = [_u8, _i32, _c_i32, _c_i32]
         lib.sais_u8_i64.argtypes = [_u8, _i64, _c_i64, _c_i64]
+        lib.kasai_lcp_i64.restype = None
+        lib.kasai_lcp_i64.argtypes = [_u8, _i64, _i64, _c_i64]
         lib._configured = True
     return lib
 

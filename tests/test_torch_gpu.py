@@ -3,7 +3,8 @@ versions of the kernels): identical SAM bytes, on the table index and on
 every FM configuration (no table; sampled SA; seed_mode=False, SE and PE;
 the paired-k-mer and stride-sampled table modes), and on a graph index
 (SE, PE, FM-seeded, seed_mode=False, Zs:Z tags), and spliced (RNA)
-alignment, single-end and paired-end; the DP kernel's overlay
+alignment, single-end and paired-end; genome-sharded alignment (SE, PE,
+graph, RNA, tmo) and its eviction; RepeatAligner; the DP kernel's overlay
 instantiations against the plain version at the edge windows. Skips where
 CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
@@ -330,3 +331,92 @@ def test_wide_windows_sam_on_card_equals_cpu(what):
     on_card = sam("cuda")
     assert dp_cuda.launches[kernel] > before
     assert on_card == sam("cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", [c[0] for c in chip_smoke.SMALL_CONFIGS])
+def test_sharded_sam_on_card_equals_cpu(config):
+    """ShardedAligner on chip_smoke's small sharded genome (three shards,
+    cross-shard copies): SE, PE, a graph sharded index, RNA SE and PE with
+    known sites and tmo. The card's SAM and stats equal the CPU path's,
+    the DP kernels ran, and for PE the ladder's host-mode mate rescue
+    launched the one-block kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    case = chip_smoke.small_sharded_case()
+    _, index, reads, opts, known, need = next(
+        c for c in chip_smoke.SMALL_CONFIGS if c[0] == config)
+
+    def sam(device):
+        sa = chip_smoke.sharded_aligner(case, index, opts, known, device)
+        return chip_smoke.run_sharded(sa, case[reads], case["ref"])
+    before = dict(dp_cuda.launches)
+    with chip_smoke.HostRescue() as hr:
+        on_card = sam("cuda")
+    for k in need:
+        assert dp_cuda.launches[k] > before[k], k
+    if reads == "pe":
+        assert hr.launches > 0
+    assert on_card == sam("cpu")
+
+
+@pytest.mark.gpu
+def test_sharded_eviction_frees_card_memory(monkeypatch):
+    """Under a one-shard budget every activation evicts the shard before:
+    the card's allocated memory falls before the next bundle is built, and
+    the SAM bytes equal those of an aligner that keeps every shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from hisat2_tpu_torch.align import sharded as tsharded
+    case = chip_smoke.small_sharded_case()
+    sh = case["sh"]
+    resident = chip_smoke.run_sharded(
+        tsharded.ShardedAligner(sh, device="cuda"), case["se"], case["ref"])
+    one = max(s.bundle_nbytes() for s in sh.shards)
+    monkeypatch.setenv("HISAT2_TPU_HBM_GB", repr(1.5 * one / (1 << 30)))
+    sa = tsharded.ShardedAligner(sh, device="cuda")
+    sa._activate(0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    at_build = []
+    real = tsharded.Aligner
+
+    def recording(*a, **kw):
+        at_build.append(torch.cuda.memory_allocated())
+        return real(*a, **kw)
+    monkeypatch.setattr(tsharded, "Aligner", recording)
+    sa._activate(1)
+    monkeypatch.setattr(tsharded, "Aligner", real)
+    assert sa.evictions == 1 and list(sa._resident) == [1]
+    assert at_build[0] <= held - one
+    assert chip_smoke.run_sharded(sa, case["se"], case["ref"]) == resident
+    assert sa.evictions > 1
+
+
+@pytest.mark.gpu
+def test_repeat_aligner_on_card_equals_cpu():
+    """RepeatAligner.align_repeats on the card (the per-read path on the
+    repeat index) gives the CPU path's tuples, and its DP kernel ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from hisat2_tpu_torch.align.pipeline import RepeatAligner
+    from hisat2_tpu_torch.index.repeats import build_repeats
+    rng = np.random.default_rng(123)
+    codes = rng.integers(0, 4, 40000).astype(np.uint8)
+    for k in range(6):
+        unit = rng.integers(0, 4, 150 + 100 * k).astype(np.uint8)
+        for c in range(6):
+            p = 1000 + 6000 * k + 900 * c
+            codes[p:p + unit.size] = unit if c % 3 else alphabet.revcomp(unit)
+    ref = reference_from_seqs({"chrR": alphabet.decode(codes)})
+    db = build_repeats(ref, repeat_length=100, repeat_count=5)
+    rep_fm = build_fm_index(reference_from_seqs(
+        {r.name: alphabet.decode(r.seq) for r in db.repeats}))
+    seqs, _, _ = chip_smoke.simulate_reads(ref.joined, 1024, 27)
+    batch = chip_smoke.make_batches(seqs, 0, 1024)[0]
+    before = dp_cuda.launches["dp_score"]
+    on_card = RepeatAligner(rep_fm, db, device="cuda").align_repeats(batch)
+    assert dp_cuda.launches["dp_score"] > before
+    assert on_card == RepeatAligner(rep_fm, db,
+                                    device="cpu").align_repeats(batch)
+    assert sum(o is not None for o in on_card) >= 100

@@ -49,7 +49,10 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.ops.splice",
                 "hisat2_tpu_torch.ops.splice_host",
                 "hisat2_tpu_torch.align.splice_db",
-                "hisat2_tpu_torch.align.splice_model"):
+                "hisat2_tpu_torch.align.splice_model",
+                "hisat2_tpu_torch.index.repeats",
+                "hisat2_tpu_torch.index.sharded",
+                "hisat2_tpu_torch.align.sharded"):
         assert mod in expected
 
 
