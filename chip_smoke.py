@@ -165,7 +165,35 @@ Phases; any failure exits non-zero:
                  align_repeats card == CPU on 2,048 of them; 2,048
                  error-free reads from copies without an SNV must hold
                  their true position among the placements (>= 0.95).
- 12. report    - the wide kernel's time and bound at W = 604, 1104 and
+ 12. cli       - the command-line drivers, the embedding API and the tools,
+                 as a user runs them. Phase 4's genome (gene model
+                 included) is written as g.fa and the gene model as GTF;
+                 tools.extract_splice_sites must give the model's introns.
+                 cli.build on g.fa must give phase 4's index field by
+                 field; cli.inspect -n, -s and its reconstructed FASTA must
+                 match g.fa. Then python -m hisat2_tpu_torch.cli.align
+                 runs as a subprocess (a wrapper prints the DP wrappers'
+                 launch counts when it ends) from FASTQ to a SAM file, -t:
+                 524,288 SE reads (phase 4's generator) at --batch-size
+                 16384 and the first 131,072 at the default 2048, 131,072
+                 pairs at 16384 (phases 4's and 5's guards, the summary's
+                 counts == the SAM's), 32,768 of phase 8's RNA reads in the
+                 default spliced mode at 16384 without known sites (phase
+                 8's recall and precision guards,
+                 --novel-splicesite-outfile) and with the .ss file.
+                 Process wall and the CLI's Time: give reads/s and
+                 pairs/s; beside them, in this process: the index load
+                 and the aligner's set-up, the read layer alone (parse,
+                 _reindex, batches) and the stream alone on 8 of its
+                 batches. In-process main(argv) on the
+                 card must give the SAM and side files of --device cpu: SE
+                 (2,048 reads) and PE (512 pairs), --un/--al,
+                 --un-conc/--al-conc, --tmo, a 40 kb graph index
+                 (--zs-tags; PE), a sharded one (--shard-bases; SE and PE)
+                 and one with a repeat index (cli.repeat; with and without
+                 --repeat), each launching dp_score; api.init(...).align
+                 on 2,048 reads, card == CPU.
+ 13. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, one pass's maximum);
                  each DP kernel's time on its main path's own inputs (the
                  narrow one also on the per-read path's, C = 16,384, on the
@@ -174,7 +202,9 @@ Phases; any failure exits non-zero:
                  one on the 250 bp graph reads'; both on the RNA PE path's
                  own inputs; the narrow one on the per-shard SE step's and
                  RepeatAligner.align_batch's, the wide one on the sharded
-                 PE ladder's host-mode rescue), its plain version's time
+                 PE ladder's host-mode rescue; the narrow one on cli.align's
+                 SE step at --batch-size 2048 and 16384), its plain
+                 version's time
                  and its bound, as one JSON line; end-to-end reads/s (SE,
                  RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
@@ -256,6 +286,12 @@ SHARD_BASES = 400_000_000     # --shard-bases: shards of 375, 375, 250 Mbp
 SHARD_COPIES = 50             # 2 kb segments copied across shards
 REP_SHORT = 20                # phase 11: families of 300 bp x 50 copies
 REP_LONG = 20                 # and of 1-6 kb x 8 copies
+CLI_SE = 524_288              # phase 12: SE reads through cli.align,
+CLI_SE_DEFAULT = 131_072      # the first of them at the default batch size,
+CLI_PE = 131_072              # pairs,
+CLI_RNA = 32_768              # RNA reads in the CLI's default spliced mode,
+CLI_CHECK = 2048              # reads of each card == CPU run (pairs: 1/4)
+CLI_BATCH = 16384             # --batch-size of the timed SE and PE runs
 
 
 def check(ok: bool, what: str) -> None:
@@ -2249,6 +2285,488 @@ def repeat_phase(codes4, card):
                 rps=rows.size / dt, build_s=t_build, hit=float(hit.mean()))
 
 
+# the command-line module run as `python -m <module> <args>` runs it, under
+# a wrapper that prints the DP wrappers' launch counts as stderr's last line
+RUN_COUNTED = r"""
+import json, runpy, sys
+from hisat2_tpu_torch.ops import dp_cuda
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+finally:
+    print("launches " + json.dumps(dp_cuda.launches), file=sys.stderr)
+"""
+
+
+def write_fastq(path, seqs, prefix: str = "s") -> None:
+    """FASTQ of `seqs` ((n, L) codes), read i named <prefix><i>, quality
+    40 ('I'), as make_batches names and scores them."""
+    letters = np.frombuffer(b"ACGTN", np.uint8)[seqs]
+    q = "I" * seqs.shape[1]
+    with open(path, "w") as fh:
+        for i, row in enumerate(letters):
+            fh.write(f"@{prefix}{i}\n{row.tobytes().decode()}\n+\n{q}\n")
+
+
+def write_fasta(path, seqs: dict, width: int = 60) -> None:
+    from hisat2_tpu_torch.utils import alphabet
+    with open(path, "w") as fh:
+        for name, codes in seqs.items():
+            s = alphabet.decode(codes)
+            fh.write(f">{name}\n")
+            fh.writelines(s[i:i + width] + "\n"
+                          for i in range(0, len(s), width))
+
+
+def write_gtf(path, chrom: str, txs) -> None:
+    """The gene model as GTF (1-based, inclusive), one gene a transcript."""
+    with open(path, "w") as fh:
+        for k, (strand, exons) in enumerate(txs):
+            for s, e in exons:
+                fh.write(f"{chrom}\tsim\texon\t{s + 1}\t{e}\t.\t{strand}\t."
+                         f"\tgene_id \"g{k}\"; transcript_id \"t{k}\";\n")
+
+
+def run_cli(argv, what, env=None):
+    """cli.align as a subprocess: (stderr without the launch line, process
+    wall seconds, the CLI's own Time: seconds or None, launch counts)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, **(env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_COUNTED,
+                           "hisat2_tpu_torch.cli.align", *argv], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.align exited {proc.returncode} on "
+                                f"{what}: {proc.stderr[-3000:]}")
+    err, last = proc.stderr.rstrip("\n").rsplit("\n", 1)
+    tm = re.search(r"^Time: (\d+\.\d+)s$", err, re.M)
+    return (err, wall, float(tm.group(1)) if tm else None,
+            json.loads(last.split(" ", 1)[1]))
+
+
+def sam_records(text: str) -> str:
+    """The records of a SAM text, its header left out."""
+    return "".join(ln for ln in text.splitlines(keepends=True)
+                   if not ln.startswith("@"))
+
+
+def sam_counts(text: str) -> dict:
+    """Counts of the reads (pairs: mate 1) by their primary records:
+    reads, unaligned, aligned once (NH:i:1), more than once; pairs,
+    concordant (flag 2)."""
+    c = dict(reads=0, unal=0, uniq=0, multi=0, conc=0)
+    for ln in text.splitlines():
+        if ln.startswith("@"):
+            continue
+        f = ln.split("\t", 11)
+        flag = int(f[1])
+        if flag & 256 or flag & 128:
+            continue
+        c["reads"] += 1
+        c["conc"] += bool(flag & 2)
+        if flag & 4:
+            c["unal"] += 1
+        else:
+            nh = re.search(r"\tNH:i:(\d+)", ln)
+            c["multi" if nh and int(nh.group(1)) > 1 else "uniq"] += 1
+    return c
+
+
+def summary_counts(err: str) -> dict:
+    """The counts of cli.align's summary on stderr (the reference's
+    layout): SE reads / aligned 0, exactly 1, >1 times; PE pairs and
+    concordant exactly 1 and >1 times."""
+    first = re.search(r"^(\d+) reads; of these:$", err, re.M)
+    out = dict(reads=int(first.group(1)))
+    for key, pat in (("unal", r"(\d+) \([\d.]+%\) aligned 0 times$"),
+                     ("uniq", r"(\d+) \([\d.]+%\) aligned exactly 1 time$"),
+                     ("multi", r"(\d+) \([\d.]+%\) aligned >1 times$"),
+                     ("conc1", r"(\d+) \([\d.]+%\) aligned concordantly "
+                               r"exactly 1 time$"),
+                     ("concn", r"(\d+) \([\d.]+%\) aligned concordantly "
+                               r">1 times$")):
+        m = re.search(r"^\s*" + pat, err, re.M)
+        if m:
+            out[key] = int(m.group(1))
+    return out
+
+
+def same_index(a, b) -> list:
+    """Names of the saved fields (FMIndex.fields_of) where two indexes
+    differ; an absent optional array equals an empty one."""
+    from hisat2_tpu_torch.index.fm_index import FMIndex
+    fa, fb = FMIndex.fields_of(a), FMIndex.fields_of(b)
+    bad = []
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray) \
+                or x is None or y is None:
+            x = np.zeros(0) if x is None else np.asarray(x)
+            y = np.zeros(0) if y is None else np.asarray(y)
+            if not (x.size == y.size == 0 or np.array_equal(x, y)):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def small_cli_case(d) -> dict:
+    """Phase 12's 40 kb genome for the graph, sharded and repeat indexes:
+    chrA (40 kb; a 300 bp unit at six places, an SNV every 250 bp written
+    to g.snp) and chrB (8 kb), reads and pairs cut from a haplotype that
+    carries each SNV's alt allele with probability 0.5."""
+    rng = np.random.default_rng(80)
+    a = rng.integers(0, 4, 40_000).astype(np.uint8)
+    b = rng.integers(0, 4, 8_000).astype(np.uint8)
+    unit = rng.integers(0, 4, 300).astype(np.uint8)
+    for p in (2000, 8000, 14000, 21000, 29000, 35000):
+        a[p:p + 300] = unit
+    write_fasta(os.path.join(d, "s.fa"), {"chrA": a, "chrB": b})
+    pos = np.arange(125, 40_000 - 125, 250)
+    alt = (a[pos] + rng.integers(1, 4, pos.size)) % 4
+    with open(os.path.join(d, "s.snp"), "w") as fh:
+        for k, (p, c) in enumerate(zip(pos, alt)):
+            fh.write(f"rs{k}\tsingle\tchrA\t{p}\t{'ACGT'[c]}\n")
+    hap = np.concatenate([a, b])
+    take = rng.random(pos.size) < 0.5
+    hap[pos[take]] = alt[take]
+    seqs, _, _ = simulate_reads(hap, CLI_CHECK // 2, seed=81)
+    write_fastq(os.path.join(d, "s.fq"), seqs)
+    r1, r2, _, _ = simulate_pairs(hap, CLI_CHECK // 8, seed=82)
+    write_fastq(os.path.join(d, "s_1.fq"), r1, "p")
+    write_fastq(os.path.join(d, "s_2.fq"), r2, "p")
+    return dict(fa=os.path.join(d, "s.fa"), snp=os.path.join(d, "s.snp"),
+                fq=os.path.join(d, "s.fq"), fq1=os.path.join(d, "s_1.fq"),
+                fq2=os.path.join(d, "s_2.fq"))
+
+
+def cli_phase(fm, codes, txs, rps, pps, card, device="cuda"):
+    """Phase 12 (see the module docstring). Returns the DP kernel's inputs
+    as the CLI's SE step built them at the default --batch-size and at
+    16,384, the subprocess runs' launches, and the figures of the report.
+    `device` other than "cuda" (a rehearsal on the CPU) is passed to every
+    command line that would take the card by default."""
+    import contextlib
+    import torch
+    from hisat2_tpu_torch import api
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner
+    from hisat2_tpu_torch.cli import align as cli_align
+    from hisat2_tpu_torch.cli import build as cli_build
+    from hisat2_tpu_torch.cli import inspect as cli_inspect
+    from hisat2_tpu_torch.cli import repeat as cli_repeat
+    from hisat2_tpu_torch.index.fm_index import FMIndex
+    from hisat2_tpu_torch.tools.extract_exons import extract_exons
+    from hisat2_tpu_torch.tools.extract_splice_sites import \
+        extract_splice_sites
+    from hisat2_tpu_torch.utils import alphabet
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "_cli_smoke")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    p = {k: os.path.join(d, v) for k, v in (
+        ("fa", "g.fa"), ("gtf", "g.gtf"), ("ss", "g.ss"), ("exon", "g.exon"),
+        ("idx", "idx"), ("fq", "se.fq"), ("fq1", "pe_1.fq"),
+        ("fq2", "pe_2.fq"), ("rna", "rna.fq"), ("sam", "out.sam"),
+        ("novel", "novel.ss"))}
+    out = {}
+    dev_args = [] if device == "cuda" else ["--device", device]
+
+    def stdout_of(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(main(argv) == 0, f"{main.__module__} {argv} failed")
+        return buf.getvalue()
+
+    # 1. genome, gene model and the tools
+    name = fm.ref.names[0]
+    write_fasta(p["fa"], {name: codes})
+    write_gtf(p["gtf"], name, txs)
+    with open(p["gtf"]) as g, open(p["ss"], "w") as o:
+        n_ss = extract_splice_sites(g, o)
+    with open(p["gtf"]) as g, open(p["exon"], "w") as o:
+        n_ex = extract_exons(g, o)
+    sites = {(e - 1, a) for _, ex in txs for (_, e), (a, _) in
+             zip(ex, ex[1:])}
+    got = {(int(f[1]), int(f[2])) for f in
+           (ln.split("\t") for ln in open(p["ss"]))}
+    check(got == sites, f"extract_splice_sites wrote {len(got)} sites, "
+                        f"the gene model has {len(sites)}")
+
+    # 2. cli.build and cli.inspect
+    t0 = time.perf_counter()
+    check(cli_build.main([p["fa"], p["idx"], "--quiet"]) == 0,
+          "cli.build failed")
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fm_cli = FMIndex.load(p["idx"])
+    t_load = time.perf_counter() - t0
+    al = Aligner(fm_cli, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    bad = same_index(fm_cli, fm)
+    check(not bad, f"cli.build's index != phase 4's in fields {bad}")
+    check(stdout_of(cli_inspect.main, [p["idx"], "-n"]) == name + "\n",
+          "inspect -n")
+    summ = stdout_of(cli_inspect.main, [p["idx"], "-s"])
+    check(f"Joined length\t{fm.n}\n" in summ
+          and f"Sequence-1\t{name}\t{fm.n}\n" in summ, "inspect -s")
+    fasta = stdout_of(cli_inspect.main, [p["idx"]]).splitlines()
+    check(fasta[0] == ">" + name
+          and "".join(fasta[1:]) == alphabet.decode(codes),
+          "inspect's FASTA != the genome")
+    print(f"[cli] g.fa ({fm.n} bp) and the gene model as GTF: "
+          f"extract_splice_sites {n_ss} sites (== the model's), "
+          f"extract_exons {n_ex} exons; cli.build in {t_build:.1f} s, its "
+          f"index == phase 4's field by field; inspect -n, -s and the "
+          f"reconstructed FASTA == g.fa; the CLI's set-up in process: "
+          f"FMIndex.load {t_load:.2f} s, then Aligner (the device bundle) "
+          f"{t_setup - t_load:.2f} s", flush=True)
+    out.update(load_s=t_load, setup_s=t_setup)
+
+    # 3-4. SE reads through the CLI as a subprocess; first the CLI's read
+    # layer alone on this host (parse, _reindex, batches: the main thread's
+    # work before a batch reaches the stream) on the first 9 batches
+    from hisat2_tpu_torch.io.reads import batch_iter, read_reads
+    seqs, starts, indel = simulate_reads(fm.ref.joined, CLI_SE, seed=7)
+    write_fastq(p["fq"], seqs)
+    t0 = time.perf_counter()
+    first = list(batch_iter(cli_align._reindex(read_reads(p["fq"]),
+                                               upto=9 * CLI_BATCH),
+                            CLI_BATCH))
+    t_parse = time.perf_counter() - t0
+    # then the stream alone over 8 of those batches, on the loaded index
+    # (one batch first to warm up), as phase 4 runs it
+    run_stream(al, first[8:], fm.ref)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_stream(al, first[:8], fm.ref)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    n8 = sum(len(b) for b in first[:8])
+    n_parse = sum(len(b) for b in first)
+    del al, first
+    out.update(parse_rps=n_parse / t_parse, stream_rps=n8 / t_stream)
+    print(f"[cli] the read layer alone (read_reads, _reindex, batch_iter "
+          f"on the main thread): {n_parse} reads in {t_parse:.2f} s = "
+          f"{n_parse / t_parse:.1f} reads/s; the stream alone on 8 of its "
+          f"batches: {n8 / t_stream:.1f} reads/s [{card}]", flush=True)
+    base = ["-x", p["idx"], "-S", p["sam"], "--no-spliced-alignment",
+            "-t"] + dev_args
+    for tag, n, extra in (("batch16384", CLI_SE,
+                           ["--batch-size", str(CLI_BATCH)]),
+                          ("default", CLI_SE_DEFAULT,
+                           ["-u", str(CLI_SE_DEFAULT)])):
+        err, wall, cli_s, got = run_cli(base + ["-U", p["fq"]] + extra,
+                                        f"{n} SE reads ({tag})")
+        check(got["dp_score"] > 0, f"cli.align ({tag}) launched no dp_score")
+        text = open(p["sam"]).read()
+        rate, true_rate, _ = check_sam(sam_records(text), n, starts[:n],
+                                       indel[:n])
+        sc, sm = sam_counts(text), summary_counts(err)
+        check(sm["reads"] == sc["reads"] == n and all(
+            sm[k] == sc[k] for k in ("unal", "uniq", "multi")),
+            f"summary {sm} != SAM {sc} ({tag})")
+        out[f"se_{tag}"] = dict(wall_rps=n / wall, cli_rps=n / cli_s,
+                                launches=got["dp_score"], wall=wall,
+                                cli_s=cli_s)
+        print(f"[cli] SE {n} reads, --batch-size "
+              f"{CLI_BATCH if tag == 'batch16384' else 2048}: process wall "
+              f"{wall:.2f} s = {n / wall:.1f} reads/s, the CLI's Time: "
+              f"{cli_s:.2f} s = {n / cli_s:.1f} reads/s ({n / cli_s / rps:.3f}"
+              f" of phase 4's {rps:.1f}); aligned {rate:.4f}, indel-free "
+              f"at true position {true_rate:.4f}; summary == SAM {sc}; "
+              f"launches {got} [{card}]", flush=True)
+
+    # 5. pairs
+    r1, r2, m1_true, pe_indel = simulate_pairs(fm.ref.joined, CLI_PE,
+                                               seed=11)
+    write_fastq(p["fq1"], r1, "p")
+    write_fastq(p["fq2"], r2, "p")
+    err, wall, cli_s, got = run_cli(
+        base + ["-1", p["fq1"], "-2", p["fq2"], "--batch-size",
+                str(CLI_BATCH)], f"{CLI_PE} pairs")
+    check(got["dp_score"] > 0 and got["dp_score_wide"] > 0,
+          f"cli.align (pairs) launches {got}")
+    text = open(p["sam"]).read()
+    share, m1_rate, _ = check_pe_sam(sam_records(text), CLI_PE, m1_true,
+                                     pe_indel)
+    sc, sm = sam_counts(text), summary_counts(err)
+    check(sm["reads"] == sc["reads"] == CLI_PE
+          and sm["conc1"] + sm["concn"] == sc["conc"],
+          f"PE summary {sm} != SAM {sc}")
+    out["pe"] = dict(wall_pps=CLI_PE / wall, cli_pps=CLI_PE / cli_s,
+                     wall=wall, cli_s=cli_s)
+    print(f"[cli] PE {CLI_PE} pairs, --batch-size {CLI_BATCH}: process "
+          f"wall {wall:.2f} s = {CLI_PE / wall:.1f} pairs/s, Time: "
+          f"{cli_s:.2f} s = {CLI_PE / cli_s:.1f} pairs/s "
+          f"({CLI_PE / cli_s / pps:.3f} of phase 5's {pps:.1f}); proper "
+          f"{share:.4f}, mate 1 at true position {m1_rate:.4f}; summary == "
+          f"SAM; launches {got} [{card}]", flush=True)
+
+    # 6. RNA reads in the CLI's default spliced mode
+    rseqs, truth = simulate_rna_reads(fm.ref.joined, txs, CLI_RNA, seed=41)
+    write_fastq(p["rna"], rseqs)
+    for tag, extra in (("novel", ["--novel-splicesite-outfile",
+                                  p["novel"]]),
+                       ("known", ["--known-splicesite-infile", p["ss"]])):
+        err, wall, cli_s, got = run_cli(
+            ["-x", p["idx"], "-S", p["sam"], "-t", "-U", p["rna"],
+             "--batch-size", str(CLI_BATCH)] + extra + dev_args,
+            f"{CLI_RNA} RNA reads ({tag})")
+        check(got["dp_score"] > 0, f"cli.align (RNA) launches {got}")
+        text = open(p["sam"]).read()
+        recall, _, precision, rate, _, _ = check_junctions(
+            sam_records(text), truth, CLI_RNA)
+        if tag == "novel":
+            check(recall >= 0.90 and precision >= 0.99,
+                  f"CLI junction recall {recall:.4f} / precision "
+                  f"{precision:.4f} below 0.90 / 0.99 without known sites")
+            n_novel = sum(1 for _ in open(p["novel"]))
+        out[f"rna_{tag}"] = dict(wall_rps=CLI_RNA / wall,
+                                 cli_rps=CLI_RNA / cli_s)
+        sites = ("known sites from g.ss" if tag == "known"
+                 else "no known sites")
+        print(f"[cli] RNA {CLI_RNA} reads ({sites}), --batch-size {CLI_BATCH}: process wall {wall:.2f} s "
+              f"= {CLI_RNA / wall:.1f} reads/s, Time: {cli_s:.2f} s; "
+              f"aligned {rate:.4f}, junction recall {recall:.4f}, precision "
+              f"{precision:.4f}"
+              + (f"; {n_novel} novel sites written" if tag == "novel"
+                 else "") + f"; launches {got} [{card}]", flush=True)
+
+    # 7. in-process main(argv): the card's SAM and side files == the CPU's
+    small = os.path.join(d, "c.fq")
+    write_fastq(small, seqs[:CLI_CHECK])
+    sm1, sm2 = os.path.join(d, "c_1.fq"), os.path.join(d, "c_2.fq")
+    write_fastq(sm1, r1[:CLI_CHECK // 4], "p")
+    write_fastq(sm2, r2[:CLI_CHECK // 4], "p")
+    rsmall = os.path.join(d, "c_rna.fq")
+    write_fastq(rsmall, rseqs[:CLI_CHECK])
+    sc40 = small_cli_case(d)
+    for tag, argv in (("gidx", ["--snp", sc40["snp"], sc40["fa"]]),
+                      ("shidx", ["--shard-bases", "45000", sc40["fa"]]),
+                      ("ridx", [sc40["fa"]])):
+        check(cli_build.main(argv + [os.path.join(d, tag), "--quiet"]) == 0,
+              f"cli.build ({tag})")
+    check(cli_repeat.main([sc40["fa"], os.path.join(d, "ridx"),
+                           "--repeat-length", "100", "--repeat-count", "4",
+                           "--quiet"]) == 0, "cli.repeat")
+
+    un, al, uc, ac = (os.path.join(d, f) for f in ("un.fq", "al.fq",
+                                                   "uc.fq", "ac.fq"))
+    se = ["-U", small, "--no-spliced-alignment"]
+    pe = ["-1", sm1, "-2", sm2, "--no-spliced-alignment"]
+    sse = ["-U", sc40["fq"], "--no-spliced-alignment"]
+    spe = ["-1", sc40["fq1"], "-2", sc40["fq2"], "--no-spliced-alignment"]
+    # (what, index, arguments, side files written)
+    configs = (
+        ("SE", "idx", se, []),
+        ("PE", "idx", pe, []),
+        ("SE --un/--al", "idx", se + ["--un", un, "--al", al], [un, al]),
+        ("PE --un-conc/--al-conc", "idx",
+         pe + ["--un-conc", uc, "--al-conc", ac],
+         [uc[:-3] + ".1.fq", uc[:-3] + ".2.fq", ac[:-3] + ".1.fq",
+          ac[:-3] + ".2.fq"]),
+        ("RNA --tmo, known sites", "idx",
+         ["-U", rsmall, "--tmo", "--known-splicesite-infile", p["ss"]], []),
+        ("40 kb graph index, --zs-tags", "gidx", sse + ["--zs-tags"], []),
+        ("40 kb graph index, PE", "gidx", spe, []),
+        ("40 kb sharded index, SE", "shidx", sse, []),
+        ("40 kb sharded index, PE", "shidx", spe, []),
+        ("40 kb index with a repeat index", "ridx", sse, []),
+        ("40 kb index with a repeat index, --repeat", "ridx",
+         sse + ["--repeat"], []))
+    captured = []
+    real_dp = tpipe.dp_score
+
+    def recording_dp(*a, **kw):
+        if not captured:
+            captured.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    t0 = time.perf_counter()
+    for what, idx, args, files in configs:
+        texts = []
+        for on_card, dev in enumerate(("cpu", device)):
+            argv = (["-x", os.path.join(d, idx), "-S", p["sam"], "--quiet",
+                     "--no-head"] + args + ["--device", dev])
+            for f in files:
+                if os.path.exists(f):
+                    os.remove(f)
+            launches = None
+            if not on_card:
+                check(cli_align.main(argv) == 0, f"cli.align {what} (cpu)")
+            else:
+                # the CLI's default batch: the SE step's DP inputs
+                tpipe.dp_score = recording_dp if what == "SE" else real_dp
+                try:
+                    rc, launches = counted(lambda: cli_align.main(argv),
+                                           f"cli.align {what}")
+                finally:
+                    tpipe.dp_score = real_dp
+                check(rc == 0, f"cli.align {what} (card)")
+            texts.append([open(p["sam"]).read()] + [open(f).read()
+                                                    for f in files])
+        check(texts[1] == texts[0],
+              f"cli.align {what}: the card's SAM or side files != the CPU's")
+        recs = texts[1][0]
+        check(any(not int(ln.split("\t")[1]) & 4
+                  for ln in recs.splitlines()), f"{what}: nothing aligned")
+        check("--zs-tags" not in args or "Zs:Z:" in recs,
+              f"{what}: no Zs:Z tag")
+        check("--repeat" not in args or "\trpt_" in recs,
+              f"{what}: no record on a repeat pseudo-reference")
+        print(f"[cli] main(argv) {what}: SAM"
+              f"{' and ' + str(len(files)) + ' side files' if files else ''}"
+              f" on the card == --device cpu ({len(recs)} bytes); launches "
+              f"{launches}", flush=True)
+    t_cmp = time.perf_counter() - t0
+
+    # the DP kernel's inputs at --batch-size 16384, and a handle's align
+    big = os.path.join(d, "b.fq")
+    write_fastq(big, seqs[:CLI_BATCH])
+    captured16 = []
+
+    def recording16(*a, **kw):
+        if not captured16:
+            captured16.append([x.clone() for x in a])
+        return real_dp(*a, **kw)
+    tpipe.dp_score = recording16
+    try:
+        check(cli_align.main(["-x", p["idx"], "-S", p["sam"], "--quiet",
+                              "-U", big, "--no-spliced-alignment",
+                              "--batch-size", str(CLI_BATCH)] + dev_args)
+              == 0, "cli.align at --batch-size 16384")
+    finally:
+        tpipe.dp_score = real_dp
+    reads = [alphabet.decode(s) for s in seqs[:CLI_CHECK]]
+    cpu_res = api.init(p["idx"], no_spliced_alignment=True,
+                       device="cpu").align(reads)
+    h = api.init(p["idx"], no_spliced_alignment=True, device=device)
+    res, got = counted(lambda: h.align(reads), "api.Handle.align")
+    check([dataclasses.asdict(r) for r in res]
+          == [dataclasses.asdict(r) for r in cpu_res],
+          "api align on the card != CPU")
+    check(sum(r.aligned for r in res) >= 0.9 * CLI_CHECK,
+          "api align: too few reads aligned")
+    print(f"[cli] api.init(idx).align on {CLI_CHECK} reads: the card's "
+          f"results == the CPU's field by field; launches {got}; card == "
+          f"CPU runs {t_cmp:.1f} s [{card}]", flush=True)
+    check(bool(captured) and bool(captured16), "no DP inputs captured")
+    shutil.rmtree(d, ignore_errors=True)
+    out.update(captured=captured[0], captured16=captured16[0],
+               seconds=time.perf_counter() - t_phase)
+    print(f"[cli] phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2591,6 +3109,10 @@ def main() -> int:
     repres = repeat_phase(codes, card)
     phase_done("repeats")
 
+    # -- the command-line drivers, the embedding API and the tools -----------
+    clires = cli_phase(fm, fm.ref.joined, txs, rps, pps, card)
+    phase_done("command-line drivers")
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
@@ -2656,7 +3178,14 @@ def main() -> int:
             ("dp_score_wide", shres["captured_host"], shres["host_launches"],
              "sharded genome, the host-mode ladder rescue (PE)"),
             ("dp_score", repres["captured"], repres["launches"],
-             "RepeatAligner.align_batch on the repeat index")):
+             "RepeatAligner.align_batch on the repeat index"),
+            ("dp_score", clires["captured"],
+             clires["se_default"]["launches"], "cli.align SE at the default "
+             "--batch-size 2048 (launches: the 131,072-read subprocess run)"),
+            ("dp_score", clires["captured16"],
+             clires["se_batch16384"]["launches"], "cli.align SE at "
+             "--batch-size 16384 (launches: the 524,288-read subprocess "
+             "run)")):
         rd, pen, rl, ref, scp_cum = cap[:5]
         ov = cap[5] if len(cap) > 5 else None
         check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
@@ -2750,7 +3279,21 @@ def main() -> int:
           f"{shres['peak_mb']:.1f} MiB [{card}]", flush=True)
     print(f"[report] repeats: index built in {repres['build_s']:.1f} s, "
           f"align_repeats {repres['rps']:.1f} reads/s, true position among "
-          f"the placements {repres['hit']:.4f}; whole run "
+          f"the placements {repres['hit']:.4f} [{card}]", flush=True)
+    s16, s2k = clires["se_batch16384"], clires["se_default"]
+    print(f"[report] cli.align, FASTQ to SAM file: SE at --batch-size 16384 "
+          f"{s16['wall_rps']:.1f} reads/s process wall, "
+          f"{s16['cli_rps']:.1f} by its Time: ({s16['cli_rps'] / rps:.3f} of "
+          f"phase 4's); at the default 2048 {s2k['wall_rps']:.1f} / "
+          f"{s2k['cli_rps']:.1f} ({s2k['cli_rps'] / s16['cli_rps']:.3f} of "
+          f"16384's by Time:); PE {clires['pe']['wall_pps']:.1f} / "
+          f"{clires['pe']['cli_pps']:.1f} pairs/s "
+          f"({clires['pe']['cli_pps'] / pps:.3f} of phase 5's); RNA "
+          f"{clires['rna_novel']['wall_rps']:.1f} / "
+          f"{clires['rna_novel']['cli_rps']:.1f} reads/s without known "
+          f"sites, {clires['rna_known']['wall_rps']:.1f} / "
+          f"{clires['rna_known']['cli_rps']:.1f} with them; phase "
+          f"{clires['seconds']:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,9 +4,9 @@ every FM configuration (no table; sampled SA; seed_mode=False, SE and PE;
 the paired-k-mer and stride-sampled table modes), and on a graph index
 (SE, PE, FM-seeded, seed_mode=False, Zs:Z tags), and spliced (RNA)
 alignment, single-end and paired-end; genome-sharded alignment (SE, PE,
-graph, RNA, tmo) and its eviction; RepeatAligner; the DP kernel's overlay
-instantiations against the plain version at the edge windows. Skips where
-CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
+graph, RNA, tmo) and its eviction; RepeatAligner; cli.align SE and PE;
+the DP kernel's overlay instantiations against the plain version at the
+edge windows. Skips where CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
 import io
 
@@ -420,3 +420,40 @@ def test_repeat_aligner_on_card_equals_cpu():
     assert on_card == RepeatAligner(rep_fm, db,
                                     device="cpu").align_repeats(batch)
     assert sum(o is not None for o in on_card) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paired", [False, True], ids=["SE", "PE"])
+def test_cli_sam_on_card_equals_cpu(tmp_path, paired):
+    """cli.align on the card (its default device) writes the SAM of
+    --device cpu, and its SE step launched dp_score."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: cli.align on the card needs one")
+    from hisat2_tpu_torch.cli import align as cli_align
+    from hisat2_tpu_torch.cli import build as cli_build
+    rng = np.random.default_rng(31)
+    g = rng.integers(0, 4, 60000).astype(np.uint8)
+    chip_smoke.write_fasta(str(tmp_path / "g.fa"), {"chrG": g})
+    idx = str(tmp_path / "idx")
+    assert cli_build.main([str(tmp_path / "g.fa"), idx, "--quiet"]) == 0
+    if paired:
+        r1, r2, _, _ = chip_smoke.simulate_pairs(g, 512, seed=32)
+        chip_smoke.write_fastq(str(tmp_path / "r_1.fq"), r1, "p")
+        chip_smoke.write_fastq(str(tmp_path / "r_2.fq"), r2, "p")
+        reads = ["-1", str(tmp_path / "r_1.fq"), "-2",
+                 str(tmp_path / "r_2.fq")]
+    else:
+        seqs, _, _ = chip_smoke.simulate_reads(g, 2048, seed=33)
+        chip_smoke.write_fastq(str(tmp_path / "r.fq"), seqs)
+        reads = ["-U", str(tmp_path / "r.fq")]
+
+    def sam(extra):
+        out = str(tmp_path / "o.sam")
+        assert cli_align.main(["-x", idx, "-S", out, "--quiet", "--no-head",
+                               "--no-spliced-alignment"] + reads
+                              + extra) == 0
+        return open(out).read()
+    before = dp_cuda.launches["dp_score"]
+    on_card = sam([])
+    assert dp_cuda.launches["dp_score"] > before
+    assert on_card == sam(["--device", "cpu"])

@@ -7,6 +7,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 import hisat2_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,8 +54,45 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.align.splice_model",
                 "hisat2_tpu_torch.index.repeats",
                 "hisat2_tpu_torch.index.sharded",
-                "hisat2_tpu_torch.align.sharded"):
+                "hisat2_tpu_torch.align.sharded",
+                "hisat2_tpu_torch.align.policy",
+                "hisat2_tpu_torch.api",
+                "hisat2_tpu_torch.cli",
+                "hisat2_tpu_torch.cli.align",
+                "hisat2_tpu_torch.cli.build",
+                "hisat2_tpu_torch.cli.inspect",
+                "hisat2_tpu_torch.cli.repeat",
+                "hisat2_tpu_torch.tools",
+                "hisat2_tpu_torch.tools.gtf",
+                "hisat2_tpu_torch.tools.extract_splice_sites",
+                "hisat2_tpu_torch.tools.extract_exons",
+                "hisat2_tpu_torch.tools.extract_snps",
+                "hisat2_tpu_torch.tools.simulate_reads",
+                "hisat2_tpu_torch.tools.read_statistics"):
         assert mod in expected
+
+
+_HELP = r"""
+import runpy, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+mod = sys.argv[1]
+sys.argv = [mod, "--help"]
+runpy.run_module(mod, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("cli", ["align", "build", "inspect", "repeat"])
+def test_cli_help_without_jax(cli):
+    """python -m hisat2_tpu_torch.cli.<cli> --help runs with jax blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _HELP,
+                           f"hisat2_tpu_torch.cli.{cli}"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("usage: hisat2-tpu-torch")
+    if cli == "align":
+        assert "--device {cuda,cpu}" in proc.stdout
 
 
 def test_sources_never_name_the_jax_package():
