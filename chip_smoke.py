@@ -20,7 +20,8 @@ Phases; any failure exits non-zero:
                  instructions it holds and how many instructions its row
                  loop spans (--sass DIR also writes the SASS there).
   3. kernels   - each kernel against its plain PyTorch version on the
-                 card, exact int32 equality: random cases with Ns, gaps,
+                 card, exact int32 equality (every case once more at local
+                 mode's match bonus of 2): random cases with Ns, gaps,
                  short reads and the stress rows of make_dp_case, at the SE
                  main path's shape, at the rescue's (W + 1 = 1105), the
                  tiled form's W + 1 = 2049, 2605 and 8192 (one to four
@@ -193,7 +194,39 @@ Phases; any failure exits non-zero:
                  and one with a repeat index (cli.repeat; with and without
                  --repeat), each launching dp_score; api.init(...).align
                  on 2,048 reads, card == CPU.
- 13. report    - the wide kernel's time and bound at W = 604, 1104 and
+ 13. mesh, local - several devices and local mode. One process joins a
+                 torch.distributed world of one with both backends
+                 ("cpu:gloo,cuda:nccl", parallel.multihost.init_distributed
+                 on a free TCP port) and builds a (dp, shard) = (1, 1)
+                 mesh on the card (NCCL) and one on the CPU (gloo); this
+                 card is the only one, so NCCL runs at world size 1. Phase
+                 4's aligner (bases [0]) runs parallel.mesh's fused steps:
+                 phase 4's first SE batch (16,384 reads), phase 5's first
+                 PE batch (16,384 pairs) and phase 8's first RNA batch
+                 (16,384 reads, every intron a known site). Every output of
+                 the card's mesh must equal the CPU mesh's; the SE SAM from
+                 the mesh outputs through the finish must equal the
+                 single-card sharded aligner's on one shard, and the PE SAM
+                 the single-card packed step's on the first 2,048 pairs
+                 (the SAM hisat2_tpu's mesh tests hold theirs to). On the
+                 16,384 pairs the two differ in both packages: without the
+                 step's mate rescue every one-mate pair enters the
+                 ladder's rescue list, which stops at 512 a batch; there
+                 every pair whose records differ must be one of the list's
+                 entries past the 512th, and the other pairs' records
+                 must be equal;
+                 aligned_total must match the SAM; dp_score must launch in
+                 every step and dp_score_wide in the PE finish's host-mode
+                 mate rescue;
+                 sync_splice_sites over NCCL must adopt nothing and leave
+                 the table unchanged. Prints the mesh SE step's
+                 milliseconds a batch against device_align_fast's and the
+                 collectives' milliseconds, with the backend and the world
+                 size. Then local mode (Scoring.local_default()): 2,048 SE
+                 reads and 512 pairs through the streams and the per-read
+                 paths, the card's SAM == the CPU's. The process group is
+                 destroyed at the end.
+ 14. report    - the wide kernel's time and bound at W = 604, 1104 and
                  2047 (-X 500, the default -X 1000, one pass's maximum);
                  each DP kernel's time on its main path's own inputs (the
                  narrow one also on the per-read path's, C = 16,384, on the
@@ -203,8 +236,10 @@ Phases; any failure exits non-zero:
                  own inputs; the narrow one on the per-shard SE step's and
                  RepeatAligner.align_batch's, the wide one on the sharded
                  PE ladder's host-mode rescue; the narrow one on cli.align's
-                 SE step at --batch-size 2048 and 16384), its plain
-                 version's time
+                 SE step at --batch-size 2048 and 16384, on the mesh SE,
+                 PE and RNA steps' and on local mode's (match bonus 2); the
+                 wide one on the mesh PE finish's rescue on the 16,384
+                 pairs), its plain version's time
                  and its bound, as one JSON line; end-to-end reads/s (SE,
                  RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
@@ -292,6 +327,7 @@ CLI_PE = 131_072              # pairs,
 CLI_RNA = 32_768              # RNA reads in the CLI's default spliced mode,
 CLI_CHECK = 2048              # reads of each card == CPU run (pairs: 1/4)
 CLI_BATCH = 16384             # --batch-size of the timed SE and PE runs
+MESH_PE_CHECK = 2048          # phase 13: pairs of the mesh PE SAM check
 
 
 def check(ok: bool, what: str) -> None:
@@ -1609,6 +1645,8 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
         del al
     check(bool(captured), "the RNA streams launched no DP")
     out["captured"] = captured[0]
+    # phase 13's RNA batch: the first batch of the run with known sites
+    out["mesh_reads"], out["sites"] = seqs[:BATCH], sites
     torch.cuda.empty_cache()
     return out
 
@@ -2767,6 +2805,362 @@ def cli_phase(fm, codes, txs, rps, pps, card, device="cuda"):
     return out
 
 
+MESH_OUTPUTS = {
+    "se": ("fp", "multi", "mall", "aligned_total", "multi_total"),
+    "pe": ("pack", "force_slow", "m1_all", "m2_all", "pt_all",
+           "conc_total"),
+    "rna": ("fp", "multi", "l32", "l16", "cov", "aligned_total"),
+}
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sam_of(fn, ref):
+    """(SAM text, stats) of fn(writer)."""
+    from hisat2_tpu_torch.io import sam as samio
+    buf = io.StringIO()
+    w = samio.SamWriter(buf, ref.names, [int(x) for x in ref.tlens],
+                        no_head=True)
+    st = fn(w)
+    w.flush()
+    return buf.getvalue(), st
+
+
+def merged_full(mall: np.ndarray) -> dict:
+    """A mesh step's score-sorted global grid as the finish takes it."""
+    return dict(score=mall[:, :, 0].astype(np.int64),
+                pos=mall[:, :, 1].astype(np.int64),
+                fw=(mall[:, :, 2] & 1) > 0, gapped=(mall[:, :, 2] & 2) > 0)
+
+
+def mesh_phase(fm, al, cpu_al, se_batch, pe_pair, rna_seqs, sites, seqs,
+               r1, r2, card, device="cuda"):
+    """Phase 13 (see the module docstring). Returns the DP kernels' inputs
+    as the mesh steps, the PE finish and local mode built them, their
+    launches, and the figures of the report. `device` "cpu" rehearses the
+    phase on the CPU (gloo only; the launch checks must be stubbed)."""
+    import copy
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from hisat2_tpu_torch.align import emit as temit
+    from hisat2_tpu_torch.align import paired as tpaired
+    from hisat2_tpu_torch.align import pipeline as tpipe
+    from hisat2_tpu_torch.align.pipeline import Aligner, results_to_sam
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.align.sharded import ShardedAligner
+    from hisat2_tpu_torch.align.splice_db import SpliceSiteDB
+    from hisat2_tpu_torch.index.sharded import ShardedIndex
+    from hisat2_tpu_torch.parallel import mesh as pm
+    from hisat2_tpu_torch.parallel import multihost as mh
+    t_phase = time.perf_counter()
+    ref = fm.ref
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def wall_ms(fn, n=3):
+        out = []
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    # one process holding both backends: NCCL for the card's mesh, gloo
+    # for the CPU's; a failed init raises
+    mh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                        "cpu:gloo,cuda:nccl" if cuda else "cpu")
+    try:
+        backend, world = str(dist.get_backend()), dist.get_world_size()
+        meshes = {"card": pm.make_mesh(1, n_shards=1, device_type=device),
+                  "cpu": pm.make_mesh(1, n_shards=1, device_type="cpu")}
+        print(f"[mesh] process group: backend {backend}, world size "
+              f"{world}; (dp, shard) = (1, 1) meshes on {device} and cpu; "
+              f"phase 4's aligner, bases [0] [{card}]", flush=True)
+        B, L = len(se_batch), se_batch.seqs.shape[1]
+        seq_w, n_w, _q, qse, lens = se_batch.packed()
+        b1, b2 = pe_pair
+        sw1, nw1, _q1, qpe, l1 = b1.packed()
+        sw2, nw2, _q2, _qc2, l2 = b2.packed()
+        rna_batch = make_batches(rna_seqs, 0, len(rna_seqs))[0]
+        rw, rn, _qr, qrna, rl = rna_batch.packed()
+        db = SpliceSiteDB()
+        for left, right, strand in sites:
+            db.add_known(left, right, strand)
+        steps = {}
+        for k, mesh in meshes.items():
+            a = al if k == "card" else cpu_al
+            ra = copy.copy(a)
+            ra.opts = dataclasses.replace(a.opts, spliced=True)
+            idx = pm.replicate_index(a.idx, mesh)
+            se = pm.fused_se_sharded(mesh, a, [0], idx, B, L)
+            pe = pm.fused_pe_sharded(mesh, a, [0], idx, len(b1), L)
+            rna = pm.fused_rna_sharded(mesh, ra, [0], idx, len(rna_batch),
+                                       rna_batch.seqs.shape[1],
+                                       db.device_arrays4(pm.mesh_device(mesh)))
+            se_in = pm.shard_batch(mesh, seq_w, n_w, lens)
+            pe_in = pm.shard_batch(mesh, sw1, nw1, l1, sw2, nw2, l2)
+            rna_in = pm.shard_batch(mesh, rw, rn, rl)
+            steps[k] = dict(
+                se=lambda f=se, i=se_in, a=a: f(a.sctab, i[0], i[1], qse,
+                                                i[2]),
+                pe=lambda f=pe, i=pe_in, a=a: f(a.sctab, *i, qpe),
+                rna=lambda f=rna, i=rna_in, a=ra: f(a.sctab, i[0], i[1],
+                                                    qrna, i[2]))
+
+        captured = {}
+        real_dp, real_pe_dp = tpipe.dp_score, tpaired.dp_score
+
+        def recording(tag, real, wide=False):
+            def f(*a, **kw):
+                if (tag not in captured and a[0].device.type == device
+                        and (not wide
+                             or kernel_of(a[3].shape[1]) == "dp_score_wide")):
+                    # (inputs, overlay last where there is one; constants)
+                    ov = kw.get("ov")
+                    captured[tag] = ([x.clone() for x in a]
+                                     + ([] if ov is None else [ov.clone()]),
+                                     {k: v for k, v in kw.items()
+                                      if k != "ov"})
+                return real(*a, **kw)
+            return f
+
+        # the card's mesh steps (launches counted) against the CPU's
+        res, launches = {}, {}
+        for kind in ("se", "pe", "rna"):
+            tpipe.dp_score = recording(f"mesh_{kind}", real_dp)
+            try:
+                got, launches[kind] = counted(steps["card"][kind],
+                                              f"the mesh {kind} step")
+            finally:
+                tpipe.dp_score = real_dp
+            res[kind] = [x.cpu() for x in got]
+            want = steps["cpu"][kind]()
+            for name, x, y in zip(MESH_OUTPUTS[kind], res[kind], want):
+                check(x.dtype == y.dtype and torch.equal(x, y),
+                      f"mesh {kind} step: {name} on the card != the CPU "
+                      f"mesh's")
+            nrows = dict(se=B, pe=len(b1), rna=len(rna_batch))[kind]
+            print(f"[mesh] {kind} step on {nrows}"
+                  f" {'pairs' if kind == 'pe' else 'reads'}: the card "
+                  f"(NCCL) == the CPU mesh (gloo) on every output "
+                  f"({', '.join(MESH_OUTPUTS[kind])}); launches "
+                  f"{launches[kind]}", flush=True)
+        for kind in ("se", "pe", "rna"):
+            check(f"mesh_{kind}" in captured, f"the mesh {kind} step "
+                  f"launched no DP kernel on the card")
+        l16 = res["rna"][3]
+        check(bool((l16[:, 4] != 0).any()), "the RNA mesh step shipped no "
+              "live junction lane")
+
+        # SE: the mesh's finish == the single-card sharded path's SAM
+        sa = ShardedAligner(ShardedIndex(shards=[fm], bases=[0], ref=ref),
+                            device=device)
+        want, wst = sam_of(lambda w: sa.align_and_emit([se_batch], w), ref)
+        fp, multi, mall, at, _mt = (x.numpy() for x in res["se"])
+        got, gst = sam_of(lambda w: temit._finish_fastpack(
+            sa.host, se_batch, fp, None, w, None, force_slow=multi,
+            merged_full=merged_full(mall)), ref)
+        check(got == want and gst == wst, "mesh SE SAM != the single-card "
+              "sharded path's")
+        check(int(at) == B - gst["unal"], f"mesh aligned_total {int(at)} != "
+              f"{B - gst['unal']} aligned in its SAM")
+        del sa
+        # PE: the mesh's finish == the single-card packed step's SAM on
+        # MESH_PE_CHECK pairs; its host-mode mate rescue launches the wide
+        # kernel (the mesh step has no in-step rescue, as in hisat2_tpu).
+        # On the 16,384 the two SAMs differ in both packages: without the
+        # step's rescue lanes every one-mate pair enters the ladder's
+        # rescue list, which stops at 512 mates a batch
+        # (paired._rescue_mates), so hopeless pairs crowd out rescuable
+        # ones (tests/test_torch_mesh.py pins it). There every pair whose
+        # records differ must be one of the list's entries past the 512th,
+        # and every other pair's records must be equal.
+        real_rescue = tpaired._rescue_mates
+
+        def pe_sams(p1, p2, step, what, tag):
+            outp = tpaired.stage_pe_packed(al, p1, p2,
+                                           KP=max(8, al.opts.khits + 3))
+            if outp[5] is not None:
+                outp[5].synchronize()
+            single = sam_of(lambda w: temit._finish_pe_pack(
+                al, p1, p2, outp, w), ref)
+            pack, fslow, m1, m2, pt, conc = (x.cpu().numpy() for x in step)
+            lists = []
+
+            def listing(al_, q1, q2, results, rescue, *a, **kw):
+                lists.append([int(r[0]) for r in rescue])
+                return real_rescue(al_, q1, q2, results, rescue, *a, **kw)
+            tpaired.dp_score = recording(tag, real_pe_dp, wide=True)
+            tpaired._rescue_mates = listing
+            try:
+                mesh_sam, got = counted(
+                    lambda: sam_of(lambda w: temit._finish_pe_pack(
+                        al, p1, p2, (pack, m1, m2, pt, None, None), w,
+                        force_slow=fslow), ref),
+                    f"the mesh PE finish on {what}",
+                    need=("dp_score_wide",))
+            finally:
+                tpaired.dp_score = real_pe_dp
+                tpaired._rescue_mates = real_rescue
+            return mesh_sam, single, int(conc), got, lists
+
+        def by_pair(text):
+            recs = {}
+            for ln in text.splitlines():
+                recs.setdefault(ln.split("\t", 1)[0], []).append(ln)
+            return recs
+        # the main path's batch first: its finish's wide launch is the one
+        # the report keeps
+        (big, bst), (bwant, bwst), bconc, fin_launches, lists = pe_sams(
+            b1, b2, res["pe"], f"{len(b1)} pairs", "mesh_pe_wide")
+        row_of = {nm: i for i, nm in enumerate(b1.names)}
+        got_p, want_p = by_pair(big), by_pair(bwant)
+        check(list(got_p) == list(want_p), f"mesh PE SAM on {len(b1)} pairs:"
+              f" the pairs' order != the single-card packed step's")
+        differ = {row_of[nm] for nm in got_p if got_p[nm] != want_p[nm]}
+        listed = [i for lst in lists for i in lst]
+        beyond = {i for lst in lists for i in lst[512:]}
+        check(len(set(listed)) == len(listed), "a pair entered the mesh PE "
+              "finish's rescue list twice")
+        check(differ <= beyond, f"mesh PE SAM on {len(b1)} pairs: "
+              f"{len(differ - beyond)} pairs differ from the single-card "
+              f"packed step's that the 512-mate rescue cap does not explain")
+        ndiff = sum(len(got_p[nm]) for nm in got_p
+                    if row_of[nm] in differ)
+        c1, c2 = make_pair_batches(r1[:MESH_PE_CHECK], r2[:MESH_PE_CHECK], 0,
+                                   MESH_PE_CHECK)[0]
+        cw1, cn1, _q, qc, cl1 = c1.packed()
+        cw2, cn2, _q, _qc, cl2 = c2.packed()
+        mesh = meshes["card"]
+        small_pe = pm.fused_pe_sharded(mesh, al, [0],
+                                       pm.replicate_index(al.idx, mesh),
+                                       len(c1), L)(
+            al.sctab, *pm.shard_batch(mesh, cw1, cn1, cl1, cw2, cn2, cl2), qc)
+        (got_pe, gst_pe), (want_pe, wst_pe), _, small_launches, slists = \
+            pe_sams(c1, c2, small_pe, f"{len(c1)} pairs", "mesh_pe_check")
+        check(got_pe == want_pe and gst_pe == wst_pe,
+              f"mesh PE SAM != the single-card packed step's on {len(c1)} "
+              f"pairs")
+        print(f"[mesh] SAM from the mesh outputs through the finish == the "
+              f"single-card path's: SE {len(got)} bytes on {B} reads "
+              f"(sharded aligner, one shard; aligned_total {int(at)} == "
+              f"the SAM's), PE {len(got_pe)} bytes on {len(c1)} pairs "
+              f"(stage_pe_packed; rescue list of "
+              f"{sum(map(len, slists))} pairs, the finish launched "
+              f"{small_launches}); on the {len(b1)} pairs the finish's "
+              f"rescue list held {len(listed)} one-mate pairs, "
+              f"{len(beyond)} past the 512-mate cap, and {len(differ)} "
+              f"pairs ({ndiff} lines) differ, every one of them past the "
+              f"cap, as in hisat2_tpu; mixed pairs {bst['mixed_al']} "
+              f"against {bwst['mixed_al']}, concordant "
+              f"{bst['conc_uniq'] + bst['conc_multi']} against "
+              f"{bwst['conc_uniq'] + bwst['conc_multi']} (conc_total "
+              f"{bconc}); the finish launched {fin_launches}", flush=True)
+
+        # timing: the mesh step against the single-card step on one batch
+        mesh_ms = wall_ms(steps["card"]["se"])
+
+        def single():
+            _fp, _mg, _ex, ready = al.device_align_fast(se_batch)
+            if ready is not None:
+                ready.synchronize()
+        single_ms = wall_ms(single)
+        mesh = meshes["card"]
+        dev = pm.mesh_device(mesh)
+        fp32 = torch.zeros(res["se"][0].shape, dtype=torch.int32, device=dev)
+        mg = torch.zeros((B,) + tuple(res["se"][2].shape[1:]),
+                         dtype=torch.int32, device=dev)
+        one = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def collectives():
+            pm.gather(fp32, mesh.get_group("shard"))
+            pm.gather(mg, mesh.get_group("shard"))
+            pm.psum(one, mesh.get_group("dp"))
+            pm.psum(one, mesh.get_group("dp"))
+        coll_ms = (time_cuda(collectives, iters=20, warmup=3) if cuda
+                   else min(wall_ms(collectives)))
+        print(f"[mesh] one SE batch of {B} reads: mesh step "
+              f"{', '.join(f'{t:.1f}' for t in mesh_ms)} ms against "
+              f"device_align_fast {', '.join(f'{t:.1f}' for t in single_ms)}"
+              f" ms (host wall to the results, 3 runs each); its "
+              f"collectives (2 gathers over shard, 2 sums over dp, "
+              f"{backend}, world size {world}) {coll_ms:.4f} ms [{card}]",
+              flush=True)
+
+        # sync_splice_sites over the world: nothing to adopt at size 1
+        db2 = copy.deepcopy(db)
+        db2.add_novel(1000, 2000, "+")
+        before = db2._sorted_pairs().copy()
+        adopted = mh.sync_splice_sites(db2)
+        check(adopted == 0 and np.array_equal(db2._sorted_pairs(), before),
+              f"sync_splice_sites at world size 1 adopted {adopted}")
+        print(f"[mesh] sync_splice_sites over {backend} at world size "
+              f"{world}: adopted 0, table of {len(db2)} sites unchanged",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # local mode: the card's SAM == the CPU path's. The packed steps
+    # launch the DP kernel every batch; the per-read paths only for reads
+    # one gap could improve, and in local mode no read's device score
+    # reaches the (linear) minimum, so they may launch none
+    lsc = Scoring.local_default()
+    tpipe.dp_score = recording("local", real_dp)
+    try:
+        items = (
+            ("2048 SE reads (stream)", run_stream,
+             make_batches(seqs[:2048], 0, 2048), ("dp_score",)),
+            ("2048 SE reads (align_batch + results_to_sam)",
+             lambda a, bs, ref: sam_of(lambda w: results_to_sam(
+                 bs[0], a.align_batch(bs[0]), a, w), ref),
+             make_batches(seqs[:2048], 0, 2048), ()),
+            ("512 pairs (stream)", run_pe_stream,
+             make_pair_batches(r1[:512], r2[:512], 0, 512), ("dp_score",)),
+            ("512 pairs (align_pairs + pairs_to_sam)",
+             lambda a, bs, ref: sam_of(lambda w: tpaired.pairs_to_sam(
+                 bs[0][0], bs[0][1], tpaired.align_pairs(
+                     a, bs[0][0], bs[0][1]), a, w), ref),
+             make_pair_batches(r1[:512], r2[:512], 0, 512), ()))
+        local_launches = 0
+        for what, run, bs, need in items:
+            cpu_text, cpu_st = run(Aligner(fm, scoring=lsc, device="cpu"),
+                                   bs, ref)
+            alx = Aligner(fm, scoring=lsc, device=device)
+            (text, st), got = counted(lambda: run(alx, bs, ref),
+                                      f"local mode, {what}", need=need)
+            local_launches += got["dp_score"]
+            check(text == cpu_text and st == cpu_st,
+                  f"local mode: the card's SAM != the CPU path's on {what}")
+            nal = sum(not int(ln.split("\t")[1]) & 4
+                      for ln in text.splitlines())
+            print(f"[mesh] local mode (Scoring.local_default()): SAM on the "
+                  f"card == CPU path on {what} ({len(text)} bytes, {nal} "
+                  f"records aligned); launches {got}", flush=True)
+    finally:
+        tpipe.dp_score = real_dp
+    check("local" in captured and captured["local"][1]["match_bonus"] == 2,
+          "local mode launched no DP at match bonus 2")
+    out = dict(captured=captured, launches=launches,
+               fin_launches=fin_launches, local_launches=local_launches,
+               mesh_ms=mesh_ms, single_ms=single_ms, coll_ms=coll_ms,
+               backend=backend, world=world,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[mesh] phase took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2838,12 +3232,17 @@ def main() -> int:
     sc = Scoring()
     consts = sc.dp_consts()
     sctab = sc.device_tables(dev)
+    local_sc = Scoring.local_default()
+    local_consts = local_sc.dp_consts()
+    local_tab = local_sc.device_tables(dev)
     max_err: dict[str, int] = {}
 
-    def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None, quiet=False):
+    def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None, quiet=False,
+                 kc=None):
         name = variant_key(ref.shape[1], ov is not None)
-        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
-        want = dp_fill_plain(rd, pen, lens, ref, scp_cum, ov=ov, **consts)
+        kc = kc or consts
+        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **kc)
+        want = dp_fill_plain(rd, pen, lens, ref, scp_cum, ov=ov, **kc)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
@@ -2875,11 +3274,21 @@ def main() -> int:
                  quiet=quiet)
         check_dp(t[0], pen, t[2], t[3], scp_cum, f"random case {seed} with "
                  f"an overlay of every kind of nibble", ov, quiet=quiet)
+        # local mode's match bonus of 2, without and with the overlay
+        lpen, lscp = (x.contiguous() for x in dp_inputs(local_tab, t[1],
+                                                         t[2]))
+        check_dp(t[0], lpen, t[2], t[3], lscp, f"random case {seed} at "
+                 f"match bonus 2", quiet=True, kc=local_consts)
+        check_dp(t[0], lpen, t[2], t[3], lscp, f"random case {seed} at "
+                 f"match bonus 2 with an overlay", ov, quiet=True,
+                 kc=local_consts)
         n_edges += quiet
     print(f"[kernels] and at {n_edges} edge windows (W + 1 one short of, at "
           f"and one past each variant's capacity and each tile count up to "
-          f"four): every kernel == plain, without and with an overlay; max "
-          f"abs err {max_err}", flush=True)
+          f"four): every kernel == plain, without and with an overlay; every "
+          f"case again at local mode's match bonus of 2 "
+          f"({local_consts['match_bonus']}); max abs err {max_err}",
+          flush=True)
 
     phase_done("kernels")
 
@@ -3113,6 +3522,11 @@ def main() -> int:
     clires = cli_phase(fm, fm.ref.joined, txs, rps, pps, card)
     phase_done("command-line drivers")
 
+    # -- several devices (a mesh over torch.distributed), local mode ---------
+    mres = mesh_phase(fm, al, cpu_al, batches[0], pe_batches[0],
+                      rres["mesh_reads"], rres["sites"], seqs, r1, r2, card)
+    phase_done("mesh and local mode")
+
     if args.profile:
         profile_batch(al, temit.submit_se, temit.finish_se, (batches[0],),
                       "SE batch of 16384 reads")
@@ -3152,7 +3566,7 @@ def main() -> int:
               f"{bound / ms:.3f} of the bound reached [{card}]", flush=True)
 
     kernels = []
-    for name, cap, cnt, path in (
+    for name, cap, cnt, path, *kc in (
             ("dp_score", captured[0], launches["dp_score"]
              + pe_launches["dp_score"], "SE main path (and the PE path's "
              "SE cores, same shape)"),
@@ -3185,17 +3599,33 @@ def main() -> int:
             ("dp_score", clires["captured16"],
              clires["se_batch16384"]["launches"], "cli.align SE at "
              "--batch-size 16384 (launches: the 524,288-read subprocess "
-             "run)")):
+             "run)"),
+            ("dp_score", mres["captured"]["mesh_se"][0],
+             mres["launches"]["se"]["dp_score"], "mesh SE step, a (1, 1) "
+             "mesh over NCCL"),
+            ("dp_score", mres["captured"]["mesh_pe"][0],
+             mres["launches"]["pe"]["dp_score"], "mesh PE step, a (1, 1) "
+             "mesh over NCCL (the two SE cores)"),
+            ("dp_score_wide", mres["captured"]["mesh_pe_wide"][0],
+             mres["fin_launches"]["dp_score_wide"], "mesh PE step's finish "
+             "on its 16,384 pairs, host-mode mate rescue"),
+            ("dp_score", mres["captured"]["mesh_rna"][0],
+             mres["launches"]["rna"]["dp_score"], "mesh RNA step, a (1, 1) "
+             "mesh over NCCL"),
+            ("dp_score", mres["captured"]["local"][0],
+             mres["local_launches"], "local mode, match bonus 2 (SE and PE,"
+             " stream and per-read paths)", mres["captured"]["local"][1])):
+        kc = kc[0] if kc else consts
         rd, pen, rl, ref, scp_cum = cap[:5]
         ov = cap[5] if len(cap) > 5 else None
-        check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov)
+        check_dp(rd, pen, rl, ref, scp_cum, f"the {path} inputs", ov, kc=kc)
         C, L = rd.shape
         W = ref.shape[1]
         ms = time_cuda(lambda: dp_cuda.dp_score(rd, pen, rl, ref, scp_cum,
-                                                ov=ov, **consts), iters=200,
+                                                ov=ov, **kc), iters=200,
                        warmup=20)
         plain_ms = time_cuda(lambda: dp_fill_plain(rd, pen, rl, ref, scp_cum,
-                                                   ov=ov, **consts), iters=3,
+                                                   ov=ov, **kc), iters=3,
                              warmup=1)
         rows = int(rl.clamp(0, L).sum())
         bound, t_bytes, t_ops, nbytes, cells = bound_ms(rd, rl, ref, ov)
@@ -3295,6 +3725,12 @@ def main() -> int:
           f"{clires['rna_known']['cli_rps']:.1f} with them; phase "
           f"{clires['seconds']:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
+    print(f"[report] mesh: a (1, 1) mesh over {mres['backend']}, world "
+          f"size {mres['world']}: SE step {min(mres['mesh_ms']):.1f} ms a "
+          f"batch of {BATCH} reads against device_align_fast's "
+          f"{min(mres['single_ms']):.1f} ms (fastest of 3); its collectives "
+          f"{mres['coll_ms']:.4f} ms; phase {mres['seconds']:.1f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

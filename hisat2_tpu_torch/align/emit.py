@@ -21,7 +21,9 @@ single-junction winners take a vectorized spliced finish; the legacy
 path runs the same rescue and ranks spliced candidates in its ladder.
 The sharded finish (align/sharded.py) takes _finish_fastpack_cols too,
 DNA or RNA, with the host-merged pack, a force_slow mask of cross-shard
-multireads and the merged candidate grid of every read.
+multireads and the merged candidate grid of every read. Local mode stays
+off the native fast paths, as in hisat2_tpu: SE takes the column
+formatter, PE the NumPy fast path (_numpy_fast_pe).
 Spliced paired-end batches take align/paired_rna.py (both mates as one
 2B-read spliced step, pairing on the host); with --tmo, or Zs:Z tags on a
 graph index, the per-pair ladder (paired.align_pairs + pairs_to_sam).
@@ -42,7 +44,7 @@ from ..ops import wire as _wire
 from . import mapq as _mapq
 from . import paired as _paired
 from . import paired_rna as _prna
-from .paired import PEPACK_MM, PEPACK_REP
+from .paired import PEPACK_HDR, PEPACK_MATE, PEPACK_MM, PEPACK_REP
 from .pipeline import (FASTPACK_MM, FASTPACK_REP, NEG_INF, Aligner,
                        ReadResult, _dedup_alns, _filter_reason,
                        _stage_primary_fin, tmo_filter_result)
@@ -468,7 +470,9 @@ def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
            & (np.arange(L)[None, :] < lens[:, None])).sum(axis=1)
     filtered = (lens == 0) | (nNs > sc.n_ceil.I + sc.n_ceil.S * lens)
     KFB = (fp.shape[1] - 4) // FASTPACK_REP
-    if al.opts.spliced or force_slow is not None or merged_full is not None:
+    # local mode stays off the native fast path, as in hisat2_tpu
+    if (al.opts.spliced or sc.local or force_slow is not None
+            or merged_full is not None):
         return _finish_fastpack_cols(al, batch, fp, merged_dev, writer, ex,
                                      lens, L, min_scs, filtered, KFB,
                                      force_slow, merged_full)
@@ -1450,6 +1454,211 @@ def _native_fast_pe(al, b1, b2, fp, ex, NRB, force_slow=None):
     return fast_u8.astype(bool), fbuf, pair_end, stats
 
 
+def _numpy_fast_pe(al, b1, b2, fp, ex, NRB, force_slow=None):
+    """The PE fast path in NumPy (hisat2_tpu's _finish_pe_pack when its
+    native path stands aside, as it does in local mode): the same fast-pair
+    test and concordant records as _native_fast_pe, formatted by
+    _format_pe_records. Returns (fast, fbuf, pair_end, stats)."""
+    B = len(b1)
+    o = al.opts
+    sc = al.scoring
+    khits = o.khits
+    # tiered multi-pair buckets (stage_pe_packed MB extras): tier t
+    # carries a slice of reports >= NRB, scattered to full-B lanes here
+    tier_rows: list = []
+    tier_reps: list = []
+    tier_has: list = []
+    k_tier: dict[int, tuple] = {}
+    NR = NRB
+    if ex is not None:
+        t = 0
+        while f"mrep{t}" in ex:
+            rows_t = ex[f"mrows{t}"]
+            rep_t = ex[f"mrep{t}"].reshape(rows_t.size, -1, PEPACK_REP)
+            has_t = np.zeros(B, bool)
+            has_t[rows_t[rows_t >= 0]] = True
+            tier_rows.append(rows_t)
+            tier_reps.append(rep_t)
+            tier_has.append(has_t)
+            for c in range(rep_t.shape[1]):
+                k_tier[NR + c] = (t, c)
+            NR += rep_t.shape[1]
+            t += 1
+    l1 = b1.lens.astype(np.int64)
+    l2 = b2.lens.astype(np.int64)
+    nvalid = fp[:, 0].astype(np.int64)
+    best = fp[:, 1].astype(np.int64)
+    sec = fp[:, 2].astype(np.int64)
+    has_sec = sec != -32768
+
+    def mate(k, m):
+        if k < NRB:
+            rb = PEPACK_HDR + PEPACK_REP * k
+            lanes = fp[:, rb:rb + PEPACK_REP].astype(np.int64)
+        else:
+            # scatter the bucket report to full-B lanes (garbage outside
+            # bucket rows; fast-path eligibility masks with tier_has)
+            ti, c = k_tier[k]
+            rows_t, rep_t = tier_rows[ti], tier_reps[ti]
+            bokt = rows_t >= 0
+            lanes = np.zeros((B, PEPACK_REP), np.int64)
+            lanes[rows_t[bokt]] = rep_t[bokt, c].astype(np.int64)
+        b0 = 1 + PEPACK_MATE * m
+        rfl = lanes[:, 0]
+        lo = lanes[:, b0].astype(np.uint16).astype(np.uint32)
+        hi = lanes[:, b0 + 1].astype(np.uint16).astype(np.uint32)
+        return dict(
+            pos=(lo | (hi << 16)).astype(np.int64),
+            c5=lanes[:, b0 + 2],
+            c3=lanes[:, b0 + 3],
+            nmm=lanes[:, b0 + 4],
+            nmm_all=lanes[:, b0 + 5],
+            score=lanes[:, b0 + 6],
+            mm=lanes[:, b0 + 7:b0 + 7 + PEPACK_MM],
+            fw=(rfl >> (2 * m)) & 1 > 0,
+            gapped=(rfl >> (2 * m + 1)) & 1 > 0)
+    reps = [[mate(k, m) for m in (0, 1)] for k in range(NR)]
+
+    conc = nvalid >= 1
+    nrep = np.minimum(nvalid, khits)
+    fast = conc & (nrep <= NR)
+    if o.omit_sec_seq:
+        fast &= nrep <= 1
+    if force_slow is not None:
+        # cross-shard multi-placement pairs: NH and report interleaving
+        # need the exact per-pair path
+        fast &= ~np.asarray(force_slow)
+    ref = al.fm.ref
+    for k in range(NR):
+        r1, r2 = reps[k]
+        ok1, fc1, as1 = _contain(ref, r1["pos"][:, None], r1["c5"][:, None],
+                                 r1["c3"][:, None], l1)
+        ok2, fc2, as2 = _contain(ref, r2["pos"][:, None], r2["c5"][:, None],
+                                 r2["c3"][:, None], l2)
+        r1["fc"], r1["astart"] = fc1[:, 0], as1[:, 0]
+        r2["fc"], r2["astart"] = fc2[:, 0], as2[:, 0]
+        okk = (ok1[:, 0] & ok2[:, 0]
+               & (ref.frag_tidx[r1["fc"]] == ref.frag_tidx[r2["fc"]])
+               & ~r1["gapped"] & ~r2["gapped"]
+               & (r1["nmm_all"] <= PEPACK_MM)
+               & (r2["nmm_all"] <= PEPACK_MM))
+        if k >= NRB:
+            okk &= tier_has[k_tier[k][0]]
+        fast &= (nrep <= k) | okk
+
+    mqc = _MapqCache(sc)
+    stats = _paired.new_pair_stats()
+    fbuf = b""
+    pair_end = np.zeros(B, np.int64)
+    frows = np.flatnonzero(fast)
+    if frows.size:
+        nr = nrep[frows]
+        rec_pair = np.repeat(frows, nr)
+        rec_k = np.arange(rec_pair.size) - np.repeat(
+            np.concatenate([[0], np.cumsum(nr)[:-1]]), nr)
+        nrec = rec_pair.size
+
+        def take(m, fld):
+            arrs = np.stack([reps[k][m][fld] for k in range(NR)])
+            if arrs.ndim == 2:
+                return arrs[rec_k, rec_pair]
+            return arrs[rec_k, rec_pair, :]
+
+        toff, cc5, cc3, mids, fws, tidxs, scs, nmms, mms = ([] for _ in
+                                                            range(9))
+        for m, lm in ((0, l1), (1, l2)):
+            fc = take(m, "fc")
+            astart = take(m, "astart")
+            toff.append(ref.frag_toff[fc] + astart - ref.frag_joined[fc])
+            tidxs.append(ref.frag_tidx[fc].astype(np.int32))
+            c5m = take(m, "c5").astype(np.int32)
+            c3m = take(m, "c3").astype(np.int32)
+            cc5.append(c5m)
+            cc3.append(c3m)
+            mids.append((lm[rec_pair] - c5m - c3m).astype(np.int32))
+            fws.append(take(m, "fw"))
+            scs.append(take(m, "score").astype(np.int32))
+            nmms.append(take(m, "nmm").astype(np.int32))
+            mmp = take(m, "mm")
+            cnt = take(m, "nmm_all").astype(np.int64)
+            off_m = np.zeros(nrec + 1, np.int64)
+            np.cumsum(cnt, out=off_m[1:])
+            selm = np.arange(PEPACK_MM)[None, :] < cnt[:, None]
+            vals = mmp[selm]
+            mms.append(((vals >> 3) - np.repeat(c5m, cnt)).astype(np.int32))
+            mms.append(np.ascontiguousarray(
+                _DEC_ASCII[np.clip(vals & 7, 0, 4)]))
+            mms.append(off_m)
+            mms.append(cnt)
+
+        left = np.minimum(toff[0] - cc5[0], toff[1] - cc5[1])
+        right = np.maximum(toff[0] + mids[0] + cc3[0],
+                           toff[1] + mids[1] + cc3[1])
+        tl = right - left
+        tl1 = np.where(toff[0] <= toff[1], tl, -tl)
+
+        bt = best[frows]
+        st_ = sec[frows]
+        need_tab = (has_sec & (sec == best))[frows]
+        mapq_pair = np.full(frows.size, 60, np.int32)
+        for j in np.flatnonzero(need_tab):
+            i = frows[j]
+            mapq_pair[j] = mqc.get(
+                int(bt[j]), int(st_[j]), None, False,
+                perfect=sc.perfect_score(int(l1[i]))
+                + sc.perfect_score(int(l2[i])),
+                minsc=sc.min_score(int(l1[i])) + sc.min_score(int(l2[i])))
+        pairloc = np.zeros(int(frows.max()) + 1, np.int64)
+        pairloc[frows] = np.arange(frows.size)
+        mq_rec = np.where(rec_k == 0, mapq_pair[pairloc[rec_pair]],
+                          255).astype(np.int32)
+
+        flag1 = (1 | 64 | 2 | np.where(fws[0], 0, 16)
+                 | np.where(fws[1], 0, 32)
+                 | np.where(rec_k > 0, 256, 0)).astype(np.int32)
+        flag2 = (1 | 128 | 2 | np.where(fws[1], 0, 16)
+                 | np.where(fws[0], 0, 32)
+                 | np.where(rec_k > 0, 256, 0)).astype(np.int32)
+        nh = np.repeat(nr, nr).astype(np.int32)
+
+        def ilv(a1, a2):
+            z = np.empty(2 * nrec, a1.dtype)
+            z[0::2] = a1
+            z[1::2] = a2
+            return z
+
+        immoff = np.zeros(2 * nrec + 1, np.int64)
+        immoff[1::2] = mms[3]
+        immoff[2::2] = mms[7]
+        np.cumsum(immoff, out=immoff)
+        immcols, immref = _interleave_runs(
+            (mms[0], mms[1], mms[2], mms[3]),
+            (mms[4], mms[5], mms[6], mms[7]), nrec)
+        fbuf, rec_ends = _format_pe_records(
+            al, b1, b2, frows,
+            ilv(rec_pair.astype(np.int32) * 2,
+                rec_pair.astype(np.int32) * 2 + 1),
+            ilv(flag1, flag2), ilv(tidxs[0], tidxs[1]),
+            ilv((toff[0] + 1).astype(np.int32),
+                (toff[1] + 1).astype(np.int32)),
+            ilv(mq_rec, mq_rec), ilv(cc5[0], cc5[1]),
+            ilv(mids[0], mids[1]), ilv(cc3[0], cc3[1]),
+            ilv((toff[1] + 1).astype(np.int32),
+                (toff[0] + 1).astype(np.int32)),
+            ilv(tl1.astype(np.int32), (-tl1).astype(np.int32)),
+            np.full(2 * nrec, 1, np.int32), ilv(scs[0], scs[1]),
+            ilv(nmms[0], nmms[1]), np.full(2 * nrec, INT32_MIN, np.int32),
+            ilv(nh, nh), immcols, immref, immoff)
+        last_rec = 2 * np.cumsum(nr) - 1
+        pair_end[frows] = rec_ends[last_rec]
+        stats["pairs"] += int(frows.size)
+        stats["mates_al"] += 2 * int(frows.size)
+        multi = nvalid[frows] >= 2
+        stats["conc_multi"] += int(multi.sum())
+        stats["conc_uniq"] += int((~multi).sum())
+    return fast, fbuf, pair_end, stats
+
+
 def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
                     writer, force_slow=None) -> dict:
     """Host half of the packed PE step: decode the wire-coded pack,
@@ -1478,8 +1687,10 @@ def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
                                                  wr.shape[1] // NWr)
             t += 1
     NRB = _paired.pepack_nr(fp.shape[1])     # report slots in the base pack
-    fast, fbuf, pair_end, stats = _native_fast_pe(al, b1, b2, fp, ex, NRB,
-                                                  force_slow)
+    # local mode takes the NumPy fast path, as in hisat2_tpu
+    fast_pe = _numpy_fast_pe if al.scoring.local else _native_fast_pe
+    fast, fbuf, pair_end, stats = fast_pe(al, b1, b2, fp, ex, NRB,
+                                          force_slow)
     return _finish_pe_slow_and_stitch(
         al, b1, b2, ex, out, writer, fast, fp[:, -1].astype(np.int64),
         fp[:, 0].astype(np.int64), b1.lens.astype(np.int64),
@@ -1497,12 +1708,14 @@ def _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h, m2h, l1, l2, ex, stats):
       reportable candidates are ungapped -> one aligned + one unaligned
       record (YT:Z:UP), NH/ZS/MAPQ per _dedup_alns semantics
 
-    Everything else (rescue successes, discordant, gapped) stays with the
+    Everything else (rescue successes, discordant, gapped, local
+    mode) stays with the
     per-pair ladder. Returns ({row: [sam_text]}, remaining_slow_rows).
     """
     o = al.opts
     sc = al.scoring
-    if o.no_mixed or o.tmo or o.zs_tags or slow.size == 0:
+    if (o.no_mixed or o.tmo or sc.local or o.zs_tags
+            or slow.size == 0):
         return {}, slow
     S = slow[nvalid[slow] == 0]
     if S.size == 0:

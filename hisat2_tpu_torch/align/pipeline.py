@@ -90,6 +90,12 @@ def _filter_reason(batch, i: int, lens) -> str:
     return "LN"
 
 
+def min_anchor(n: int) -> int:
+    """The reference's _minK: the minimum anchor of a genome of n bases,
+    ceil(log4 n), at least 8."""
+    return max(8, int(np.ceil(np.log(max(n, 4)) / np.log(4))))
+
+
 @dataclass
 class AlignerOpts:
     khits: int = 5                 # -k: max alignments reported per read
@@ -815,18 +821,6 @@ class RepeatAligner:
         return out
 
 
-def _refuse_local(scoring: Scoring) -> None:
-    if scoring.local:
-        # hisat2_tpu's device steps evaluate score_min as
-        # ceil(I + S * len) whatever its type, so local mode's G,20,8
-        # asks a 100 bp read for 820 where Scoring.min_score gives 57
-        # (scripts/local_mode_probe.py): nothing aligns there, and a
-        # port would copy that
-        raise NotImplementedError(
-            "local mode is not ported: hisat2_tpu evaluates its "
-            "log-type score_min as linear on the device")
-
-
 class Aligner:
     """Batched aligner over a built FM index, DNA or (opts.spliced)
     spliced RNA with a splice-site table of its own (ssdb). An index with
@@ -841,7 +835,6 @@ class Aligner:
         self.scoring = scoring
         self.opts = opts or AlignerOpts()
         o = self.opts
-        _refuse_local(scoring)
         self.device = torch.device(device)
         # the bundle carries the FM keys exactly when there is no table
         self.idx = fm.device_bundle(self.device)
@@ -853,9 +846,7 @@ class Aligner:
         else:
             self.seeder = "seeds" if o.seed_mode else "segments"
             self.fb_seeder = "segments"
-        # reference _minK: minimum anchor = ceil(log4 |genome|), >= 8
-        self.min_seg_len = max(8, int(np.ceil(np.log(max(fm.n, 4))
-                                              / np.log(4))))
+        self.min_seg_len = min_anchor(fm.n)
         self.sctab = scoring.device_tables(self.device)
         self.sc_const = scoring.dp_consts()
         self.metrics = Metrics()
@@ -888,7 +879,6 @@ class Aligner:
         finishes here; the ladder's mate rescue scores its windows with
         the DP kernel on `device` (paired._rescue_mates)."""
         from types import SimpleNamespace
-        _refuse_local(scoring)
         self = cls.__new__(cls)
         self.fm = SimpleNamespace(ref=ref, st_k=0, ftab_k=1,
                                   n=int(ref.joined.size))

@@ -287,7 +287,9 @@ def test_unported_options_still_raise(world):
     """Spliced SE and PE and --tmo are ported (tests/test_torch_splice_*.py,
     tests/test_torch_paired_rna*.py): spliced align_pairs + pairs_to_sam,
     with and without --tmo, gives the JAX package's SAM bytes and stats on
-    index A (FM seeding, per-base qualities); local mode still raises."""
+    index A (FM seeding, per-base qualities). Local mode no longer raises:
+    align_batch + results_to_sam gives the JAX package's bytes there too
+    (tests/test_torch_local_mode.py covers it in full)."""
     _, tfms, jb, tb = world
     jb0, tb0 = _head(jb[0], 24), _head(tb[0], 24)
     for kw in (dict(spliced=True), dict(spliced=True, tmo=True)):
@@ -300,9 +302,15 @@ def test_unported_options_still_raise(world):
             tsam, tal, tal.fm.ref)
         assert tst == jst and ttext == jtext
         assert tst["pairs"] == 24
-    with pytest.raises(NotImplementedError):
-        TAligner(tfms["A"], scoring=dataclasses.replace(TSCORING, local=True),
-                 device="cpu")
+    jal = JAligner(world[0]["A"],
+                   scoring=dataclasses.replace(JSCORING, local=True))
+    tal = TAligner(tfms["A"], scoring=dataclasses.replace(TSCORING, local=True),
+                   device="cpu")
+    jtext, jst = _sam(lambda al, w: jpipe.results_to_sam(
+        jb0, al.align_batch(jb0), al, w), jsam, jal, jal.fm.ref)
+    ttext, tst = _sam(lambda al, w: tpipe.results_to_sam(
+        tb0, al.align_batch(tb0), al, w), tsam, tal, tal.fm.ref)
+    assert tst == jst and ttext == jtext
     # Zs:Z tags are ported: on a linear index the option changes nothing
     assert TAligner(tfms["A"], opts=TOpts(zs_tags=True),
                     device="cpu").overlay is None

@@ -6,7 +6,8 @@ the paired-k-mer and stride-sampled table modes), and on a graph index
 alignment, single-end and paired-end; genome-sharded alignment (SE, PE,
 graph, RNA, tmo) and its eviction; RepeatAligner; cli.align SE and PE;
 the DP kernel's overlay instantiations against the plain version at the
-edge windows. Skips where CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
+edge windows, and at local mode's match bonus; the mesh steps over NCCL
+in a world of one against the same steps over gloo on the CPU. Skips where CUDA is absent; the DP kernel's own card tests are in tests/test_torch_dp.py."""
 
 import io
 
@@ -457,3 +458,91 @@ def test_cli_sam_on_card_equals_cpu(tmp_path, paired):
     on_card = sam([])
     assert dp_cuda.launches["dp_score"] > before
     assert on_card == sam(["--device", "cpu"])
+
+
+@pytest.mark.gpu
+def test_dp_kernel_at_local_match_bonus_matches_plain():
+    """Local mode's DP (match bonus 2): every kernel against the plain
+    version at the main paths' windows and every variant's edge windows,
+    without and with an overlay."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the DP kernel runs only on one")
+    from hisat2_tpu_torch.align.scoring import Scoring
+    from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
+    sc = Scoring.local_default()
+    sctab = sc.device_tables("cuda")
+    consts = sc.dp_consts()
+    assert consts["match_bonus"] == 2
+    for W in (chip_smoke.edge_windows("dp_score")
+              + chip_smoke.edge_windows("dp_score_wide")
+              + chip_smoke.edge_windows("dp_score_tiled")
+              + [136, 288, 1104]):
+        rd, quals, lens, ref = chip_smoke.make_dp_case(
+            200 + W, *chip_smoke.edge_case_shape(W), W)
+        ov = torch.from_numpy(chip_smoke.make_dp_ov(W, rd, ref)).cuda()
+        t = [torch.from_numpy(a).cuda() for a in (rd, quals, lens, ref)]
+        pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
+        a = (t[0], pen, t[2], t[3], scp)
+        for o in (None, ov):
+            got = dp_cuda.dp_score(*a, ov=o, **consts)
+            assert torch.equal(got, dp_fill_plain(*a, ov=o, **consts)), W
+        # the bonus changes the scores
+        assert not torch.equal(got, dp_cuda.dp_score(
+            *a, ov=ov, **Scoring().dp_consts())), W
+
+
+@pytest.mark.gpu
+def test_mesh_nccl_world_of_one_equals_gloo_cpu(tmp_path):
+    """A world of one process holding both backends ("cpu:gloo,
+    cuda:nccl"): the SE, PE and RNA mesh steps on a (1, 1) mesh of the
+    card (NCCL collectives) give the outputs of the same steps on a
+    (1, 1) mesh of the CPU (gloo), exactly, and dp_score launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: NCCL needs one")
+    import torch.distributed as dist
+    from hisat2_tpu_torch.align.splice_db import SpliceSiteDB
+    from hisat2_tpu_torch.parallel import mesh as pm
+    from hisat2_tpu_torch.parallel import multihost as mh
+    rng = np.random.default_rng(41)
+    g = rng.integers(0, 4, 60000).astype(np.uint8)
+    fm = build_fm_index(reference_from_seqs({"chrG": alphabet.decode(g)}))
+    seqs, _, _ = chip_smoke.simulate_reads(g, 256, seed=42)
+    batch = chip_smoke.make_batches(seqs, 0, 256)[0]
+    r1, r2, _, _ = chip_smoke.simulate_pairs(g, 256, seed=43)
+    b1, b2 = chip_smoke.make_pair_batches(r1, r2, 0, 256)[0]
+    L = batch.seqs.shape[1]
+    seq_w, n_w, _, qse, lens = batch.packed()
+    sw1, nw1, _, qc, l1 = b1.packed()
+    sw2, nw2, _, _, l2 = b2.packed()
+    mh.init_distributed(f"file://{tmp_path / 'init'}", 1, 0,
+                        "cpu:gloo,cuda:nccl")
+    try:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            mesh = pm.make_mesh(1, n_shards=1, device_type=dev)
+            al = Aligner(fm, device=dev)
+            ral = Aligner(fm, opts=AlignerOpts(spliced=True), device=dev)
+            idx = pm.replicate_index(al.idx, mesh)
+            before = dp_cuda.launches["dp_score"]
+            sw, nw, ls = pm.shard_batch(mesh, seq_w, n_w, lens)
+            se = pm.fused_se_sharded(mesh, al, [0], idx, 256, L)(
+                al.sctab, sw, nw, qse, ls)
+            pe = pm.fused_pe_sharded(mesh, al, [0], idx, 256, L)(
+                al.sctab, *pm.shard_batch(mesh, sw1, nw1, l1, sw2, nw2, l2),
+                qc)
+            db = SpliceSiteDB()
+            rna = pm.fused_rna_sharded(
+                mesh, ral, [0], idx, 256, L,
+                db.device_arrays4(pm.mesh_device(mesh)))(
+                ral.sctab, sw, nw, qse, ls)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert dp_cuda.launches["dp_score"] > before
+                assert mh.sync_splice_sites(db) == 0 and len(db) == 0
+            outs[dev] = [o.cpu() for o in (*se, *pe, *rna)]
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert int(outs["cuda"][3]) == int((outs["cuda"][0][:, 0] >= 1)
+                                           .sum())
+    finally:
+        dist.destroy_process_group()

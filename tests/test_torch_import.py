@@ -68,7 +68,10 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.tools.extract_exons",
                 "hisat2_tpu_torch.tools.extract_snps",
                 "hisat2_tpu_torch.tools.simulate_reads",
-                "hisat2_tpu_torch.tools.read_statistics"):
+                "hisat2_tpu_torch.tools.read_statistics",
+                "hisat2_tpu_torch.parallel",
+                "hisat2_tpu_torch.parallel.mesh",
+                "hisat2_tpu_torch.parallel.multihost"):
         assert mod in expected
 
 

@@ -23,6 +23,8 @@ DEVICE = ["--device", "cpu"]
 HT2FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "ht2fix")
 _TIME = re.compile(r"Time: \d+\.\d+s")
+# the "(N.Ns)" build clock that cli.build and cli.repeat print to stderr
+_CLOCK = re.compile(r"\(\d+\.\d+s\)")
 # MetricsSink columns that hold a clock, a rate or a memory size
 _MET_MASKED = ("elapsed", "reads_per_sec", "bases_per_sec", "t_pack",
                "t_fetch", "t_gather", "t_host", "t_rescue", "dev_mb",
@@ -84,7 +86,7 @@ def _mask_met(text: str) -> str:
 
 
 def masked(text: str, port: bool) -> str:
-    text = _mask_met(_TIME.sub("Time: *", text))
+    text = _mask_met(_CLOCK.sub("(*s)", _TIME.sub("Time: *", text)))
     return _unpg(text) if port else text
 
 
