@@ -142,19 +142,30 @@ Phases; any failure exits non-zero:
                  tmo=True, every run launching the DP kernel and the PE
                  ladder's host-mode mate rescue the one-block kernel; then
                  all of it again with HISAT2_TPU_HBM_GB below two shards
-                 (evictions counted). Then a genome of real size: 8
-                 chromosomes of 125 Mbp (1.0 Gbp, chicken GRCg7b's size)
-                 with 50 segments of 2 kb copied across shards,
-                 build_sharded(max_bases=400,000,000) into 3 table-only
-                 shards (kt = 13), each shard's estimated bundle bytes
-                 held to the real bundle's; 8 batches of 16,384 SE reads
-                 and 4 of 16,384 pairs (phases 4's and 5's generators and
-                 guards) under the default budget (every shard resident,
-                 uploaded once); reads/s, pairs/s, seconds per shard
-                 upload, one batch alone under the profiler; then 2 SE
-                 batches and 1 PE batch with the budget below two shards:
-                 every pass uploads each shard again, evictions counted,
-                 the SAM bytes equal the resident run's.
+                 (evictions counted). Then a genome of human size:
+                 tools.scale_validate's (make_genome: 16 chromosomes of
+                 200 Mbp, 3.2 Gbp, 2,000 copies of a 300 bp unit) built
+                 with the default cap into 2 table-only shards of 1.8 and
+                 1.4 Gbp (kt = 13; global positions past 2^31 in the
+                 second), the host's free memory first held to the
+                 tool's estimate of the build (the phase fails with both
+                 figures if it is short), each shard's estimated bundle
+                 bytes held to the real bundle's; both shards uploaded
+                 under the default budget (each once) by a warm-up batch
+                 drawn after the timed reads; 100,000 SE reads (no
+                 indels: at this size only the PE leg reaches the indel
+                 ladder) from sample_reads at batch 8192, dp_score launched in
+                 every (shard, batch) step, aligned and correct of
+                 primary >= 0.97 over all reads and over those whose true
+                 joined start is >= 2^31; 4 batches of 16,384 pairs
+                 (phase 5's generator and guards, proper pairs >= 0.90),
+                 the host-mode ladder rescue launching the one-block
+                 kernel; generation, build, upload and align seconds,
+                 reads/s, pairs/s, max_memory_allocated, peak host RSS,
+                 one SE batch alone under the profiler; then 1 SE batch
+                 and 1 PE batch with the budget below two shards: every
+                 pass uploads each shard again, evictions counted, the
+                 SAM bytes equal the resident run's.
  11. repeats   - repeat families planted in a copy of phase 4's genome (20
                  of 300 bp x 50 copies, 20 of 1-6 kb x 8, a third of the
                  copies reverse-complemented, a quarter with one SNV):
@@ -175,8 +186,8 @@ Phases; any failure exits non-zero:
                  match g.fa. Then python -m hisat2_tpu_torch.cli.align
                  runs as a subprocess (a wrapper prints the DP wrappers'
                  launch counts when it ends) from FASTQ to a SAM file, -t:
-                 524,288 SE reads (phase 4's generator) at --batch-size
-                 16384 and the first 131,072 at the default 2048, 131,072
+                 131,072 SE reads (phase 4's generator) at --batch-size
+                 16384 and the first 32,768 at the default 2048, 32,768
                  pairs at 16384 (phases 4's and 5's guards, the summary's
                  counts == the SAM's), 32,768 of phase 8's RNA reads in the
                  default spliced mode at 16384 without known sites (phase
@@ -185,7 +196,7 @@ Phases; any failure exits non-zero:
                  Process wall and the CLI's Time: give reads/s and
                  pairs/s; beside them, in this process: the index load
                  and the aligner's set-up, the read layer alone (parse,
-                 _reindex, batches) and the stream alone on 8 of its
+                 _reindex, batches) and the stream alone on 7 of its
                  batches. In-process main(argv) on the
                  card must give the SAM and side files of --device cpu: SE
                  (2,048 reads) and PE (512 pairs), --un/--al,
@@ -233,7 +244,8 @@ Phases; any failure exits non-zero:
                  RNA path's, and with the overlay on the graph path's; the
                  tiled one on the 2,100 bp reads', the one-block overlay
                  one on the 250 bp graph reads'; both on the RNA PE path's
-                 own inputs; the narrow one on the per-shard SE step's and
+                 own inputs; the narrow one on the per-shard SE step's of
+                 the 3.2 Gbp genome (C = 4096 at batch 8192) and
                  RepeatAligner.align_batch's, the wide one on the sharded
                  PE ladder's host-mode rescue; the narrow one on cli.align's
                  SE step at --batch-size 2048 and 16384, on the mesh SE,
@@ -315,15 +327,14 @@ SMALL_SHARD = 45_000          # one shard each (build_sharded max_bases)
 SMALL_SE = 2048               # its SE and graph reads,
 SMALL_PE = 512                # its pairs,
 SMALL_RNA = 256               # its RNA reads (RNA pairs: half as many)
-SHARD_CHROMS = 8              # phase 10's genome of real size: 8 x 125 Mbp
-SHARD_CHROM_LEN = 125_000_000  # = 1.0 Gbp, chicken GRCg7b's size
-SHARD_BASES = 400_000_000     # --shard-bases: shards of 375, 375, 250 Mbp
-SHARD_COPIES = 50             # 2 kb segments copied across shards
+SCALE_BASES = 3_200_000_000   # phase 10's genome of human size: 16 x 200
+SCALE_READS = 100_000         # Mbp in 2 shards (tools.scale_validate's), its
+SCALE_BATCH = 8192            # SE reads and their batch size
 REP_SHORT = 20                # phase 11: families of 300 bp x 50 copies
 REP_LONG = 20                 # and of 1-6 kb x 8 copies
-CLI_SE = 524_288              # phase 12: SE reads through cli.align,
-CLI_SE_DEFAULT = 131_072      # the first of them at the default batch size,
-CLI_PE = 131_072              # pairs,
+CLI_SE = 131_072              # phase 12: SE reads through cli.align,
+CLI_SE_DEFAULT = 32_768       # the first of them at the default batch size,
+CLI_PE = 32_768               # pairs,
 CLI_RNA = 32_768              # RNA reads in the CLI's default spliced mode,
 CLI_CHECK = 2048              # reads of each card == CPU run (pairs: 1/4)
 CLI_BATCH = 16384             # --batch-size of the timed SE and PE runs
@@ -2005,35 +2016,6 @@ def sharded_card_equals_cpu(case, tag, budget_gb=None):
         del sa
 
 
-def big_sharded_genome():
-    """SHARD_CHROMS chromosomes of SHARD_CHROM_LEN random bases (chicken
-    GRCg7b's size in all), with SHARD_COPIES segments of 2 kb copied from
-    one shard's chromosomes to another's. Returns the JoinedReference
-    (built directly: no N, one fragment a chromosome)."""
-    from hisat2_tpu_torch.io.reference import JoinedReference
-    rng = np.random.default_rng(60)
-    C, n = SHARD_CHROMS, SHARD_CHROMS * SHARD_CHROM_LEN
-    codes = rng.integers(0, 4, n, dtype=np.uint8)
-    per = SHARD_BASES // SHARD_CHROM_LEN            # chromosomes a shard
-    shard_of = np.arange(C) // per
-    for k in range(SHARD_COPIES):
-        a, b = rng.choice(C, 2, replace=False)
-        while shard_of[a] == shard_of[b]:
-            a, b = rng.choice(C, 2, replace=False)
-        src = a * SHARD_CHROM_LEN + int(rng.integers(0, SHARD_CHROM_LEN
-                                                     - 2000))
-        dst = b * SHARD_CHROM_LEN + int(rng.integers(0, SHARD_CHROM_LEN
-                                                     - 2000))
-        codes[dst:dst + 2000] = codes[src:src + 2000]
-    starts = np.arange(C, dtype=np.int64) * SHARD_CHROM_LEN
-    return JoinedReference(
-        names=[f"chr{c + 1}" for c in range(C)],
-        tlens=np.full(C, SHARD_CHROM_LEN, np.int64), joined=codes,
-        frag_joined=starts, frag_toff=np.zeros(C, np.int64),
-        frag_tidx=np.arange(C, dtype=np.int32),
-        frag_len=np.full(C, SHARD_CHROM_LEN, np.int64))
-
-
 def sharded_phase(rps, pps, card):
     """Phase 10 (see the module docstring). Returns the DP kernels'
     inputs as the per-shard SE step and the host-mode ladder rescue built
@@ -2055,29 +2037,36 @@ def sharded_phase(rps, pps, card):
     sharded_card_equals_cpu(case, ", budget one shard",
                             budget_gb=1.5 * one / (1 << 30))
 
-    # -- a genome of real size ------------------------------------------
+    # -- a genome of human size -----------------------------------------
+    from hisat2_tpu_torch.index.sharded import MAX_SHARD_BASES
+    from hisat2_tpu_torch.ops import dp_cuda
+    from hisat2_tpu_torch.tools import scale_validate as sv
+    sv.check_host_memory(sv.host_need_se(SCALE_BASES, MAX_SHARD_BASES),
+                         f"phase 10's {SCALE_BASES} bp table-only build")
+    rng = np.random.default_rng(0)          # tools.scale_validate's stream
     t0 = time.perf_counter()
-    ref = big_sharded_genome()
+    ref = sv.make_genome(SCALE_BASES, rng)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sh = build_sharded(ref, max_bases=SHARD_BASES)
+    sh = build_sharded(ref)
     t_build = time.perf_counter() - t0
     S = len(sh)
     est = [sh.shards[i].bundle_nbytes() for i in range(S)]
-    check(S == 3 and all(s.table_only and s.st_k == 13 for s in sh.shards),
+    check(S == 2 and all(s.table_only and s.st_k == 13 for s in sh.shards),
           f"{S} shards, kt {[s.st_k for s in sh.shards]}")
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
-    print(f"[sharded] {ref.n} bp in {SHARD_CHROMS} chromosomes, "
-          f"{SHARD_COPIES} cross-shard copies of 2 kb, generated in "
-          f"{t_gen:.1f} s; {S} table-only shards of "
-          f"{[int(s.ref.n) for s in sh.shards]} bp (kt=13) built in "
+    print(f"[sharded] {ref.n} bp in {sv.NCHROM} chromosomes with "
+          f"{sv.UNIT_COPIES} copies of a {sv.UNIT_LEN} bp unit, generated "
+          f"in {t_gen:.1f} s; {S} table-only shards of "
+          f"{[int(s.ref.n) for s in sh.shards]} bp (kt=13, global positions "
+          f"to {ref.n - 1}, past 2^31 from {1 << 31}) built in "
           f"{t_build:.1f} s; estimated bundle bytes {est}; peak host RSS "
           f"so far {rss:.1f} GiB", flush=True)
 
-    n = BATCH * NBATCH
-    seqs, starts, indel = simulate_reads(ref.joined, n + BATCH, seed=61)
-    batches = make_batches(seqs[:n], 0, BATCH)
-    warm = make_batches(seqs[n:], n, BATCH)
+    batches = sv.sample_reads(ref.joined, SCALE_READS, RDLEN, SCALE_BATCH,
+                              rng)
+    # one more batch from the same stream, drawn after the timed reads
+    warm = sv.sample_reads(ref.joined, SCALE_BATCH, RDLEN, SCALE_BATCH, rng)
     pe_n = PE_BATCH * PE_NBATCH
     r1, r2, m1_true, pe_indel = simulate_pairs(ref.joined, pe_n, seed=62)
     pe_batches = make_pair_batches(r1, r2, 0, PE_BATCH)
@@ -2087,7 +2076,7 @@ def sharded_phase(rps, pps, card):
     mem0 = torch.cuda.memory_allocated()
     sa = ShardedAligner(sh, device="cuda")
     budget = sa.budget
-    run_sharded(sa, warm, ref)           # uploads every shard
+    run_sharded(sa, warm, ref)    # uploads every shard, warms batch 8192
     check(sa.uploads == S and sa.evictions == 0,
           f"default budget {budget} bytes: {sa.uploads} uploads, "
           f"{sa.evictions} evictions")
@@ -2095,42 +2084,69 @@ def sharded_phase(rps, pps, card):
     check(real == est, f"estimated bundle bytes {est} != real {real}")
     upload_s = sa.upload_s / sa.uploads
     print(f"[sharded] default budget {budget / (1 << 30):.2f} GiB (free "
-          f"device memory less {DEVICE_HEADROOM / (1 << 30):.0f} GiB): all "
-          f"{S} shards resident, {sa.uploads} uploads of "
-          f"{upload_s:.3f} s each (host preparation + copy; "
+          f"device memory less {DEVICE_HEADROOM / (1 << 30):.0f} GiB): both "
+          f"shards resident, {sa.uploads} uploads in {sa.upload_s:.3f} s "
+          f"({upload_s:.3f} s each: host preparation + copy; "
           f"{sum(real) / sa.upload_s / 1e9:.2f} GB/s); bundle bytes "
-          f"{real}, device memory held {(torch.cuda.memory_allocated() - mem0) / (1 << 30):.2f} GiB "
+          f"{real}, device memory held "
+          f"{(torch.cuda.memory_allocated() - mem0) / (1 << 30):.2f} GiB "
           f"[{card}]", flush=True)
 
-    captured = []
-    real_dp = tpipe.dp_score
+    # every (shard, batch) step's dp_score launches, and the first DP
+    # call's inputs for the report
+    captured, steps = [], []
+    real_dp, real_step = tpipe.dp_score, tpipe.Aligner.device_align_fast
+    shard_of = {id(s): i for i, s in enumerate(sh.shards)}
 
     def recording_dp(*a, **kw):
         if not captured and a[0].is_cuda:
             captured.append([x.clone() for x in a])
         return real_dp(*a, **kw)
-    tpipe.dp_score = recording_dp
+
+    def step(al, batch):
+        n0 = dp_cuda.launches["dp_score"]
+        out = real_step(al, batch)
+        steps.append((shard_of[id(al.fm)],
+                      dp_cuda.launches["dp_score"] - n0))
+        return out
+    tpipe.dp_score, tpipe.Aligner.device_align_fast = recording_dp, step
     try:
         t0 = time.perf_counter()
         (text_a, st_a), got_a = counted(
-            lambda: run_sharded(sa, batches[:2], ref), "the sharded SE run")
+            lambda: run_sharded(sa, batches[:1], ref), "the sharded SE run")
         (text_b, st_b), got_b = counted(
-            lambda: run_sharded(sa, batches[2:], ref), "the sharded SE run")
+            lambda: run_sharded(sa, batches[1:], ref), "the sharded SE run")
         dt = time.perf_counter() - t0
     finally:
-        tpipe.dp_score = real_dp
+        tpipe.dp_score, tpipe.Aligner.device_align_fast = real_dp, real_step
     check(sa.uploads == S, "the resident SE run uploaded a shard again")
+    nb = len(batches)
+    check(sorted(k for k, _ in steps) == sorted(list(range(S)) * nb)
+          and all(n > 0 for _, n in steps),
+          f"dp_score not launched in every (shard, batch) step: {steps}")
     se_launches = {k: got_a[k] + got_b[k] for k in got_a}
     text = text_a + text_b
     stats = {k: st_a[k] + st_b[k] for k in st_a}
-    rate, true_rate, indel_rate = check_sam(text, n, starts[:n], indel[:n],
-                                            ref=ref)
-    srps = n / dt
-    print(f"[sharded] SE: {n} reads in {dt:.3f} s = {srps:.1f} reads/s end "
-          f"to end ({srps / rps:.3f} of phase 4's {rps:.1f}); aligned "
-          f"{rate:.4f}, indel-free at true position {true_rate:.4f}, indel "
-          f"reads aligned {indel_rate:.4f}; stats {stats}; launches "
-          f"{se_launches} [{card}]", flush=True)
+    pl = sv.placement(text, ref.names, SCALE_BASES // sv.NCHROM)
+    check(pl["prim"] == SCALE_READS, f"{pl['prim']} primary records for "
+                                     f"{SCALE_READS} reads")
+    rates = {}
+    for k in ("", "high_"):
+        prim = pl[k + "prim"]
+        rates[k] = ((prim - pl[k + "unal"]) / prim, pl[k + "ok"] / prim)
+        check(rates[k][0] >= 0.97 and rates[k][1] >= 0.97,
+              f"aligned / correct of primary {rates[k]} < 0.97 "
+              f"({k or 'all'}: {pl})")
+    srps = SCALE_READS / dt
+    print(f"[sharded] SE: {SCALE_READS} reads in {nb} batches of "
+          f"{SCALE_BATCH} in {dt:.3f} s = {srps:.1f} reads/s end to end "
+          f"({srps / rps:.3f} of phase 4's {rps:.1f}); aligned "
+          f"{rates[''][0]:.4f}, correct of primary {rates[''][1]:.4f}; of "
+          f"the {pl['high_prim']} reads whose true joined start is >= 2^31: "
+          f"aligned {rates['high_'][0]:.4f}, correct {rates['high_'][1]:.4f}"
+          f"; stats {stats}; launches {se_launches}, every one of the "
+          f"{len(steps)} (shard, batch) steps launched dp_score [{card}]",
+          flush=True)
 
     with HostRescue() as hr:
         t0 = time.perf_counter()
@@ -2151,18 +2167,20 @@ def sharded_phase(rps, pps, card):
                                              pe_indel, ref=ref)
     spps = pe_n / pe_dt
     peak = torch.cuda.max_memory_allocated() / (1 << 20)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
     print(f"[sharded] PE: {pe_n} pairs in {pe_dt:.3f} s = {spps:.1f} "
           f"pairs/s end to end ({spps / pps:.3f} of phase 5's {pps:.1f}); "
           f"proper pairs {share:.4f}, mate 1 of indel-free pairs at true "
           f"position {m1_rate:.4f}, mates aligned {mate_rate:.4f}; stats "
           f"{pe_stats}; launches {pe_launches}, of them the host-mode "
-          f"ladder rescue's one-block DP {hr.launches}; peak device memory "
-          f"{peak:.1f} MiB [{card}]", flush=True)
+          f"ladder rescue's one-block DP {hr.launches}; max_memory_allocated "
+          f"{peak:.1f} MiB; peak host RSS {rss:.1f} GiB [{card}]",
+          flush=True)
 
     m = measure_batch(sa, lambda s, b: b,
                       lambda s, b, w: s.align_and_emit([b], w),
                       (batches[0],))
-    print(f"[sharded] one SE batch of {BATCH} reads alone over {S} "
+    print(f"[sharded] one SE batch of {SCALE_BATCH} reads alone over {S} "
           f"resident shards: {m['launches']} launches, device busy "
           f"{m['busy_ms']:.2f} ms ({m['busy_ms'] / m['wall_ms']:.4f} of "
           f"{m['wall_ms']:.1f} ms wall) [{card}]", flush=True)
@@ -2178,15 +2196,15 @@ def sharded_phase(rps, pps, card):
         sa = ShardedAligner(sh, device="cuda")
     finally:
         os.environ.pop("HISAT2_TPU_HBM_GB")
-    ftext, _ = run_sharded(sa, batches[:2], ref)
+    ftext, _ = run_sharded(sa, batches[:1], ref)
     fpe, _ = run_sharded(sa, pe_batches[:1], ref)
     check(ftext == text_a, "SE SAM under the forced budget != resident")
     check(fpe == pe_a, "PE SAM under the forced budget != resident")
     check(sa.evictions > 0 and sa.uploads == 2 * S,
           f"forced budget: {sa.uploads} uploads, {sa.evictions} evictions")
     f_upload_s = sa.upload_s / sa.uploads
-    print(f"[sharded] budget forced to {gb:.3f} GiB (below two shards): 2 "
-          f"SE batches and 1 PE batch, SAM bytes == the resident run's; "
+    print(f"[sharded] budget forced to {gb:.3f} GiB (below two shards): 1 "
+          f"SE batch and 1 PE batch, SAM bytes == the resident run's; "
           f"{sa.uploads} uploads of {f_upload_s:.3f} s each, "
           f"{sa.evictions} evictions; deleting the resident aligner freed "
           f"{freed / (1 << 30):.2f} GiB [{card}]", flush=True)
@@ -2198,7 +2216,8 @@ def sharded_phase(rps, pps, card):
                 captured_host=hr.captured, host_launches=hr.launches,
                 rps=srps, pps=spps, upload_s=upload_s,
                 f_upload_s=f_upload_s, batch=m, est=est, real=real,
-                peak_mb=peak, build_s=t_build, rss_gb=rss)
+                peak_mb=peak, gen_s=t_gen, build_s=t_build, align_s=dt,
+                pe_s=pe_dt, rss_gb=rss, shards=S, rates=rates)
 
 
 def plant_repeats(codes: np.ndarray, seed: int):
@@ -2570,33 +2589,33 @@ def cli_phase(fm, codes, txs, rps, pps, card, device="cuda"):
 
     # 3-4. SE reads through the CLI as a subprocess; first the CLI's read
     # layer alone on this host (parse, _reindex, batches: the main thread's
-    # work before a batch reaches the stream) on the first 9 batches
+    # work before a batch reaches the stream) on all of its batches
     from hisat2_tpu_torch.io.reads import batch_iter, read_reads
     seqs, starts, indel = simulate_reads(fm.ref.joined, CLI_SE, seed=7)
     write_fastq(p["fq"], seqs)
     t0 = time.perf_counter()
     first = list(batch_iter(cli_align._reindex(read_reads(p["fq"]),
-                                               upto=9 * CLI_BATCH),
-                            CLI_BATCH))
+                                               upto=CLI_SE), CLI_BATCH))
     t_parse = time.perf_counter() - t0
-    # then the stream alone over 8 of those batches, on the loaded index
-    # (one batch first to warm up), as phase 4 runs it
-    run_stream(al, first[8:], fm.ref)
+    # then the stream alone over all but the last of those batches, on
+    # the loaded index (the last one first, to warm up), as phase 4 runs it
+    run_stream(al, first[-1:], fm.ref)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_stream(al, first[:8], fm.ref)
+    run_stream(al, first[:-1], fm.ref)
     if device == "cuda":
         torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    n8 = sum(len(b) for b in first[:8])
+    n_timed = sum(len(b) for b in first[:-1])
     n_parse = sum(len(b) for b in first)
-    del al, first
-    out.update(parse_rps=n_parse / t_parse, stream_rps=n8 / t_stream)
+    out.update(parse_rps=n_parse / t_parse, stream_rps=n_timed / t_stream)
     print(f"[cli] the read layer alone (read_reads, _reindex, batch_iter "
           f"on the main thread): {n_parse} reads in {t_parse:.2f} s = "
-          f"{n_parse / t_parse:.1f} reads/s; the stream alone on 8 of its "
-          f"batches: {n8 / t_stream:.1f} reads/s [{card}]", flush=True)
+          f"{n_parse / t_parse:.1f} reads/s; the stream alone on "
+          f"{len(first) - 1} of its batches: {n_timed / t_stream:.1f} "
+          f"reads/s [{card}]", flush=True)
+    del al, first
     base = ["-x", p["idx"], "-S", p["sam"], "--no-spliced-alignment",
             "-t"] + dev_args
     for tag, n, extra in (("batch16384", CLI_SE,
@@ -3588,17 +3607,17 @@ def main() -> int:
             ("dp_score_wide", pres["captured_wide"],
              pres["launches"]["dp_score_wide"], "RNA PE ladder rescue"),
             ("dp_score", shres["captured"], shres["launches"],
-             "sharded genome, the per-shard SE step (1.0 Gbp, 3 shards)"),
+             "sharded genome, the per-shard SE step (3.2 Gbp, 2 shards)"),
             ("dp_score_wide", shres["captured_host"], shres["host_launches"],
              "sharded genome, the host-mode ladder rescue (PE)"),
             ("dp_score", repres["captured"], repres["launches"],
              "RepeatAligner.align_batch on the repeat index"),
             ("dp_score", clires["captured"],
              clires["se_default"]["launches"], "cli.align SE at the default "
-             "--batch-size 2048 (launches: the 131,072-read subprocess run)"),
+             "--batch-size 2048 (launches: the 32,768-read subprocess run)"),
             ("dp_score", clires["captured16"],
              clires["se_batch16384"]["launches"], "cli.align SE at "
-             "--batch-size 16384 (launches: the 524,288-read subprocess "
+             "--batch-size 16384 (launches: the 131,072-read subprocess "
              "run)"),
             ("dp_score", mres["captured"]["mesh_se"][0],
              mres["launches"]["se"]["dp_score"], "mesh SE step, a (1, 1) "
@@ -3696,17 +3715,21 @@ def main() -> int:
           f"{pb['wall_ms']:.1f} ms), queue {pb['queue_ms']:.1f} ms, peak "
           f"device memory {pb['peak_mb']:.1f} MiB [{card}]", flush=True)
     sb = shres["batch"]
-    print(f"[report] sharded genome of {SHARD_CHROMS * SHARD_CHROM_LEN} bp "
-          f"in 3 shards: SE {shres['rps']:.1f} reads/s "
-          f"({shres['rps'] / rps:.3f} of phase 4's), PE {shres['pps']:.1f} "
-          f"pairs/s ({shres['pps'] / pps:.3f} of phase 5's); all shards "
-          f"resident under the default budget, an upload "
+    r_all, r_high = shres["rates"][""], shres["rates"]["high_"]
+    print(f"[report] sharded genome of {SCALE_BASES} bp in "
+          f"{shres['shards']} shards: generated in {shres['gen_s']:.1f} s, "
+          f"built in {shres['build_s']:.1f} s, an upload "
           f"{shres['upload_s']:.3f} s ({shres['f_upload_s']:.3f} s under "
-          f"the forced budget); bundle bytes estimated == real "
-          f"{shres['real']}; build {shres['build_s']:.1f} s; one SE batch "
-          f"alone {sb['launches']} launches, device busy "
-          f"{sb['busy_ms']:.2f} ms; peak device memory "
-          f"{shres['peak_mb']:.1f} MiB [{card}]", flush=True)
+          f"the forced budget), SE {SCALE_READS} reads aligned in "
+          f"{shres['align_s']:.1f} s = {shres['rps']:.1f} reads/s "
+          f"({shres['rps'] / rps:.3f} of phase 4's), PE {shres['pps']:.1f} "
+          f"pairs/s ({shres['pps'] / pps:.3f} of phase 5's); aligned / "
+          f"correct {r_all[0]:.4f} / {r_all[1]:.4f}, past 2^31 "
+          f"{r_high[0]:.4f} / {r_high[1]:.4f}; bundle bytes estimated == "
+          f"real {shres['real']}; one SE batch alone {sb['launches']} "
+          f"launches, device busy {sb['busy_ms']:.2f} ms; "
+          f"max_memory_allocated {shres['peak_mb']:.1f} MiB; peak host RSS "
+          f"{shres['rss_gb']:.1f} GiB [{card}]", flush=True)
     print(f"[report] repeats: index built in {repres['build_s']:.1f} s, "
           f"align_repeats {repres['rps']:.1f} reads/s, true position among "
           f"the placements {repres['hit']:.4f} [{card}]", flush=True)

@@ -143,6 +143,22 @@ def build_table_index(ref: JoinedReference, kt: int | None = None,
 MAX_SHARD_BASES = (1 << 31) - (1 << 28)
 
 
+def shard_spans(frag_len, max_bases: int) -> list[tuple[int, int]]:
+    """The [start, end) fragment ranges of the shards build_sharded cuts:
+    greedy in order, a shard closed before a fragment that would take it
+    past max_bases (a fragment longer than max_bases gets a shard of its
+    own)."""
+    spans, start, size = [], 0, 0
+    for f, flen in enumerate(int(x) for x in frag_len):
+        if size and size + flen > max_bases:
+            spans.append((start, f))
+            start, size = f, 0
+        size += flen
+    if len(frag_len):
+        spans.append((start, len(frag_len)))
+    return spans
+
+
 def build_sharded(ref: JoinedReference, max_bases: int = MAX_SHARD_BASES,
                   table_only: bool = True, kt: int | None = None,
                   snps=None, haplotypes=None,
@@ -156,21 +172,11 @@ def build_sharded(ref: JoinedReference, max_bases: int = MAX_SHARD_BASES,
     (patched-fragment + SNV overlay) index over its SNP subset — the
     sharded equivalent of the reference's GRCh38+SNP .ht2l config
     (MANUAL.markdown:221-231); `haplotypes` are global SNP-index lists."""
-    nfrag = len(ref.frag_joined)
     if kt is None:
         from .seed_table import pick_kt
         kt = pick_kt(min(int(ref.joined.size), max_bases))
     shards, bases = [], []
-    start_f = 0
-    while start_f < nfrag:
-        end_f = start_f
-        size = 0
-        while end_f < nfrag:
-            flen = int(ref.frag_len[end_f])
-            if size and size + flen > max_bases:
-                break
-            size += flen
-            end_f += 1
+    for start_f, end_f in shard_spans(ref.frag_len, max_bases):
         base = int(ref.frag_joined[start_f])
         jend = int(ref.frag_joined[end_f - 1] + ref.frag_len[end_f - 1])
         sub = JoinedReference(
@@ -191,7 +197,6 @@ def build_sharded(ref: JoinedReference, max_bases: int = MAX_SHARD_BASES,
             fm = build_fm_index(sub)
         shards.append(fm)
         bases.append(base)
-        start_f = end_f
     _harmonize(shards)
     overlay = None
     if snps is not None:

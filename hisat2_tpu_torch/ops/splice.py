@@ -927,7 +927,6 @@ def anchor_scan(idx: dict, rd, rdlens, pos, down, min_intron,
     wi = _arange(NW, dev)[None, :]
     sh = (2 * torch.arange(16, device=dev))[None, None, :]
     nrow = NW // 16 + 2
-    mask32 = 0xFFFFFFFF
 
     def scan_tile(t, pos_v, down_v, rdl_v, acode_v):
         """Per-tile top-NC over a row subset: (key (Sv, NC) nearest-
@@ -949,11 +948,11 @@ def anchor_scan(idx: dict, rd, rdlens, pos, down, min_intron,
         # align the word axis to the window start, then the 16-bit value
         # at every char offset: 16 shifts a word
         w0 = _rank._shift_words(wmat, woff, NW + 1)
-        lo = w0[:, :NW, None] >> sh
-        hi = torch.where(sh == 0, torch.zeros((), dtype=w0.dtype,
-                                              device=dev),
-                         (w0[:, 1:NW + 1, None] << (32 - sh)) & mask32)
-        vals = (lo | hi) & 0xFFFF                            # (Sv, NW, 16)
+        # word w with the next word's low 16 bits above it: the 16 bits at
+        # char offset s < 16 (bits 2s to 2s + 15) lie inside, so one
+        # shift a char gives them
+        pair = w0[:, :NW] | ((w0[:, 1:NW + 1] & 0xFFFF) << 32)
+        vals = (pair[:, :, None] >> sh) & 0xFFFF             # (Sv, NW, 16)
         hitm = vals == acode_v[:, None, None]
         hit_any = hitm.any(dim=2)                            # (Sv, NW)
         # sub-position: first matching shift in the word (nearest for

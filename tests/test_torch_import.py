@@ -69,6 +69,8 @@ def test_port_modules_import_without_jax():
                 "hisat2_tpu_torch.tools.extract_snps",
                 "hisat2_tpu_torch.tools.simulate_reads",
                 "hisat2_tpu_torch.tools.read_statistics",
+                "hisat2_tpu_torch.tools.scale_validate",
+                "hisat2_tpu_torch.tools.scale_rna_validate",
                 "hisat2_tpu_torch.parallel",
                 "hisat2_tpu_torch.parallel.mesh",
                 "hisat2_tpu_torch.parallel.multihost"):
@@ -96,6 +98,32 @@ def test_cli_help_without_jax(cli):
     assert proc.stdout.startswith("usage: hisat2-tpu-torch")
     if cli == "align":
         assert "--device {cuda,cpu}" in proc.stdout
+
+
+_TOOL_HELP = r"""
+import runpy, sys
+for blocked in ("jax", "bench", "hisat2_tpu"):
+    sys.modules[blocked] = None    # importing any of them now raises
+mod = sys.argv[1]
+sys.argv = [mod, "--help"]
+runpy.run_module(mod, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("tool", ["scale_validate", "scale_rna_validate"])
+def test_scale_tools_help_without_jax(tool):
+    """python -m hisat2_tpu_torch.tools.<tool> --help runs with jax, the
+    JAX package and bench.py blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _TOOL_HELP,
+                           f"hisat2_tpu_torch.tools.{tool}"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith(
+        f"usage: python -m hisat2_tpu_torch.tools.{tool}")
+    assert "--device {cuda,cpu}" in proc.stdout
+    assert "--cache CACHE" in proc.stdout
 
 
 def test_sources_never_name_the_jax_package():

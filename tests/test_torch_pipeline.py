@@ -158,3 +158,66 @@ def test_sam_bytes_match(setup):
     assert any("D" in ln.split("\t")[5] or "I" in ln.split("\t")[5]
                for ln in lines)
     assert any(int(ln.split("\t")[1]) & 256 for ln in lines)
+
+
+def _bucket_case(ref, rng, n, indel_at):
+    """n error-prone reads (1% mismatches, constant quality 40) and one
+    read with a 2 bp deletion after 50 bases, at index `indel_at`; no read
+    covers an N or the chromosome boundary. Also returns how many reads
+    carry two or more mismatches."""
+    joined = ref.joined
+    na = int(ref.frag_joined[-1])
+    seqs, n_two = [], 0
+    while len(seqs) < n:
+        s = int(rng.integers(0, joined.size - 110))
+        win = joined[s:s + 102]
+        if (win > 3).any() or s < na < s + 102:
+            continue
+        seq = win[:RDLEN].astype(np.uint8).copy()
+        m = rng.random(RDLEN) < 0.01
+        seq[m] = (seq[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        n_two += len(seqs) > 0 and int(m.sum()) >= 2
+        seqs.append(seq)
+        if len(seqs) == 1:
+            deleted = np.concatenate([win[:50], win[52:102]]).astype(
+                np.uint8)
+    order = seqs[1:]
+    order.insert(indel_at, deleted)
+    q = np.full(RDLEN, 40, np.int8)
+    names = [f"b{i}" for i in range(n)]
+    return (jbatchify([JRead(names[i], s, q, i) for i, s in
+                       enumerate(order)], pad_to=104),
+            tbatchify([TRead(names[i], s, q, i) for i, s in
+                       enumerate(order)], pad_to=104), n_two)
+
+
+def test_dp_bucket_drops_the_last_indel_read(setup):
+    """ROADMAP Queue C 5, both packages: the packed step's DP bucket holds
+    max(32, B / 8) reads and admits every read whose best ungapped score
+    one gap could beat (two mismatches are enough), so at 1% mismatches it
+    fills before the end of a 256-read batch and drops the highest-index
+    reads. The indel read at index 255 comes out unaligned; at index 0 it
+    takes the bucket's first slot and aligns with its deletion. The bytes are
+    the JAX package's in both orders."""
+    jal, tal, _, _, ref = setup
+    names = list(ref.names)
+    tlens = [int(x) for x in ref.tlens]
+    cigars = {}
+    for at in (255, 0):
+        jb, tb, n_two = _bucket_case(ref, np.random.default_rng(55), 256,
+                                     at)
+        # more reads with two or more mismatches than the bucket holds
+        assert n_two > max(32, 256 // 8)
+        jbuf, tbuf = io.StringIO(), io.StringIO()
+        jst = jemit.align_and_emit_stream(
+            jal, [jb], jsam.SamWriter(jbuf, names, tlens, no_head=True))
+        tst = temit.align_and_emit_stream(
+            tal, [tb], tsam.SamWriter(tbuf, names, tlens, no_head=True))
+        assert tbuf.getvalue() == jbuf.getvalue()
+        assert tst == jst
+        rec = [ln.split("\t") for ln in tbuf.getvalue().splitlines()
+               if ln.startswith(f"b{at}\t") and not int(ln.split("\t")[1])
+               & 256]
+        cigars[at] = rec[0][5]
+    assert cigars[255] == "*"
+    assert cigars[0] == "50M2D50M"
