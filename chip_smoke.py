@@ -9,16 +9,21 @@
 Phases; any failure exits non-zero:
   1. card      - CUDA must be present; prints the card's name and power
                  limit as nvidia-smi reports them.
-  2. build     - compiles the CUDA source of the DP kernels (the one-warp
+  2. build     - compiles both CUDA sources with nvcc for sm_90a, one
+                 nvcc each, started together (ops/nvcc.build):
+                 csrc/dp_score.cu, the DP kernels (the one-warp
                  kernel of the SE windows, the one-block kernel of the PE
                  rescue's wide windows and its column-tiled form past 2,048
-                 columns, each with its SNV-overlay instantiations) with
-                 nvcc for sm_90a and prints, for each variant
-                 (<CPL=k[,OV][,TILED]>), the compiler's register/spill
-                 report and,
-                 read from the SASS, how many fused add-max and three-way-max
-                 instructions it holds and how many instructions its row
-                 loop spans (--sass DIR also writes the SASS there).
+                 columns, each with its SNV-overlay instantiations), and
+                 csrc/anchor_scan.cu, the RNA anchor scan (its tile-0 and
+                 deep kernels). Prints, for each DP variant
+                 (<CPL=k[,OV][,TILED]>) and each anchor-scan kernel, the
+                 compiler's register/spill report (any spill fails) and,
+                 read from the SASS, for the DP variants how many fused
+                 add-max and three-way-max instructions it holds and how
+                 many instructions its row loop spans, for the anchor-scan
+                 kernels their instructions and funnel shifts (--sass DIR
+                 also writes the SASS there).
   3. kernels   - each kernel against its plain PyTorch version on the
                  card, exact int32 equality (every case once more at local
                  mode's match bonus of 2): random cases with Ns, gaps,
@@ -30,7 +35,17 @@ Phases; any failure exits non-zero:
                  it (edge_windows). Every case runs a second time with an
                  SNV overlay holding every kind of nibble (make_dp_ov),
                  through the overlay instantiations of every kernel (W =
-                 288 and 1104 among them).
+                 288 and 1104 among them). Then the anchor-scan kernel
+                 (ops/anchor_cuda.anchor_scan_core) against the plain core
+                 (ops/splice.anchor_scan_plain_core), exact, on
+                 tests/torch_anchor_cases.make_anchor_case's rows over a
+                 random 1 Mbp text (hits in
+                 tile 0 only, only past it, none; N anchors, reads shorter
+                 than 15 bp, up scans off the text's start, windows past
+                 its end; live None and a mask) at S = 0, 37, 5,120 and
+                 10,240, tiles 1 and 8, the deep branch taken and not: the
+                 device's deep counter must count exactly the calls whose
+                 plain keys take it.
   4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
@@ -107,8 +122,15 @@ Phases; any failure exits non-zero:
                  junction recall must reach 0.90 over the junctions whose
                  shorter anchor is 7 bp or more, and precision 0.99 (CIGAR
                  N ops of the primary records against the planted
-                 junctions). One batch alone gives launches and the
-                 device's busy share.
+                 junctions). The anchor-scan kernel must run in both
+                 streams (its tile-0 and deep launches), and the calls
+                 that took the deep branch are counted on the device; its
+                 inputs in the first batch are kept for the report. One
+                 batch alone gives launches and the device's busy share;
+                 with --profile, the stream without known sites and then
+                 one of its batches alone, in turns with the plain core in
+                 the kernel's place (plain, kernel, kernel, plain), each
+                 turn on a fresh aligner, the SAM equal in every turn.
   9. RNA PE    - spliced paired-end alignment on phase 8's genome and
                  gene model: FR pairs of 100 bp mates from fragments of
                  200-500 bp measured along the spliced transcripts (mate 2
@@ -129,9 +151,11 @@ Phases; any failure exits non-zero:
                  unclipped and whose inter-mate gap holds no other
                  transcript's intron (TLEN leaves out every known intron
                  there). Both DP kernels must run: the one-warp one in
-                 the step, the one-block one in the ladder's mate rescue.
-                 One batch alone gives launches, busy share and peak
-                 device memory.
+                 the step, the one-block one in the ladder's mate rescue,
+                 and the anchor scan as in phase 8 (inputs kept, deep
+                 branch counted, the --profile comparison with the plain
+                 core). One batch alone gives launches, busy share and
+                 peak device memory.
  10. sharded   - genome-sharded alignment (ShardedAligner). First a small
                  sharded genome (small_sharded_case: three chromosomes of
                  40 kb, one shard each, 600 bp segments of chr1 copied into
@@ -252,7 +276,12 @@ Phases; any failure exits non-zero:
                  PE and RNA steps' and on local mode's (match bonus 2); the
                  wide one on the mesh PE finish's rescue on the 16,384
                  pairs), its plain version's time
-                 and its bound, as one JSON line; end-to-end reads/s (SE,
+                 and its bound; the anchor-scan kernel on phases 8's and
+                 9's kept inputs (S = 5,120 and 10,240), held to the plain
+                 core there, its time (both launches), the plain core's and
+                 its bound (the window tests these inputs need, and the
+                 text words they read, from the plain keys: anchor_work),
+                 all of it as one JSON line; end-to-end reads/s (SE,
                  RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
 
@@ -277,6 +306,21 @@ needs on this card, a fused add-max or three-way max counted as one:
   row maximum          0.5 one three-way max takes two cells
 It counts the recurrence, not what a kernel happens to execute; the per-row
 scan across lanes and the hand-off between warps come on top.
+
+ANCHOR_OPS_PER_TEST is the least number of integer instructions one window
+test of the anchor scan needs (a test: does the 8-mer at one of a word's 16
+shifts equal the read's anchor code). One funnel shift of the word pair
+puts shift s in the low 16 bits and shift s + 8 in the high 16, so two
+tests share four instructions:
+  shift        1   funnel shift of the word pair
+  compare      1   XOR d with the anchor code in both halves
+  zero test    1   d - 0x00010001: bit 15, or 31, of (d - 0x00010001) & ~d
+                   is set where a half of d is zero (a borrow out of a zero
+                   low half can set bit 31 only in a word with a hit)
+  keep         1   OR of (d - 0x00010001) & ~d into the word's running
+                   flags (one three-input LOP3)
+The word loads, the warp's ballot over the lanes, the loop and the exact
+shift mask of a word with a hit (one in some 4,096) come on top.
 """
 
 from __future__ import annotations
@@ -298,6 +342,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 DP_OPS_PER_CELL = 8.5         # integer instructions per DP cell (see above)
+ANCHOR_OPS_PER_TEST = 2.0     # integer instructions per anchor window test
+ANCHOR_W = 65536              # the anchor scan's tile, on every caller
+ANCHOR_NC = 4                 # its entries a row, on every caller
 
 GENOME_LEN = 4_641_652        # E. coli K-12 MG1655
 BATCH = 16384
@@ -443,6 +490,116 @@ def edge_case_shape(W: int):
     return 16, (104 if W >= 104 else 40 if W >= 40 else 24)
 
 
+def anchor_cases():
+    """tests/torch_anchor_cases.py, the anchor scan's synthetic rows (the
+    CPU tests build theirs there too)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_anchor_cases
+    return torch_anchor_cases
+
+
+def anchor_work(ins, kv, W, NC, tiles):
+    """What one anchor scan's data needs: (window tests, text words read,
+    deep taken). ins are the core's inputs, kv the plain keys
+    (ops/splice.anchor_scan_plain_keys). A row tests words nearest first
+    until it holds NC hits: through its NC-th hit, else to the end of
+    tile 0, or of the last tile when the deep branch is taken (some live
+    row without an N anchor has no tile-0 hit: keys above -W/16). Its
+    padding words lie inside what it tested. The text words read are the
+    union of the rows' tested words and the word after each run (the
+    upper half of the last pair), each read once."""
+    rows, pos, down, rdl, _acode, has_n, live, mi = ins
+    NW = W // 16
+    kv = kv.cpu().numpy().astype(np.int64)
+    has_n = has_n.cpu().numpy()
+    live = np.ones_like(has_n) if live is None else live.cpu().numpy()
+    S = kv.shape[0]
+    if S == 0:
+        return 0, 0, False
+    found0 = (kv[:, 0] > -NW) | has_n | ~live
+    deep = tiles > 1 and not found0.all()
+    full = kv[:, NC - 1] > -(1 << 29)
+    D = np.where(full, -kv[:, NC - 1] + 1, (tiles if deep else 1) * NW)
+    pos = pos.cpu().numpy().astype(np.int64)
+    down = down.cpu().numpy()
+    rdl = rdl.cpu().numpy().astype(np.int64)
+    nwords = rows.shape[0] * 16
+    mark = np.zeros(nwords + 1, np.int64)
+    for t in range(tiles if deep else 1):
+        d = np.clip(D - t * NW, 0, NW)
+        base = anchor_cases().anchor_window(pos, down, rdl, t, mi, W) >> 4
+        lo = np.where(down, base, base + NW - d)
+        hi = np.where(down, base + d, base + NW) + 1
+        on = d > 0
+        np.add.at(mark, np.clip(lo[on], 0, nwords), 1)
+        np.add.at(mark, np.clip(hi[on], 0, nwords), -1)
+    words = int((np.cumsum(mark[:-1]) > 0).sum())
+    return int(D.sum()) * 16, words, deep
+
+# phase 3's anchor-scan cases: (seed, S, tiles, resolve0, live mask)
+ANCHOR_CASES = ((60, 0, 8, False, True), (61, 37, 1, False, True),
+                (62, 37, 8, False, True), (63, 37, 8, True, True),
+                (64, 37, 8, False, False), (65, 37, 8, True, False),
+                (66, 5120, 1, False, True), (67, 5120, 8, False, True),
+                (68, 5120, 8, True, True), (69, 5120, 8, False, False),
+                (70, 10240, 8, False, True))
+
+
+def check_anchor(ins, tiles, what, max_err):
+    """The anchor-scan kernel (ops/anchor_cuda.anchor_scan_core) against
+    the plain core on the same inputs on the card, exact; the device's
+    deep counter must count this call exactly when the plain keys say the
+    branch is taken. Returns (plain keys, deep taken); max_err["anchor_scan"]
+    takes the largest difference."""
+    import torch
+    from hisat2_tpu_torch.ops import anchor_cuda, splice
+    kw = dict(W=ANCHOR_W, A=8, NC=ANCHOR_NC, tiles=tiles)
+    d0 = anchor_cuda.deep_calls()
+    kvalid, mpos = anchor_cuda.anchor_scan_core(*ins, **kw)
+    kv, want = splice.anchor_scan_plain_keys(*ins, **kw)
+    torch.cuda.synchronize()
+    taken = anchor_cuda.deep_calls() - d0
+    want_kv = kv > -(1 << 29)
+    err = 0
+    if mpos.numel():
+        err = max(int((mpos.long() - want.long()).abs().max()),
+                  int((kvalid != want_kv).sum()))
+    max_err["anchor_scan"] = max(max_err.get("anchor_scan", 0), err)
+    check(torch.equal(kvalid, want_kv) and torch.equal(mpos, want),
+          f"anchor_scan != plain ({what}): max abs err {err}")
+    deep = anchor_work(ins, kv, ANCHOR_W, ANCHOR_NC, tiles)[2]
+    check(taken == int(deep), f"anchor_scan's deep counter moved by {taken}"
+                              f" where the plain keys say the branch was "
+                              f"{'' if deep else 'not '}taken ({what})")
+    return kv, deep
+
+
+def anchor_phase(dev, max_err):
+    """Phase 3's anchor-scan checks on tests/torch_anchor_cases.py's
+    make_anchor_case rows."""
+    cases = anchor_cases()
+    t0 = time.perf_counter()
+    for seed, S, tiles, r0, mask in ANCHOR_CASES:
+        case = cases.make_anchor_case(seed, S, tiles, resolve0=r0,
+                                      mask=mask)
+        r0_what = ("every live row without an N anchor resolved in tile 0, "
+                   if r0 else "")
+        what = (f"case {seed}: S={S}, tiles {tiles}, {r0_what}"
+                f"live {'mask' if mask else 'None'}")
+        _, deep = check_anchor(cases.anchor_core_inputs(case, dev), tiles,
+                               what, max_err)
+        check(deep == (tiles > 1 and not r0 and S > 0),
+              f"the deep branch {'taken' if deep else 'not taken'} ({what})")
+        print(f"[kernels] anchor_scan == plain on {what}; deep branch "
+              f"{'taken' if deep else 'not taken'}", flush=True)
+    print(f"[kernels] anchor_scan: {len(ANCHOR_CASES)} cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+
 def time_cuda(fn, iters: int, warmup: int) -> float:
     """Mean milliseconds per call from CUDA events over `iters` calls."""
     import torch
@@ -476,7 +633,11 @@ def variant_key(W: int, ov: bool) -> str:
 def variant_of(mangled: str):
     """'dp_score_kernel<CPL=5>' or 'dp_score_wide_kernel<CPL=9>' from a
     mangled kernel name ('...<CPL=5,OV>' for an overlay instantiation,
-    '...<CPL=8,TILED>' for the column-tiled form), or None."""
+    '...<CPL=8,TILED>' for the column-tiled form), 'anchor_scan_tile0' or
+    'anchor_scan_deep', or None."""
+    a = re.search(r"(anchor_scan_(?:tile0|deep))", mangled)
+    if a:
+        return a.group(1)
     m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E(?:Lb([01])E)?"
                   r"(?:Lb([01])E)?", mangled)
     if not m:
@@ -552,6 +713,25 @@ def read_sass(lib_path: str):
         return None
     return subprocess.run([exe, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def anchor_sass_counts(sass: str):
+    """{anchor-scan kernel: (instructions, funnel shifts)} from
+    `cuobjdump -sass` text: the funnel shifts (SHF.R.W) are the window
+    tests' (eight a word in the test, sixteen more in a hit word's mask,
+    for each word of a pass that the compiler unrolled)."""
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            name = variant_of(ln)
+            if name and name.startswith("anchor_scan"):
+                out[name] = [0, 0]
+            else:
+                name = None
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            out[name][0] += 1
+            out[name][1] += "SHF.R.W" in ln
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def simulate_reads(joined: np.ndarray, n: int, seed: int,
@@ -1156,18 +1336,76 @@ def check_pe_sam(text: str, n: int, m1_true: np.ndarray,
 
 
 def counted(fn, what, need=("dp_score",)):
-    """fn() with the DP wrappers' launch counts set to 0 before it and read
-    after it; every kernel named in `need` must have been launched."""
+    """fn() with the kernel wrappers' launch counts set to 0 before it and
+    read after it; every kernel named in `need` must have been launched."""
     import torch
-    from hisat2_tpu_torch.ops import dp_cuda
-    for k in dp_cuda.launches:
-        dp_cuda.launches[k] = 0
+    from hisat2_tpu_torch.ops import read_launches, zero_launches
+    zero_launches()
     out = fn()
     torch.cuda.synchronize()
-    got = dict(dp_cuda.launches)
+    got = read_launches()
     for k in need:
         check(got[k] > 0, f"kernel {k} was not launched on {what}")
     return out, got
+
+
+def recording_anchor(captured):
+    """A stand-in for ops/anchor_cuda.anchor_scan_core that keeps a copy
+    of the first call's inputs ((args, kwargs)) in `captured` and calls
+    the kernel."""
+    import torch
+    from hisat2_tpu_torch.ops import anchor_cuda
+    real = anchor_cuda.anchor_scan_core
+
+    def rec(*a, **kw):
+        if not captured:
+            captured.append((tuple(x.clone() if torch.is_tensor(x) else x
+                                   for x in a), dict(kw)))
+        return real(*a, **kw)
+    return rec
+
+
+def anchor_ab(make_al, submit, finish, args, stream, label, card):
+    """--profile's comparison of the RNA path with the anchor-scan kernel
+    and with the plain core in its place, on the card, in turns (plain,
+    kernel, kernel, plain), each turn on a fresh aligner from make_al()
+    (no novel sites published yet): the timed stream(al), which must
+    write the same SAM every turn, then one of its batches alone (wall
+    and device busy). Returns {"plain"|"kernel": [(stream s, wall ms,
+    busy ms), ...]}."""
+    import torch
+    from hisat2_tpu_torch.ops import anchor_cuda, splice
+    real = anchor_cuda.anchor_scan_core
+    core = {"plain": splice.anchor_scan_plain_core, "kernel": real}
+    out = {"plain": [], "kernel": []}
+    texts = set()
+    try:
+        for how in ("plain", "kernel", "kernel", "plain"):
+            anchor_cuda.anchor_scan_core = core[how]
+            al = make_al()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text, _ = stream(al)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            texts.add(text)
+            m = measure_batch(al, submit, finish, args)
+            out[how].append((dt, m["wall_ms"], m["busy_ms"]))
+            del al
+    finally:
+        anchor_cuda.anchor_scan_core = real
+    check(len(texts) == 1, f"{label}: the stream's SAM differs between the "
+                           f"kernel and the plain core")
+    for how in ("plain", "kernel"):
+        print(f"[profile] {label}, anchor scan by the "
+              f"{'plain core' if how == 'plain' else 'kernel'} (turns 1 and "
+              f"4 / 2 and 3 of plain, kernel, kernel, plain; fresh "
+              f"aligners): the stream "
+              + ", ".join(f"{t:.3f} s" for t, _, _ in out[how])
+              + "; one batch alone wall / device busy "
+              + ", ".join(f"{w:.1f} / {b:.2f} ms" for _, w, b in out[how])
+              + f" [{card}]", flush=True)
+    return out
 
 
 def sam_card_equals_cpu(run, fmx, items, ref, what, tag,
@@ -1555,13 +1793,15 @@ def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
 
 
 def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
-    """Phase 8 (see the module docstring). Returns the DP kernel's inputs
-    as the RNA step built them, the launches of the RNA streams, and the
-    rates and junction scores."""
+    """Phase 8 (see the module docstring). Returns the DP kernel's and
+    the anchor scan's inputs as the RNA step built them, the launches of
+    the RNA streams and the calls that took the anchor scan's deep
+    branch, and the rates and junction scores."""
     import torch
     from hisat2_tpu_torch.align import emit as temit
     from hisat2_tpu_torch.align import pipeline as tpipe
     from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    from hisat2_tpu_torch.ops import anchor_cuda
     ref = fm.ref
     n = RNA_NBATCH * BATCH
     seqs, truth = simulate_rna_reads(ref.joined, txs, 2 * n + RNA_CHECK,
@@ -1599,14 +1839,16 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
           "tmo=True must report spliced records only, and some")
     card_equals_cpu(fm_fm, f"{RNA_CHECK} RNA reads on index A (FM seeding)")
 
-    captured = []
+    captured, captured_anchor = [], []
     real_dp = tpipe.dp_score
+    real_anchor = anchor_cuda.anchor_scan_core
 
     def recording_dp(*a, **kw):
         if not captured and a[0].is_cuda:
             captured.append([x.clone() for x in a])
         return real_dp(*a, **kw)
-    out = {"launches": 0, "check_recall": rc, "check_precision": pc}
+    out = {"launches": 0, "check_recall": rc, "check_precision": pc,
+           "anchor_launches": {}, "deep_calls": 0}
     for tag, prep, rows in (("known", known, slice(0, n)),
                             ("novel", None, slice(n, 2 * n))):
         al = Aligner(fm, opts=AlignerOpts(spliced=True), device="cuda")
@@ -1614,18 +1856,27 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
             prep(al)
         batches = make_batches(seqs[rows], 0, BATCH)
         tpipe.dp_score = recording_dp
+        anchor_cuda.anchor_scan_core = recording_anchor(captured_anchor)
         torch.cuda.synchronize()
+        d0 = anchor_cuda.deep_calls()
         try:
             t0 = time.perf_counter()
             (text, stats), got = counted(
                 lambda: run_stream(al, batches, ref),
-                f"the RNA stream ({tag} sites)")
+                f"the RNA stream ({tag} sites)",
+                need=("dp_score", "anchor_scan", "anchor_scan_deep"))
             dt = time.perf_counter() - t0
         finally:
             tpipe.dp_score = real_dp
+            anchor_cuda.anchor_scan_core = real_anchor
+        deep_n = anchor_cuda.deep_calls() - d0
         recall, recall_all, precision, rate, njr, nsp = check_junctions(
             text, truth[rows], n)
         out["launches"] += got["dp_score"]
+        out["deep_calls"] += deep_n
+        for k in anchor_cuda.launches:
+            out["anchor_launches"][k] = \
+                out["anchor_launches"].get(k, 0) + got[k]
         out[f"rps_{tag}"] = n / dt
         out[f"recall_{tag}"], out[f"precision_{tag}"] = recall, precision
         out[f"recall_all_{tag}"] = recall_all
@@ -1636,8 +1887,9 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
               f"or more; {recall_all:.4f} over all), precision "
               f"{precision:.4f} ({njr} reads cross a junction, {nsp} "
               f"primary records spliced); novel sites published "
-              f"{len(al.ssdb.novel)}; stats {stats}; launches {got} [{card}]",
-              flush=True)
+              f"{len(al.ssdb.novel)}; stats {stats}; launches {got}; the "
+              f"anchor scan's deep branch taken in {deep_n} of "
+              f"{got['anchor_scan_deep']} calls [{card}]", flush=True)
         if tag == "novel":
             check(recall >= 0.90 and precision >= 0.99,
                   f"junction recall {recall:.4f} / precision {precision:.4f}"
@@ -1653,9 +1905,16 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
             if profile:
                 profile_batch(al, temit.submit_se, temit.finish_se,
                               (batches[0],), "RNA batch of 16384 reads")
+                out["ab"] = anchor_ab(
+                    lambda: Aligner(fm, opts=AlignerOpts(spliced=True),
+                                    device="cuda"),
+                    temit.submit_se, temit.finish_se, (batches[0],),
+                    lambda a: run_stream(a, batches, ref),
+                    f"RNA SE ({n} reads, no known sites)", card)
         del al
     check(bool(captured), "the RNA streams launched no DP")
-    out["captured"] = captured[0]
+    check(bool(captured_anchor), "the RNA streams launched no anchor scan")
+    out["captured"], out["anchor"] = captured[0], captured_anchor[0]
     # phase 13's RNA batch: the first batch of the run with known sites
     out["mesh_reads"], out["sites"] = seqs[:BATCH], sites
     torch.cuda.empty_cache()
@@ -1663,14 +1922,16 @@ def rna_phase(fm, fm_fm, txs, dna_rps, card, profile):
 
 
 def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
-    """Phase 9 (see the module docstring). Returns the DP kernels' inputs
-    as the PE RNA step and its ladder rescue built them, their launches,
-    the rates and the guards' figures."""
+    """Phase 9 (see the module docstring). Returns the DP kernels' and the
+    anchor scan's inputs as the PE RNA step and its ladder rescue built
+    them, their launches, the calls that took the anchor scan's deep
+    branch, the rates and the guards' figures."""
     import torch
     from hisat2_tpu_torch.align import emit as temit
     from hisat2_tpu_torch.align import paired as tpaired
     from hisat2_tpu_torch.align import pipeline as tpipe
     from hisat2_tpu_torch.align.pipeline import Aligner, AlignerOpts
+    from hisat2_tpu_torch.ops import anchor_cuda
     ref = fm.ref
     n = RNA_PE_NBATCH * PE_BATCH
     r1, r2, truth = simulate_rna_pairs(ref.joined, txs, 2 * n + RNA_PE_CHECK,
@@ -1714,8 +1975,9 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
     card_equals_cpu(fm, ", no_temp_splicesite=True", no_temp_splicesite=True)
     card_equals_cpu(fm_fm, " on index A (FM seeding)")
 
-    captured, captured_wide = [], []
+    captured, captured_wide, captured_anchor = [], [], []
     real_dp, real_pe_dp = tpipe.dp_score, tpaired.dp_score
+    real_anchor = anchor_cuda.anchor_scan_core
 
     def recording_dp(*a, **kw):
         if not captured and a[0].is_cuda:
@@ -1728,7 +1990,7 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
             captured_wide.append([x.clone() for x in a])
         return real_pe_dp(*a, **kw)
     out = {"launches": {}, "check_recall": rc, "check_precision": pc,
-           "n_known_sites": len(sites)}
+           "n_known_sites": len(sites), "deep_calls": 0}
     for tag, prep, lo in (("known", known, 0), ("novel", None, n)):
         al = Aligner(fm, opts=AlignerOpts(spliced=True), device="cuda")
         if prep:
@@ -1736,16 +1998,22 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
         batches = make_pair_batches(r1[lo:lo + n], r2[lo:lo + n], 0,
                                     PE_BATCH)
         tpipe.dp_score, tpaired.dp_score = recording_dp, recording_pe_dp
+        anchor_cuda.anchor_scan_core = recording_anchor(captured_anchor)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        d0 = anchor_cuda.deep_calls()
         try:
             t0 = time.perf_counter()
             (text, stats), got = counted(
                 lambda: run_pe_stream(al, batches, ref),
-                f"the RNA PE stream ({tag} sites)")
+                f"the RNA PE stream ({tag} sites)",
+                need=("dp_score", "anchor_scan", "anchor_scan_deep"))
             dt = time.perf_counter() - t0
         finally:
             tpipe.dp_score, tpaired.dp_score = real_dp, real_pe_dp
+            anchor_cuda.anchor_scan_core = real_anchor
+        deep_n = anchor_cuda.deep_calls() - d0
+        out["deep_calls"] += deep_n
         peak = torch.cuda.max_memory_allocated() / (1 << 20)
         t = part(lo, lo + n)
         recall, recall_all, precision, rate, njr, nsp = check_junctions(
@@ -1779,8 +2047,9 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
               f"all), precision {precision:.4f} ({njr} mates cross a "
               f"junction, {nsp} primary records spliced); novel sites "
               f"published {len(al.ssdb.novel)}; peak device memory "
-              f"{peak:.1f} MiB; stats {stats}; launches {got} [{card}]",
-              flush=True)
+              f"{peak:.1f} MiB; stats {stats}; launches {got}; the anchor "
+              f"scan's deep branch taken in {deep_n} of "
+              f"{got['anchor_scan_deep']} calls [{card}]", flush=True)
         check(proper >= 0.90, f"RNA PE proper pairs {proper:.4f} < 0.90 "
                               f"({tag} sites)")
         if tag == "known":
@@ -1804,10 +2073,18 @@ def rna_pe_phase(fm, fm_fm, txs, rres, pps, card, profile):
             if profile:
                 profile_batch(al, temit.submit_pe, temit.finish_pe,
                               batches[0], "RNA PE batch of 16384 pairs")
+                out["ab"] = anchor_ab(
+                    lambda: Aligner(fm, opts=AlignerOpts(spliced=True),
+                                    device="cuda"),
+                    temit.submit_pe, temit.finish_pe, batches[0],
+                    lambda a: run_pe_stream(a, batches, ref),
+                    f"RNA PE ({n} pairs, no known sites)", card)
         del al
     check(bool(captured), "the RNA PE streams launched no DP")
     check(bool(captured_wide), "the RNA PE ladder launched no rescue DP")
+    check(bool(captured_anchor), "the RNA PE streams launched no anchor scan")
     out["captured"], out["captured_wide"] = captured[0], captured_wide[0]
+    out["anchor"] = captured_anchor[0]
     torch.cuda.empty_cache()
     return out
 
@@ -2343,16 +2620,17 @@ def repeat_phase(codes4, card):
 
 
 # the command-line module run as `python -m <module> <args>` runs it, under
-# a wrapper that prints the DP wrappers' launch counts as stderr's last line
+# a wrapper that prints the kernel wrappers' launch counts as stderr's last
+# line
 RUN_COUNTED = r"""
 import json, runpy, sys
-from hisat2_tpu_torch.ops import dp_cuda
+from hisat2_tpu_torch.ops import read_launches
 mod = sys.argv[1]
 sys.argv = [mod] + sys.argv[2:]
 try:
     runpy.run_module(mod, run_name="__main__", alter_sys=True)
 finally:
-    print("launches " + json.dumps(dp_cuda.launches), file=sys.stderr)
+    print("launches " + json.dumps(read_launches()), file=sys.stderr)
 """
 
 
@@ -3185,7 +3463,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one batch with torch.profiler")
     ap.add_argument("--sass", metavar="DIR",
-                    help="also write the kernels' SASS to DIR/dp_score.sass")
+                    help="also write the kernels' SASS to DIR/dp_score.sass "
+                         "and DIR/anchor_scan.sass")
     args = ap.parse_args()
 
     import torch
@@ -3199,7 +3478,8 @@ def main() -> int:
     from hisat2_tpu_torch.align.scoring import Scoring
     from hisat2_tpu_torch.index.fm_index import build_fm_index
     from hisat2_tpu_torch.io.reference import reference_from_seqs
-    from hisat2_tpu_torch.ops import dp_cuda
+    from hisat2_tpu_torch.ops import (anchor_cuda, dp_cuda, nvcc, read_launches,
+                                      zero_launches)
     from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
     from hisat2_tpu_torch.utils import alphabet
     from hisat2_tpu_torch.utils.metrics import Metrics
@@ -3210,14 +3490,38 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     t_start = time.perf_counter()
 
-    # -- build ----------------------------------------------------------
+    # -- build: one nvcc for each source, started together --------------
     t0 = time.perf_counter()
-    lib_path, report = dp_cuda.build()
+    (lib_path, report), (anchor_lib, anchor_ptxas) = nvcc.build(
+        dp_cuda.SOURCE, anchor_cuda.SOURCE)
     form = ("fused add-max / three-way-max intrinsics"
             if dp_cuda.fused_form() else
             "plain add-then-max form (toolkit without the intrinsics)")
-    print(f"[build] dp_score.cu in {time.perf_counter() - t0:.1f} s; cell "
-          f"update compiled on the {form}", flush=True)
+    sec = [nvcc.seconds[s] for s in (dp_cuda.SOURCE, anchor_cuda.SOURCE)]
+    print(f"[build] dp_score.cu {sec[0]:.1f} s and anchor_scan.cu "
+          f"{sec[1]:.1f} s, compiled at once: {time.perf_counter() - t0:.1f}"
+          f" s (one after the other: {sum(sec):.1f} s); cell update "
+          f"compiled on the {form}", flush=True)
+    anchor_regs = ptxas_by_kernel(anchor_ptxas)
+    check(sorted(v for v, _ in anchor_regs)
+          == ["anchor_scan_deep", "anchor_scan_tile0"],
+          f"anchor_scan.cu's ptxas report names {anchor_regs}")
+    anchor_sass_text = read_sass(anchor_lib)
+    anchor_sass = (anchor_sass_counts(anchor_sass_text) if anchor_sass_text
+                   else {})
+    if anchor_sass_text and args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        with open(os.path.join(args.sass, "anchor_scan.sass"), "w") as f:
+            f.write(anchor_sass_text)
+    for variant, regs in anchor_regs:
+        check("spill" not in regs or
+              ("0 bytes spill stores, 0 bytes spill loads" in regs),
+              f"{variant} spills registers: {regs}")
+        line = f"[build]   {variant}: {regs}"
+        if variant in anchor_sass:
+            line += (f" | SASS: {anchor_sass[variant][0]} instructions, "
+                     f"{anchor_sass[variant][1]} funnel shifts")
+        print(line, flush=True)
     sass_text = read_sass(lib_path)
     sass = sass_by_kernel(sass_text) if sass_text else {}
     if sass_text is None:
@@ -3308,6 +3612,7 @@ def main() -> int:
           f"case again at local mode's match bonus of 2 "
           f"({local_consts['match_bonus']}); max abs err {max_err}",
           flush=True)
+    anchor_phase(dev, max_err)
 
     phase_done("kernels")
 
@@ -3348,14 +3653,13 @@ def main() -> int:
         tpipe.dp_score = real_dp
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in dp_cuda.launches:
-        dp_cuda.launches[k] = 0
+    zero_launches()
     al.metrics = Metrics()
     t0 = time.perf_counter()
     text, stats = run_stream(al, batches, fm.ref)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(dp_cuda.launches)
+    launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / (1 << 20)
     rps = n / dt
     check(launches["dp_score"] > 0,
@@ -3417,8 +3721,7 @@ def main() -> int:
     tpaired.stage_pe_packed = keeping_stage
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in dp_cuda.launches:
-        dp_cuda.launches[k] = 0
+    zero_launches()
     al.metrics = Metrics()
     try:
         t0 = time.perf_counter()
@@ -3427,7 +3730,7 @@ def main() -> int:
         pe_dt = time.perf_counter() - t0
     finally:
         tpaired.stage_pe_packed = real_stage
-    pe_launches = dict(dp_cuda.launches)
+    pe_launches = read_launches()
     pe_peak_mb = torch.cuda.max_memory_allocated() / (1 << 20)
     pps = pe_n / pe_dt
     check(pe_launches["dp_score"] > 0,
@@ -3671,6 +3974,7 @@ def main() -> int:
               f"{bound:.4f} ms ({nbytes} bytes, {cells} cells x "
               f"{DP_OPS_PER_CELL} instructions), {bound / ms:.3f} of the "
               f"bound reached, {cnt} launches [{card}]", flush=True)
+    kernels += anchor_report(rres, pres, max_err, card)
     print(f"[report] SE end to end {rps:.1f} reads/s, peak device memory "
           f"{peak_mb:.1f} MiB [{card}]", flush=True)
     print(f"[report] PE end to end {pps:.1f} pairs/s = {2 * pps:.1f} "
@@ -3760,6 +4064,66 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def anchor_report(rres, pres, max_err, card):
+    """Phase 14's anchor-scan rows: on phases 8's and 9's kept inputs, the
+    kernel held to the plain core, its time (both launches) and the plain
+    core's by CUDA events, its bound from anchor_work, launches and deep
+    branches over the phase's streams. Returns the `kernels` JSON rows."""
+    from hisat2_tpu_torch.ops import anchor_cuda, splice
+    rows = []
+    pl = pres["launches"]
+    for cap, cnt, deep_cnt, deep_n, path in (
+            (rres["anchor"], rres["anchor_launches"]["anchor_scan"],
+             rres["anchor_launches"]["anchor_scan_deep"], rres["deep_calls"],
+             "RNA SE step"),
+            (pres["anchor"], pl["anchor_scan"], pl["anchor_scan_deep"],
+             pres["deep_calls"], "RNA PE step (2B rows, mates concatenated)")):
+        ins, kw = cap
+        kv, deep = check_anchor(ins, kw["tiles"], f"the {path} inputs",
+                                max_err)
+        ms = time_cuda(lambda: anchor_cuda.anchor_scan_core(*ins, **kw),
+                       iters=50, warmup=5)
+        plain_ms = time_cuda(lambda: splice.anchor_scan_plain_core(*ins, **kw),
+                             iters=3, warmup=1)
+        tests, words, _ = anchor_work(ins, kv, kw["W"], kw["NC"],
+                                      kw["tiles"])
+        S = ins[1].shape[0]
+        # the rows that decide the branch: live, no N anchor, no tile-0 hit
+        cand = ~ins[5] if ins[6] is None else ins[6] & ~ins[5]
+        miss0 = cand & (kv[:, 0] <= -(kw["W"] // 16))
+        # each input read once: the text words the rows need, pos, rdlens
+        # (int32), acode (int64), down, has_n, live (bool); kvalid and
+        # mpos written once
+        nbytes = (8 * words + S * (4 + 4 + 8 + 1 + 1
+                                   + (ins[6] is not None))
+                  + S * kw["NC"] * (1 + 4))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = tests * ANCHOR_OPS_PER_TEST / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        rows.append(dict(
+            name="anchor_scan", route="cuda",
+            source="hisat2_tpu_torch/csrc/anchor_scan.cu",
+            replaces="hisat2_tpu/ops/splice.py:779 (plain XLA, no Pallas)",
+            shape=f"S={S} W={kw['W']} NC={kw['NC']} tiles={kw['tiles']}",
+            launches=cnt, deep_launches=deep_cnt, deep_taken=deep_n,
+            max_abs_err=max_err.get("anchor_scan", 0), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None))
+        print(f"[report] anchor_scan ({path}) at S={S} W={kw['W']} "
+              f"NC={kw['NC']} tiles={kw['tiles']}, deep branch "
+              f"{'taken' if deep else 'not taken'} on these inputs: {ms:.4f} "
+              f"ms (both launches), plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms ({tests} window tests x {ANCHOR_OPS_PER_TEST} "
+              f"instructions, {nbytes} bytes of which {8 * words} of text), "
+              f"{bound / ms:.3f} of the bound reached; {int(miss0.sum())} of "
+              f"the {int(cand.sum())} live rows without an N anchor missed "
+              f"tile 0; {cnt} + {deep_cnt} launches on the path, the deep "
+              f"branch taken in {deep_n} of {deep_cnt} calls [{card}]",
+              flush=True)
+    return rows
 
 
 def measure_batch(al, submit, finish, args, host_profile=None):

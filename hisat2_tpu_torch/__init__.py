@@ -3,9 +3,11 @@
 A second package beside the JAX one, slice by slice, main path first:
 single-end DNA alignment (--no-spliced-alignment) against an index that
 carries a k-mer seed table, through to SAM. Plain tensor work is PyTorch;
-the one hand-written kernel on this path is the affine-gap DP fill,
-CUDA C++ for sm_90a (csrc/dp_score.cu, ops/dp_cuda.py). Host modules
-(io, index builders, native C++, scoring) are the package's own copies.
+the hand-written kernels, CUDA C++ for sm_90a built by ops/nvcc.py, are
+the affine-gap DP fill (csrc/dp_score.cu, ops/dp_cuda.py) and the
+spliced path's anchor scan (csrc/anchor_scan.cu, ops/anchor_cuda.py).
+Host modules (io, index builders, native C++, scoring) are the package's
+own copies.
 
 Entry points run on "cuda" unless the caller passes device="cpu"; a CPU
 tensor always takes a kernel's plain PyTorch version, a CUDA tensor

@@ -2,9 +2,9 @@
 
 Counterpart of hisat2_tpu/ops/dp_pallas.py. The kernel is
 csrc/dp_score.cu (CUDA C++ for sm_90a), built with nvcc on first use into
-the package's git-ignored `_build/kernels/` directory and bound through
-ctypes to a plain C entry point. A CUDA tensor always goes through a
-kernel; a CPU tensor always goes through the plain version,
+the package's git-ignored `_build/kernels/` directory (ops/nvcc.py) and
+bound through ctypes to a plain C entry point. A CUDA tensor always goes
+through a kernel; a CPU tensor always goes through the plain version,
 ops/sw.dp_fill_plain. `dispatch_plan` picks the kernel by the window, and
 every window W >= 0 has one:
   * up to 256 columns (W + 1 <= 256, the SE path): the one-warp-per-
@@ -26,20 +26,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
 
+from . import nvcc
 from .sw import dp_fill_plain
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "dp_score.cu")
-BUILD_DIR = os.path.join(_PKG, "_build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(nvcc.CSRC, "dp_score.cu")
 
 NARROW_MAX_COLS = 256     # widest window (W + 1) of the one-warp kernel
 MAX_COLS = 2048           # widest window (W + 1) of one one-block pass
@@ -92,36 +86,10 @@ def dispatch_plan(W: int) -> Plan:
     return Plan("dp_score_tiled", WIDE_WARPS, cpl)
 
 
-def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    path = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the DP kernel builds only on a "
-                           "machine with the CUDA toolkit")
-    return path
-
-
 def build() -> tuple[str, str]:
     """Compile csrc/dp_score.cu into a shared library (once per process).
     Returns (library path, the compiler's -Xptxas -v report)."""
-    if "lib_path" in _state:
-        return _state["lib_path"], _state["ptxas"]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, "dp_score.so")
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    _state["lib_path"], _state["ptxas"] = so_path, proc.stderr
-    return so_path, proc.stderr
+    return nvcc.build(SOURCE)[0]
 
 
 def _lib() -> ctypes.CDLL:

@@ -14,7 +14,10 @@ hisat2.cpp:493-497).
 One lane per (read, diagonal pair); the junction offset search is a
 closed-form argmax over prefix/suffix score sums: three window fetches
 and cumulative sums a lane, plain tensor code (the JAX package has no
-Pallas kernel here either; anchor_scan's tiles are plain scans too).
+Pallas kernel here either). anchor_scan's scan is a plain XLA scan in
+the JAX package; here it is a hand-written CUDA kernel on the card
+(csrc/anchor_scan.cu through ops/anchor_cuda.anchor_scan_core), with
+anchor_scan_plain_core as the CPU path and the oracle.
 
 What is not integer arithmetic gives the JAX version's float32 results
 on the CPU and the same bits on the card: the intron-length penalty
@@ -28,14 +31,18 @@ before acceptor, each window in position order, and gates on
 round the same on every device. Every lax.top_k becomes
 a stable descending sort (ties in ascending index order, as top_k keeps
 them). The JAX version's lax.cond over the deeper anchor-scan tiles
-becomes an unconditional computation selected with torch.where, so no
-device value decides a branch on the host.
+is decided on the device, so no device value decides a branch on the
+host: the plain core computes every tile and selects with torch.where;
+the kernel's tile-0 launch sets a device flag when some live row without
+an N anchor found nothing, and its deep launch, queued always, returns
+at once while the flag is 0.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import anchor_cuda as _anchor_cuda
 from . import rank as _rank
 from ..align import splice_model as _sm
 from ..align.scoring import mm_pen_of as _mm_pen_of, sc_pen_of as _sc_pen_of
@@ -902,28 +909,79 @@ def anchor_scan(idx: dict, rd, rdlens, pos, down, min_intron,
 
     `tiles` consecutive W-char windows extend the reach to tiles*W;
     candidates merge across tiles nearest-first. The deeper tiles apply
-    when some row found nothing in tile 0 (the JAX version's lax.cond):
-    they are computed always and chosen on the device.
+    when some row found nothing in tile 0 (the JAX version's lax.cond).
+    The scan itself is the core between a shared prelude (anchor codes,
+    has_n) and a shared tail (mate diagonals, guards):
+    anchor_scan_plain_core for a CPU tensor, the CUDA kernel
+    (ops/anchor_cuda.anchor_scan_core) for a CUDA tensor.
 
     Returns (S, NC, 2) int32: [mate diagonal, valid].
     """
-    S, L = rd.shape
     dev = rd.device
-    NW = W // 16
     rdlens = rdlens.to(I32)
     pos = pos.to(I32)
     mi = torch.as_tensor(min_intron, dtype=I32, device=dev)
+    acode, has_n = anchor_codes(rd, rdlens, down, A)
+    core = (anchor_scan_plain_core if dev.type == "cpu"
+            else _anchor_cuda.anchor_scan_core)
+    kvalid, mpos = core(idx["text_rows"], pos, down, rdlens, acode, has_n,
+                        live, min_intron, W=W, A=A, NC=NC, tiles=tiles)
+    # mate diagonal from match position
+    mate = torch.where(down[:, None], mpos - (rdlens - A)[:, None], mpos)
+    # same-fragment + intron-range guards (the scorer re-gates; these
+    # keep cross-chromosome garbage out of the lane set)
+    fj = idx["frag_joined"]
+    fr = _rank.searchsorted_right(fj, pos) - 1
+    frc = fr.clamp(0, fj.shape[0] - 1).long()
+    fs, fe = fj[frc], idx["frag_end"][frc]
+    inb = (mpos >= fs[:, None]) & (mpos + A <= fe[:, None])
+    delta = torch.where(down[:, None], mate - pos[:, None],
+                        pos[:, None] - mate)
+    ok = (kvalid & inb & ~has_n[:, None] & (fr >= 0)[:, None]
+          & (delta >= mi))
+    return torch.stack([mate, ok.to(I32)], dim=2).to(I32)
 
-    # anchor code (little-endian 2-bit, matching text word packing)
-    ar = _arange(A, dev)
+
+def anchor_codes(rd, rdlens, down, A: int = 8):
+    """anchor_scan's prelude: (acode (S,) int64, the far-end A-mer of each
+    read as a little-endian 2-bit code, matching the text's word packing;
+    has_n (S,) bool, an N in it or a read shorter than A + 7)."""
+    L = rd.shape[1]
+    rdlens = rdlens.to(I32)
+    ar = _arange(A, rd.device)
     tail_off = (rdlens - A).clamp_min(0)
     offs = torch.where(down[:, None], tail_off[:, None] + ar[None, :],
                        ar[None, :])
     ach = torch.gather(rd.to(I32), 1, offs.clamp(0, L - 1).long())  # (S, A)
     has_n = (ach >= 4).any(dim=1) | (rdlens < A + MIN_ANCHOR_CANON)
     acode = (ach.clamp(0, 3).long() * (4 ** ar.long())[None, :]).sum(dim=1)
+    return acode, has_n
 
-    rows = idx["text_rows"]
+
+def anchor_scan_plain_core(rows, pos, down, rdlens, acode, has_n, live,
+                           min_intron, *, W: int, A: int, NC: int,
+                           tiles: int):
+    """anchor_scan's core in plain PyTorch (the CPU path, and the oracle
+    of the CUDA kernel): (kvalid (S, NC) bool, mpos (S, NC) int32)."""
+    kv, mpos = anchor_scan_plain_keys(rows, pos, down, rdlens, acode, has_n,
+                                      live, min_intron, W=W, A=A, NC=NC,
+                                      tiles=tiles)
+    return kv > -(1 << 29), mpos
+
+
+def anchor_scan_plain_keys(rows, pos, down, rdlens, acode, has_n, live,
+                           min_intron, *, W: int, A: int, NC: int,
+                           tiles: int):
+    """The plain core with its sort keys: (kv (S, NC) int32, mpos). A hit
+    at distance d (in words, nearest first) in tile t has the key
+    -(t * W/16 + d), a miss -2^30; each row keeps the NC largest, ties in
+    ascending word order. With tiles > 1 the deeper tiles' lists merge
+    in when some live row without an N anchor (has_n false) has no hit
+    in tile 0."""
+    S = pos.shape[0]
+    dev = pos.device
+    NW = W // 16
+    mi = torch.as_tensor(min_intron, dtype=I32, device=dev)
     wi = _arange(NW, dev)[None, :]
     sh = (2 * torch.arange(16, device=dev))[None, None, :]
     nrow = NW // 16 + 2
@@ -1004,18 +1062,4 @@ def anchor_scan(idx: dict, rd, rdlens, pos, down, min_intron,
         deep = ~found0.all()
         kv = torch.where(deep, kvd, kv)
         mpos = torch.where(deep, mpd, mpos)
-    kvalid = kv > -(1 << 29)
-    # mate diagonal from match position
-    mate = torch.where(down[:, None], mpos - (rdlens - A)[:, None], mpos)
-    # same-fragment + intron-range guards (the scorer re-gates; these
-    # keep cross-chromosome garbage out of the lane set)
-    fj = idx["frag_joined"]
-    fr = _rank.searchsorted_right(fj, pos) - 1
-    frc = fr.clamp(0, fj.shape[0] - 1).long()
-    fs, fe = fj[frc], idx["frag_end"][frc]
-    inb = (mpos >= fs[:, None]) & (mpos + A <= fe[:, None])
-    delta = torch.where(down[:, None], mate - pos[:, None],
-                        pos[:, None] - mate)
-    ok = (kvalid & inb & ~has_n[:, None] & (fr >= 0)[:, None]
-          & (delta >= mi))
-    return torch.stack([mate, ok.to(I32)], dim=2).to(I32)
+    return kv, mpos

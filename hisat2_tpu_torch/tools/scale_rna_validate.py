@@ -38,8 +38,7 @@ import numpy as np
 
 from .scale_validate import (GiB, NCHROM, build_or_load, check_host_memory,
                              device_report, log, open_device, peak_rss,
-                             reference_of, shard_sizes, write_report,
-                             zero_launches)
+                             reference_of, shard_sizes, write_report)
 
 RDLEN = 100
 
@@ -200,7 +199,7 @@ def run(args, bake_ss: bool = True) -> dict:
     from ..align.sharded import ShardedAligner
     from ..index.sharded import MAX_SHARD_BASES, build_sharded
     from ..io import sam as samio
-    from ..ops import dp_cuda
+    from ..ops import read_launches, zero_launches
 
     device = open_device(args.device)
     check_host_memory(
@@ -253,7 +252,7 @@ def run(args, bake_ss: bool = True) -> dict:
     zero_launches()
     stats = sal.align_and_emit_pe(batches, w)
     align_s = time.time() - t0
-    launches = dict(dp_cuda.launches)
+    launches = read_launches()
     n_reads = 2 * n_pairs
     # a full second pass: the shards stay resident when they fit the
     # budget, so this is the pass without uploads

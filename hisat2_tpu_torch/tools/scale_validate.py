@@ -227,15 +227,6 @@ def build_or_load(cache: str | None, key: str, build):
     return sh
 
 
-def zero_launches() -> None:
-    """Sets the DP kernel wrappers' launch counts to 0 (read back as
-    dict(dp_cuda.launches); on the CPU they stay 0: the plain versions
-    run)."""
-    from ..ops import dp_cuda
-    for k in dp_cuda.launches:
-        dp_cuda.launches[k] = 0
-
-
 def peak_rss() -> int:
     """Peak resident bytes of this process (ru_maxrss is in KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
@@ -247,7 +238,7 @@ def run(args) -> dict:
     from ..align.sharded import ShardedAligner
     from ..index.sharded import MAX_SHARD_BASES, build_sharded
     from ..io import sam as samio
-    from ..ops import dp_cuda
+    from ..ops import read_launches, zero_launches
 
     device = open_device(args.device)
     check_host_memory(host_need_se(args.bases, MAX_SHARD_BASES),
@@ -286,7 +277,7 @@ def run(args) -> dict:
     zero_launches()
     stats = al.align_and_emit(batches, writer)
     t_align = time.time() - t0
-    launches = dict(dp_cuda.launches)
+    launches = read_launches()
     log(f"aligned {args.reads} reads in {t_align:.0f}s "
         f"({args.reads / t_align:.0f} reads/s incl. shard uploads): {stats}")
 

@@ -57,14 +57,14 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from hisat2_tpu_torch.align.scoring import Scoring
-    from hisat2_tpu_torch.ops import dp_cuda
+    from hisat2_tpu_torch.ops import dp_cuda, nvcc
     from hisat2_tpu_torch.ops.sw import dp_fill_plain, dp_inputs
 
     dev = torch.device("cuda")
     card = cs.card_line()
     print(f"[card] {card}", flush=True)
     lib_path, report = dp_cuda.build()
-    ver = subprocess.run([dp_cuda.nvcc_path(), "--version"],
+    ver = subprocess.run([nvcc.nvcc_path(), "--version"],
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     print(f"[build] {ver[-2] if len(ver) > 1 else ver}; fused intrinsics: "

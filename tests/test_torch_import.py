@@ -39,6 +39,8 @@ def test_port_modules_import_without_jax():
         hisat2_tpu_torch.__path__, "hisat2_tpu_torch.")]
     assert got["modules"] == expected
     for mod in ("hisat2_tpu_torch.ops.dp_cuda",
+                "hisat2_tpu_torch.ops.anchor_cuda",
+                "hisat2_tpu_torch.ops.nvcc",
                 "hisat2_tpu_torch.ops.locate",
                 "hisat2_tpu_torch.ops.wire",
                 "hisat2_tpu_torch.align.emit",

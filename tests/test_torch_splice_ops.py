@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
+import torch_anchor_cases as tac
 from hisat2_tpu.align import pipeline as jpipe
 from hisat2_tpu.align import splice_model as jsm
 from hisat2_tpu.align.pipeline import Aligner as JAligner
@@ -50,6 +51,7 @@ from hisat2_tpu_torch.align.scoring import DEFAULT_SCORING as TSC
 from hisat2_tpu_torch.align.splice_db import SpliceSiteDB as TDB
 from hisat2_tpu_torch.index.fm_index import FMIndex
 from hisat2_tpu_torch.io.reads import Read as TRead, batchify as tbatchify
+from hisat2_tpu_torch.ops import anchor_cuda, nvcc
 from hisat2_tpu_torch.ops import splice as tsp
 from hisat2_tpu_torch.ops import splice_host as tsh
 
@@ -482,12 +484,13 @@ def test_rescue_fused(world, oriented):
             eq(x, y)
 
 
-@pytest.mark.parametrize("tiles", [1, 8])
-def test_anchor_scan(world, tiles):
+def scan_case(world, tiles, resolved):
     """Far anchors after and before seeded diagonals: rows whose mate lies
-    in the first 64 kb tile, rows that find nothing there (the genome is
-    40 kb: an up scan from its start), N anchors, short reads."""
-    ja, ta = world["ja"], world["ta"]
+    in the first 64 kb tile, an N in a read, a short read and a dead row
+    whose anchors the genome lacks; unless `resolved`, also a live row
+    that finds nothing (an up scan from the 40 kb genome's start with such
+    an anchor), so with tiles > 1 the deep branch is taken. Returns numpy
+    (rd, rdl, pos, down, live)."""
     g = world["g"]
     rng = np.random.default_rng(10 + tiles)
     S, L = 48, 100
@@ -507,14 +510,224 @@ def test_anchor_scan(world, tiles):
         rd[i] = seq
     rd[5, -3] = 4
     rdl[7] = 12
-    pos[9] = 10                        # an up scan off the genome's start
+    # an 8-mer the genome lacks and with no A (the text's zero padding
+    # past its end reads as A): no hit in any tile, as the first 8 bases
+    # of the up rows 7 (a short read) and 11 (dead), which must not set
+    # the branch, and unless `resolved` of row 9, an up scan off the
+    # genome's start, which does
+    codes = np.arange(1 << 16)
+    bases = (codes[:, None] >> (2 * np.arange(8))) & 3
+    ok = (bases > 0).all(axis=1)
+    ok[tac.kmer8_codes(g)] = False
+    absent = bases[np.flatnonzero(ok)[0]]
+    rd[7, :8] = rd[11, :8] = absent
+    if not resolved:
+        pos[9] = 10
+        rd[9, :8] = absent
     live = np.arange(S) != 11
+    return rd, rdl, pos, down, live
+
+
+SCAN_CASES = [pytest.param(1, False, id="1"), pytest.param(8, False, id="8"),
+              pytest.param(8, True, id="8-resolved")]
+
+
+@pytest.mark.parametrize("tiles,resolved", SCAN_CASES)
+def test_anchor_scan(world, tiles, resolved):
+    """The JAX package's anchor_scan and the port's, exact: one tile, eight
+    where a row reaches past the first (the deep branch), and eight where
+    every live row resolves in tile 0 (the branch not taken)."""
+    ja, ta = world["ja"], world["ta"]
+    rd, rdl, pos, down, live = scan_case(world, tiles, resolved)
+    S = rd.shape[0]
     j = jsp.anchor_scan(ja.idx, J(rd), J(rdl), J(pos), J(down, bool),
                         jnp.int32(20), tiles=tiles, live=J(live, bool))
     t = tsp.anchor_scan(ta.idx, T(rd), T(rdl), T(pos), T(down, torch.bool),
                         20, tiles=tiles, live=T(live, torch.bool))
     eq(j, t)
     assert (np.asarray(j)[:, :, 1] > 0).sum() >= S // 2
+    ins = core_inputs(ta.idx["text_rows"], rd, rdl, pos, down, live, 20)
+    assert model_core(*ins, W=65536, A=8, NC=4, tiles=tiles)[2] == \
+        (not resolved)
+
+
+def core_inputs(rows, rd, rdl, pos, down, live, mi):
+    """The anchor-scan core's inputs (CPU tensors) from numpy rows, the
+    prelude (ops/splice.anchor_codes) run on them."""
+    acode, has_n = tsp.anchor_codes(T(rd), T(rdl), T(down, torch.bool))
+    return (rows, T(pos), T(down, torch.bool), T(rdl), acode, has_n,
+            None if live is None else T(live, torch.bool), mi)
+
+
+def model_core(rows, pos, down, rdl, acode, has_n, live, mi, *, W, A, NC,
+               tiles):
+    """The CUDA kernel's rule (csrc/anchor_scan.cu) in numpy, row by row:
+    a row's entries are its hits over the tiles, nearest first, up to NC
+    (a hit word's position at its first matching shift for a down row,
+    its last for an up row); the rest are tile 0's lowest-index words
+    without a hit, ascending, at shift 0 (down) or 15 (up), not valid.
+    Tiles past the first are walked, by every row short of NC, only when
+    one flag for the whole call is set: some live row whose anchor has
+    no N found nothing in tile 0. Returns (kvalid, mpos, flag)."""
+    rows = rows.numpy()
+    pos, rdl, acode = (x.numpy().astype(np.int64) for x in (pos, rdl, acode))
+    down, has_n = down.numpy(), has_n.numpy()
+    live = np.ones_like(has_n) if live is None else live.numpy()
+    R, NW, S = rows.shape[0], W // 16, pos.shape[0]
+    flat = rows.reshape(-1)
+
+    def wrap(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    def tile(i, t):
+        ws = wrap(pos[i] + mi + rdl[i] - A + t * W if down[i]
+                  else pos[i] - mi - (t + 1) * W)
+        base = max(ws, 0) >> 4
+        j = (base & 15) + np.arange(NW + 1)
+        w = flat[np.minimum(min(base >> 4, R - 1) + j // 16, R - 1) * 16
+                 + j % 16] & 0xFFFFFFFF
+        pair = w[:NW] | ((w[1:] & 0xFFFF) << 32)
+        m = ((pair[:, None] >> (2 * np.arange(16))) & 0xFFFF) == acode[i]
+        hit = np.flatnonzero(m.any(axis=1))
+        if not down[i]:
+            hit = hit[::-1]
+        return [16 * base + 16 * int(w_) + int(np.flatnonzero(m[w_])[
+            0 if down[i] else -1]) for w_ in hit], base, m
+
+    hits, pads = [], []
+    for i in range(S):
+        h, base, m = tile(i, 0)
+        miss = np.flatnonzero(~m.any(axis=1))[:NC]
+        pads.append([16 * base + 16 * int(w_) + (0 if down[i] else 15)
+                     for w_ in miss])
+        hits.append(h[:NC])
+    flag = any(not hits[i] and not has_n[i] and live[i] for i in range(S))
+    if tiles > 1 and flag:
+        for i in range(S):
+            for t in range(1, tiles):
+                if len(hits[i]) >= NC:
+                    break
+                hits[i] = (hits[i] + tile(i, t)[0])[:NC]
+    kvalid = np.zeros((S, NC), bool)
+    mpos = np.zeros((S, NC), np.int64)
+    for i in range(S):
+        n = len(hits[i])
+        kvalid[i, :n] = True
+        mpos[i] = hits[i] + pads[i][:NC - n]
+    return kvalid, wrap(mpos).astype(np.int32), flag
+
+
+def test_anchor_word_hit_test():
+    """csrc/anchor_scan.cu's hit_mask word test, in numpy: for the eight
+    funnel shifts of a 64-bit word pair, d = the shift's 32 bits XOR the
+    code in both halves, OR-ing (d - 0x00010001) & ~d; bit 15 or 31 set
+    exactly when one of the word's 16 8-mers equals the code. On every
+    pair of half-word edge values and on random pairs, some with the code
+    planted at a random shift."""
+    u64, m32 = np.uint64, np.uint64(0xFFFFFFFF)
+
+    def flags(d):
+        return ((d - u64(0x00010001)) & m32) & (~d & m32)
+
+    edge = np.array([0, 1, 2, 0x7FFF, 0x8000, 0x8001, 0xFFFE, 0xFFFF],
+                    np.uint64)
+    lo, hi = np.repeat(edge, edge.size), np.tile(edge, edge.size)
+    assert ((flags(lo | (hi << u64(16))) & u64(0x80008000)) != 0).tolist() \
+        == ((lo == 0) | (hi == 0)).tolist()
+    rng = np.random.default_rng(12)
+    n = 50_000
+    pair = rng.integers(0, 1 << 63, n, dtype=np.int64).astype(np.uint64) \
+        ^ (rng.integers(0, 2, n).astype(np.uint64) << u64(63))
+    code = rng.integers(0, 1 << 16, n).astype(np.uint64)
+    at = (2 * rng.integers(0, 16, n)).astype(np.uint64)
+    plant = rng.random(n) < 0.3
+    pair = np.where(plant, (pair & ~(u64(0xFFFF) << at)) | (code << at),
+                    pair)
+    code2 = code | (code << u64(16))
+    acc = np.zeros(n, np.uint64)
+    want = np.zeros(n, bool)
+    for s in range(8):
+        acc |= flags(((pair >> u64(2 * s)) & m32) ^ code2)
+    for s in range(16):
+        want |= ((pair >> u64(2 * s)) & u64(0xFFFF)) == code
+    assert want.sum() > n // 4
+    np.testing.assert_array_equal((acc & u64(0x80008000)) != 0, want)
+
+
+SYNTH_CASES = [(1, 37, 1, False, True), (2, 37, 8, False, True),
+               (3, 37, 8, True, True), (4, 37, 8, False, False),
+               (5, 37, 8, True, False), (6, 0, 8, False, True)]
+
+
+@pytest.mark.parametrize("tiles,resolved", SCAN_CASES)
+def test_anchor_scan_contract(world, tiles, resolved):
+    """The kernel's rule (model_core) == the plain core on test_anchor_scan's
+    rows and on torch_anchor_cases.make_anchor_case's synthetic rows of
+    every kind (hits in tile 0 only, only past it, none; N anchors, short
+    reads, up scans off the text's start, windows past its end; live
+    None and a mask; S = 0 and 37), the flag (some live row without an N
+    anchor missed tile 0) as each case expects."""
+    rd, rdl, pos, down, live = scan_case(world, tiles, resolved)
+    cases = [(core_inputs(world["ta"].idx["text_rows"], rd, rdl, pos, down,
+                          live, 20), tiles, not resolved)]
+    for seed, S, st, r0, mask in SYNTH_CASES:
+        if st == tiles and r0 == resolved:
+            c = tac.make_anchor_case(seed, S, st, resolve0=r0, mask=mask)
+            cases.append((tac.anchor_core_inputs(c, "cpu"), st,
+                          not r0 and S > 0))
+    for ins, nt, missed in cases:
+        kw = dict(W=65536, A=8, NC=4, tiles=nt)
+        kvalid, mpos, flag = model_core(*ins, **kw)
+        want_kv, want_mpos = tsp.anchor_scan_plain_core(*ins, **kw)
+        assert flag == missed
+        np.testing.assert_array_equal(kvalid, want_kv.numpy())
+        np.testing.assert_array_equal(mpos, want_mpos.numpy())
+
+
+def test_anchor_scan_cpu_never_loads_cuda(world, monkeypatch):
+    """On CPU tensors anchor_scan runs the plain core: with the kernel's
+    loader and the nvcc build patched to raise, it still runs, equal to
+    the JAX package's, and counts no launch."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path loaded the CUDA kernel")
+    monkeypatch.setattr(anchor_cuda, "_lib", refuse)
+    monkeypatch.setattr(anchor_cuda, "build", refuse)
+    monkeypatch.setattr(nvcc, "build", refuse)
+    ja, ta = world["ja"], world["ta"]
+    rd, rdl, pos, down, live = scan_case(world, 8, False)
+    before = dict(anchor_cuda.launches)
+    t = tsp.anchor_scan(ta.idx, T(rd), T(rdl), T(pos), T(down, torch.bool),
+                        20, tiles=8, live=T(live, torch.bool))
+    assert anchor_cuda.launches == before
+    eq(jsp.anchor_scan(ja.idx, J(rd), J(rdl), J(pos), J(down, bool),
+                       jnp.int32(20), tiles=8, live=J(live, bool)), t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,tiles,resolved", [
+    (37, 1, False), (37, 8, False), (37, 8, True), (5120, 1, False),
+    (5120, 8, False), (5120, 8, True)])
+def test_anchor_scan_kernel_matches_plain(S, tiles, resolved):
+    """The CUDA kernel == the plain core on the card, exactly, on
+    torch_anchor_cases.make_anchor_case's rows: the deep branch taken and
+    not, the device-side counter counting the calls that took it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    case = tac.make_anchor_case(S + tiles, S, tiles, resolve0=resolved)
+    ins = tac.anchor_core_inputs(case, torch.device("cuda"))
+    kw = dict(W=65536, A=8, NC=4, tiles=tiles)
+    before = dict(anchor_cuda.launches)
+    deep0 = anchor_cuda.deep_calls()
+    kvalid, mpos = anchor_cuda.anchor_scan_core(*ins, **kw)
+    torch.cuda.synchronize()
+    assert anchor_cuda.launches["anchor_scan"] == before["anchor_scan"] + 1
+    assert anchor_cuda.launches["anchor_scan_deep"] == \
+        before["anchor_scan_deep"] + (tiles > 1)
+    want_kv, want_mpos = tsp.anchor_scan_plain_core(*ins, **kw)
+    assert torch.equal(kvalid, want_kv)
+    assert torch.equal(mpos, want_mpos)
+    taken = anchor_cuda.deep_calls() - deep0
+    assert taken == int(tiles > 1 and not resolved)
 
 
 def test_lane_enum(world, oriented):
