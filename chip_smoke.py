@@ -43,9 +43,11 @@ Phases; any failure exits non-zero:
                  tile 0 only, only past it, none; N anchors, reads shorter
                  than 15 bp, up scans off the text's start, windows past
                  its end; live None and a mask) at S = 0, 37, 5,120 and
-                 10,240, tiles 1 and 8, the deep branch taken and not: the
-                 device's deep counter must count exactly the calls whose
-                 plain keys take it.
+                 10,240, tiles 1 and 8, the deep branch taken and not; one
+                 row alone (a down and an up row that miss tile 0); rows
+                 with hits on both sides of a strip boundary, more than NC
+                 past it (S = 37 and 5,120): the device's deep counter
+                 must count exactly the calls whose plain keys take it.
   4. SE path   - builds the index of a seeded synthetic genome of E. coli
                  K-12 MG1655's length (4,641,652 bp), then aligns 8
                  batches of 16,384 simulated 100 bp reads (1% mismatches,
@@ -281,6 +283,9 @@ Phases; any failure exits non-zero:
                  core there, its time (both launches), the plain core's and
                  its bound (the window tests these inputs need, and the
                  text words they read, from the plain keys: anchor_work),
+                 the words each row needs (mean, maximum, rows that walk
+                 every tile), the blocks a launch against the card's
+                 resident slots and the near-empty call's floor (S = 37),
                  all of it as one JSON line; end-to-end reads/s (SE,
                  RNA) and pairs/s (PE, RNA PE) and peak device memory beside the
                  card name and power limit; last line {"ok": true, ...}.
@@ -501,28 +506,38 @@ def anchor_cases():
     return torch_anchor_cases
 
 
-def anchor_work(ins, kv, W, NC, tiles):
-    """What one anchor scan's data needs: (window tests, text words read,
-    deep taken). ins are the core's inputs, kv the plain keys
-    (ops/splice.anchor_scan_plain_keys). A row tests words nearest first
-    until it holds NC hits: through its NC-th hit, else to the end of
-    tile 0, or of the last tile when the deep branch is taken (some live
-    row without an N anchor has no tile-0 hit: keys above -W/16). Its
-    padding words lie inside what it tested. The text words read are the
-    union of the rows' tested words and the word after each run (the
-    upper half of the last pair), each read once."""
-    rows, pos, down, rdl, _acode, has_n, live, mi = ins
+def anchor_need(ins, kv, W, NC, tiles):
+    """The words each scan row needs, nearest first: (D (S,) int64, deep
+    taken). ins are the core's inputs, kv the plain keys
+    (ops/splice.anchor_scan_plain_keys). A row tests words until it holds
+    NC hits: through its NC-th hit, else to the end of tile 0, or of the
+    last tile when the deep branch is taken (some live row without an N
+    anchor has no tile-0 hit: keys above -W/16)."""
+    _rows, _pos, _down, _rdl, _acode, has_n, live, _mi = ins
     NW = W // 16
     kv = kv.cpu().numpy().astype(np.int64)
     has_n = has_n.cpu().numpy()
     live = np.ones_like(has_n) if live is None else live.cpu().numpy()
-    S = kv.shape[0]
-    if S == 0:
-        return 0, 0, False
+    if kv.shape[0] == 0:
+        return np.zeros(0, np.int64), False
     found0 = (kv[:, 0] > -NW) | has_n | ~live
     deep = tiles > 1 and not found0.all()
     full = kv[:, NC - 1] > -(1 << 29)
-    D = np.where(full, -kv[:, NC - 1] + 1, (tiles if deep else 1) * NW)
+    return (np.where(full, -kv[:, NC - 1] + 1,
+                     (tiles if deep else 1) * NW), deep)
+
+
+def anchor_work(ins, kv, W, NC, tiles):
+    """What one anchor scan's data needs: (window tests, text words read,
+    deep taken); anchor_need's words a row, 16 tests each. A row's padding
+    words lie inside what it tested. The text words read are the union of
+    the rows' tested words and the word after each run (the upper half of
+    the last pair), each read once."""
+    rows, pos, down, rdl, _acode, _has_n, _live, mi = ins
+    NW = W // 16
+    D, deep = anchor_need(ins, kv, W, NC, tiles)
+    if D.size == 0:
+        return 0, 0, False
     pos = pos.cpu().numpy().astype(np.int64)
     down = down.cpu().numpy()
     rdl = rdl.cpu().numpy().astype(np.int64)
@@ -539,13 +554,49 @@ def anchor_work(ins, kv, W, NC, tiles):
     words = int((np.cumsum(mark[:-1]) > 0).sum())
     return int(D.sum()) * 16, words, deep
 
-# phase 3's anchor-scan cases: (seed, S, tiles, resolve0, live mask)
-ANCHOR_CASES = ((60, 0, 8, False, True), (61, 37, 1, False, True),
-                (62, 37, 8, False, True), (63, 37, 8, True, True),
-                (64, 37, 8, False, False), (65, 37, 8, True, False),
-                (66, 5120, 1, False, True), (67, 5120, 8, False, True),
-                (68, 5120, 8, True, True), (69, 5120, 8, False, False),
-                (70, 10240, 8, False, True))
+
+def need_summary(D, W, tiles) -> str:
+    """anchor_need's words a row in a line: mean, maximum, the rows that
+    walk every tile, and the rows by the tiles they reach."""
+    NW = W // 16
+    if D.size == 0:
+        return "no rows"
+    by = np.bincount((D - 1) // NW + 1, minlength=tiles + 1)[1:]
+    return (f"words a row: mean {D.mean():.1f}, max {int(D.max())}; "
+            f"{int((D >= tiles * NW).sum())} of {D.size} rows walk all "
+            f"{tiles} tiles; rows by the tiles they reach "
+            f"{by.tolist()}")
+
+
+def resident_blocks(ptxas: str, threads: int) -> int:
+    """Blocks of `threads` threads one SM of an H100 holds at once, from
+    a kernel's ptxas report ('Used R registers, ... N bytes smem'): 65,536
+    registers (a warp's allocation rounds R up to 8 a thread), 64 warps,
+    32 blocks and 233,472 bytes of shared memory (1,024 reserved a
+    block) an SM."""
+    regs = int(re.search(r"Used (\d+) registers", ptxas).group(1))
+    m = re.search(r"(\d+) bytes smem", ptxas)
+    smem = int(m.group(1)) if m else 0
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-regs // 8) * 8 * 32) // warps
+    return min(by_regs, 64 // warps, 32, 233472 // (smem + 1024))
+
+
+# phase 3's anchor-scan cases: (seed, S, tiles, resolve0, live mask,
+# strip_edge); seeds 6 and 9 make one down row and one up row that miss
+# tile 0
+ANCHOR_CASES = ((60, 0, 8, False, True, False), (61, 37, 1, False, True, False),
+                (62, 37, 8, False, True, False), (63, 37, 8, True, True, False),
+                (64, 37, 8, False, False, False),
+                (65, 37, 8, True, False, False),
+                (66, 5120, 1, False, True, False),
+                (67, 5120, 8, False, True, False),
+                (68, 5120, 8, True, True, False),
+                (69, 5120, 8, False, False, False),
+                (70, 10240, 8, False, True, False),
+                (6, 1, 8, False, True, False), (9, 1, 8, False, True, False),
+                (7, 37, 8, False, True, True),
+                (73, 5120, 8, False, True, True))
 
 
 def check_anchor(ins, tiles, what, max_err):
@@ -582,12 +633,14 @@ def anchor_phase(dev, max_err):
     make_anchor_case rows."""
     cases = anchor_cases()
     t0 = time.perf_counter()
-    for seed, S, tiles, r0, mask in ANCHOR_CASES:
+    for seed, S, tiles, r0, mask, edge in ANCHOR_CASES:
         case = cases.make_anchor_case(seed, S, tiles, resolve0=r0,
-                                      mask=mask)
+                                      mask=mask, strip_edge=edge)
         r0_what = ("every live row without an N anchor resolved in tile 0, "
                    if r0 else "")
-        what = (f"case {seed}: S={S}, tiles {tiles}, {r0_what}"
+        edge_what = ("hits on both sides of a strip boundary, more than NC "
+                     "past it, " if edge else "")
+        what = (f"case {seed}: S={S}, tiles {tiles}, {r0_what}{edge_what}"
                 f"live {'mask' if mask else 'None'}")
         _, deep = check_anchor(cases.anchor_core_inputs(case, dev), tiles,
                                what, max_err)
@@ -3974,7 +4027,7 @@ def main() -> int:
               f"{bound:.4f} ms ({nbytes} bytes, {cells} cells x "
               f"{DP_OPS_PER_CELL} instructions), {bound / ms:.3f} of the "
               f"bound reached, {cnt} launches [{card}]", flush=True)
-    kernels += anchor_report(rres, pres, max_err, card)
+    kernels += anchor_report(rres, pres, max_err, card, anchor_regs)
     print(f"[report] SE end to end {rps:.1f} reads/s, peak device memory "
           f"{peak_mb:.1f} MiB [{card}]", flush=True)
     print(f"[report] PE end to end {pps:.1f} pairs/s = {2 * pps:.1f} "
@@ -4066,12 +4119,29 @@ def main() -> int:
     return 0
 
 
-def anchor_report(rres, pres, max_err, card):
+def anchor_report(rres, pres, max_err, card, anchor_regs):
     """Phase 14's anchor-scan rows: on phases 8's and 9's kept inputs, the
     kernel held to the plain core, its time (both launches) and the plain
     core's by CUDA events, its bound from anchor_work, launches and deep
-    branches over the phase's streams. Returns the `kernels` JSON rows."""
+    branches over the phase's streams; the words each row needs
+    (anchor_need), the blocks a launch against the slots the card holds at
+    once (anchor_regs: the build's ptxas lines), and the near-empty
+    call's time (S = 37, the deep branch not taken: the wrapper, its
+    memset and two launches). Returns the `kernels` JSON rows."""
+    import torch
     from hisat2_tpu_torch.ops import anchor_cuda, splice
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = {v: resident_blocks(r, anchor_cuda.THREADS) * sms
+             for v, r in anchor_regs}
+    cases = anchor_cases()
+    tiny = cases.anchor_core_inputs(
+        cases.make_anchor_case(63, 37, 8, resolve0=True), torch.device("cuda"))
+    kw8 = dict(W=ANCHOR_W, A=8, NC=ANCHOR_NC, tiles=8)
+    floor = time_cuda(lambda: anchor_cuda.anchor_scan_core(*tiny, **kw8),
+                      iters=200, warmup=10)
+    print(f"[report] anchor_scan's floor: {floor:.4f} ms a call at S=37, 8 "
+          f"tiles, deep branch not taken (the wrapper, its memset and two "
+          f"launches) [{card}]", flush=True)
     rows = []
     pl = pres["launches"]
     for cap, cnt, deep_cnt, deep_n, path in (
@@ -4090,6 +4160,14 @@ def anchor_report(rres, pres, max_err, card):
         tests, words, _ = anchor_work(ins, kv, kw["W"], kw["NC"],
                                       kw["tiles"])
         S = ins[1].shape[0]
+        D, _ = anchor_need(ins, kv, kw["W"], kw["NC"], kw["tiles"])
+        blocks = -(-S // anchor_cuda.ROWS_PER_BLOCK)
+        print(f"[report] anchor_scan ({path}) at S={S}: "
+              f"{need_summary(D, kw['W'], kw['tiles'])}; {blocks} blocks a "
+              f"launch ({anchor_cuda.ROWS_PER_BLOCK} rows a block of "
+              f"{anchor_cuda.THREADS} threads) against "
+              + ", ".join(f"{v} {n}" for v, n in sorted(slots.items()))
+              + f" resident slots on {sms} SMs", flush=True)
         # the rows that decide the branch: live, no N anchor, no tile-0 hit
         cand = ~ins[5] if ins[6] is None else ins[6] & ~ins[5]
         miss0 = cand & (kv[:, 0] <= -(kw["W"] // 16))

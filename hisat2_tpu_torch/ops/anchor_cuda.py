@@ -30,7 +30,12 @@ import torch
 from . import nvcc
 
 SOURCE = os.path.join(nvcc.CSRC, "anchor_scan.cu")
-MAX_NC = 32            # entries a row the kernel serves (one a lane)
+MAX_NC = 32            # entries a row the kernel serves (its lists)
+# csrc/anchor_scan.cu's geometry
+ROWS_PER_BLOCK = 1     # scan rows a block
+THREADS = 256          # threads a block
+SEG_WORDS = 2048       # words a staged segment: the unit a row stops at
+STRIP_WORDS = 256      # words of a segment one warp scans
 
 launches = {"anchor_scan": 0, "anchor_scan_deep": 0}
 _state: dict = {}

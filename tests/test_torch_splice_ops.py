@@ -562,13 +562,18 @@ def core_inputs(rows, rd, rdl, pos, down, live, mi):
 def model_core(rows, pos, down, rdl, acode, has_n, live, mi, *, W, A, NC,
                tiles):
     """The CUDA kernel's rule (csrc/anchor_scan.cu) in numpy, row by row:
-    a row's entries are its hits over the tiles, nearest first, up to NC
-    (a hit word's position at its first matching shift for a down row,
-    its last for an up row); the rest are tile 0's lowest-index words
-    without a hit, ascending, at shift 0 (down) or 15 (up), not valid.
-    Tiles past the first are walked, by every row short of NC, only when
-    one flag for the whole call is set: some live row whose anchor has
-    no N found nothing in tile 0. Returns (kvalid, mpos, flag)."""
+    a row walks its tiles nearest first in segments of
+    anchor_cuda.SEG_WORDS words; each segment's strips of
+    anchor_cuda.STRIP_WORDS words (in distance order)
+    keep their first NC hits (a hit word's position at its first matching
+    shift for a down row, its last for an up row), the strips' hits join
+    the row's list in strip order up to NC, and the row stops after the
+    segment that brings it to NC. The rest are tile 0's lowest-index
+    words without a hit, ascending, at shift 0 (down) or 15 (up), not
+    valid. Tiles past the first are walked, by every row short of NC,
+    only when one flag for the whole call is set: some live row whose
+    anchor has no N found nothing in tile 0. Returns (kvalid, mpos,
+    flag)."""
     rows = rows.numpy()
     pos, rdl, acode = (x.numpy().astype(np.int64) for x in (pos, rdl, acode))
     down, has_n = down.numpy(), has_n.numpy()
@@ -580,6 +585,8 @@ def model_core(rows, pos, down, rdl, acode, has_n, live, mi, *, W, A, NC,
         return (x + (1 << 31)) % (1 << 32) - (1 << 31)
 
     def tile(i, t):
+        """Tile t's hits of row i as (distance, mpos), nearest first; its
+        first word; its match rows."""
         ws = wrap(pos[i] + mi + rdl[i] - A + t * W if down[i]
                   else pos[i] - mi - (t + 1) * W)
         base = max(ws, 0) >> 4
@@ -589,25 +596,38 @@ def model_core(rows, pos, down, rdl, acode, has_n, live, mi, *, W, A, NC,
         pair = w[:NW] | ((w[1:] & 0xFFFF) << 32)
         m = ((pair[:, None] >> (2 * np.arange(16))) & 0xFFFF) == acode[i]
         hit = np.flatnonzero(m.any(axis=1))
-        if not down[i]:
-            hit = hit[::-1]
-        return [16 * base + 16 * int(w_) + int(np.flatnonzero(m[w_])[
-            0 if down[i] else -1]) for w_ in hit], base, m
+        d = hit if down[i] else NW - 1 - hit
+        o = np.argsort(d)
+        return [(int(d[k]), 16 * base + 16 * int(hit[k]) + int(
+            np.flatnonzero(m[hit[k]])[0 if down[i] else -1])) for k in o], \
+            base, m
+
+    def walk(i, t, hits):
+        """Row i's list after tile t, segment by segment, strip by strip."""
+        h = tile(i, t)[0]
+        seg, sw = anchor_cuda.SEG_WORDS, anchor_cuda.STRIP_WORDS
+        for s0 in range(0, NW, seg):
+            for k0 in range(s0, min(s0 + seg, NW), sw):
+                strip = [p for d, p in h if k0 <= d < k0 + sw]
+                hits = hits + strip[:NC - len(hits)]
+            if len(hits) >= NC:
+                break
+        return hits
 
     hits, pads = [], []
     for i in range(S):
-        h, base, m = tile(i, 0)
+        _, base, m = tile(i, 0)
         miss = np.flatnonzero(~m.any(axis=1))[:NC]
         pads.append([16 * base + 16 * int(w_) + (0 if down[i] else 15)
                      for w_ in miss])
-        hits.append(h[:NC])
+        hits.append(walk(i, 0, []))
     flag = any(not hits[i] and not has_n[i] and live[i] for i in range(S))
     if tiles > 1 and flag:
         for i in range(S):
             for t in range(1, tiles):
                 if len(hits[i]) >= NC:
                     break
-                hits[i] = (hits[i] + tile(i, t)[0])[:NC]
+                hits[i] = walk(i, t, hits[i])
     kvalid = np.zeros((S, NC), bool)
     mpos = np.zeros((S, NC), np.int64)
     for i in range(S):
@@ -618,7 +638,7 @@ def model_core(rows, pos, down, rdl, acode, has_n, live, mi, *, W, A, NC,
 
 
 def test_anchor_word_hit_test():
-    """csrc/anchor_scan.cu's hit_mask word test, in numpy: for the eight
+    """csrc/anchor_scan.cu's zero_flags word test, in numpy: for the eight
     funnel shifts of a 64-bit word pair, d = the shift's 32 bits XOR the
     code in both halves, OR-ing (d - 0x00010001) & ~d; bit 15 or 31 set
     exactly when one of the word's 16 8-mers equals the code. On every
@@ -654,9 +674,10 @@ def test_anchor_word_hit_test():
     np.testing.assert_array_equal((acc & u64(0x80008000)) != 0, want)
 
 
-SYNTH_CASES = [(1, 37, 1, False, True), (2, 37, 8, False, True),
-               (3, 37, 8, True, True), (4, 37, 8, False, False),
-               (5, 37, 8, True, False), (6, 0, 8, False, True)]
+SYNTH_CASES = [(1, 37, 1, False, True, False), (2, 37, 8, False, True, False),
+               (3, 37, 8, True, True, False), (4, 37, 8, False, False, False),
+               (5, 37, 8, True, False, False), (6, 0, 8, False, True, False),
+               (7, 37, 8, False, True, True), (9, 1, 8, False, True, False)]
 
 
 @pytest.mark.parametrize("tiles,resolved", SCAN_CASES)
@@ -665,14 +686,16 @@ def test_anchor_scan_contract(world, tiles, resolved):
     rows and on torch_anchor_cases.make_anchor_case's synthetic rows of
     every kind (hits in tile 0 only, only past it, none; N anchors, short
     reads, up scans off the text's start, windows past its end; live
-    None and a mask; S = 0 and 37), the flag (some live row without an N
-    anchor missed tile 0) as each case expects."""
+    None and a mask; S = 0, 1 and 37; hits on both sides of a strip
+    boundary, more than NC past it, down and up rows), the flag (some live
+    row without an N anchor missed tile 0) as each case expects."""
     rd, rdl, pos, down, live = scan_case(world, tiles, resolved)
     cases = [(core_inputs(world["ta"].idx["text_rows"], rd, rdl, pos, down,
                           live, 20), tiles, not resolved)]
-    for seed, S, st, r0, mask in SYNTH_CASES:
+    for seed, S, st, r0, mask, edge in SYNTH_CASES:
         if st == tiles and r0 == resolved:
-            c = tac.make_anchor_case(seed, S, st, resolve0=r0, mask=mask)
+            c = tac.make_anchor_case(seed, S, st, resolve0=r0, mask=mask,
+                                     strip_edge=edge)
             cases.append((tac.anchor_core_inputs(c, "cpu"), st,
                           not r0 and S > 0))
     for ins, nt, missed in cases:
@@ -704,16 +727,22 @@ def test_anchor_scan_cpu_never_loads_cuda(world, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,tiles,resolved", [
-    (37, 1, False), (37, 8, False), (37, 8, True), (5120, 1, False),
-    (5120, 8, False), (5120, 8, True)])
-def test_anchor_scan_kernel_matches_plain(S, tiles, resolved):
+@pytest.mark.parametrize("seed,S,tiles,resolved,edge", [
+    (38, 37, 1, False, False), (45, 37, 8, False, False),
+    (45, 37, 8, True, False), (5121, 5120, 1, False, False),
+    (5128, 5120, 8, False, False), (5128, 5120, 8, True, False),
+    (6, 1, 8, False, False), (9, 1, 8, False, False),
+    (7, 37, 8, False, True), (73, 5120, 8, False, True)])
+def test_anchor_scan_kernel_matches_plain(seed, S, tiles, resolved, edge):
     """The CUDA kernel == the plain core on the card, exactly, on
     torch_anchor_cases.make_anchor_case's rows: the deep branch taken and
-    not, the device-side counter counting the calls that took it."""
+    not, the device-side counter counting the calls that took it; one row
+    alone (a down row and an up row, each walking past tile 0), and rows
+    with hits on both sides of a strip boundary, more than NC past it."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    case = tac.make_anchor_case(S + tiles, S, tiles, resolve0=resolved)
+    case = tac.make_anchor_case(seed, S, tiles, resolve0=resolved,
+                                strip_edge=edge)
     ins = tac.anchor_core_inputs(case, torch.device("cuda"))
     kw = dict(W=65536, A=8, NC=4, tiles=tiles)
     before = dict(anchor_cuda.launches)

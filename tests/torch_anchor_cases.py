@@ -40,7 +40,7 @@ def anchor_window(pos, down, rdl, t, mi, W=ANCHOR_W, A=8):
 
 
 def make_anchor_case(seed, S, tiles, resolve0=False, mask=True,
-                     text_len=ANCHOR_TEXT):
+                     text_len=ANCHOR_TEXT, strip_edge=False):
     """Anchor-scan rows of every kind over a random text of text_len
     bases, 100 bp reads, min_intron 20. Each row is one of: an anchor cut
     from its tile-0 window (three kinds in eight); one cut from a deeper
@@ -55,7 +55,11 @@ def make_anchor_case(seed, S, tiles, resolve0=False, mask=True,
     mask (about 15% of the rows dead), else live is None. With resolve0,
     half the dead rows and half the rows with an N anchor or a short read
     carry a code absent from tile 0: rows that must not set the branch.
+    With strip_edge, each row of the three kinds with a tile-0 anchor
+    takes a fresh code planted in tile 0 on both sides of a boundary
+    between two strips (plant_strip_edge), after the other rows are made.
     Returns dict(rows, rd, rdl, pos, down, live, mi)."""
+    from hisat2_tpu_torch.ops import anchor_cuda
     from hisat2_tpu_torch.ops.splice import MIN_ANCHOR_CANON
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, text_len).astype(np.uint8)
@@ -129,6 +133,27 @@ def make_anchor_case(seed, S, tiles, resolve0=False, mask=True,
             plant(i, 0)
         if k == 5:
             rd[i, (rdl[i] - A if down[i] else 0) + int(rng.integers(0, A))] = 4
+
+    def plant_strip_edge(i):
+        """A fresh code for row i, planted in its tile 0 at a random
+        boundary b between two strips (in words, nearest first): one or two
+        hits just nearer (distances b - 1, b - 3), two more than NC = 4 just
+        past it (b .. b + 5), each at a shift of 0..7 so the planted 8-mers
+        stay inside their words."""
+        NW, sw = W // 16, anchor_cuda.STRIP_WORDS
+        bases = rng.integers(0, 4, A).astype(np.uint8)
+        put(i, bases)
+        b = sw * int(rng.integers(1, NW // sw))
+        lo = int(anchor_window(pos[i], down[i], rdl[i], 0, mi))
+        for d in [b - 1, b - 3][:int(rng.integers(1, 3))] + list(
+                range(b, b + 6)):
+            p = lo + 16 * (d if down[i] else NW - 1 - d) + int(
+                rng.integers(0, 8))
+            codes[p:p + A] = bases
+
+    if strip_edge:
+        for i in np.flatnonzero(kind < 3):
+            plant_strip_edge(i)
     return dict(rows=text_rows_of(codes), rd=rd, rdl=rdl, pos=pos,
                 down=down, live=live, mi=mi)
 
