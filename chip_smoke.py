@@ -12,12 +12,12 @@ Phases; any failure exits non-zero:
   2. build     - compiles both CUDA sources with nvcc for sm_90a, one
                  nvcc each, started together (ops/nvcc.build):
                  csrc/dp_score.cu, the DP kernels (the one-warp
-                 kernel of the SE windows, the one-block kernel of the PE
-                 rescue's wide windows and its column-tiled form past 2,048
-                 columns, each with its SNV-overlay instantiations), and
-                 csrc/anchor_scan.cu, the RNA anchor scan (its tile-0 and
-                 deep kernels). Prints, for each DP variant
-                 (<CPL=k[,OV][,TILED]>) and each anchor-scan kernel, the
+                 kernel of windows up to 384 columns, the lockstep
+                 one-block kernel of the PE rescue's wide windows up to
+                 2,048 and the ring kernel past them, each with its
+                 SNV-overlay instantiations), and csrc/anchor_scan.cu, the
+                 RNA anchor scan (its tile-0 and deep kernels). Prints, for
+                 each DP variant (<CPL=k[,OV]>) and anchor-scan kernel, the
                  compiler's register/spill report (any spill fails) and,
                  read from the SASS, for the DP variants how many fused
                  add-max and three-way-max instructions it holds and how
@@ -29,13 +29,16 @@ Phases; any failure exits non-zero:
                  mode's match bonus of 2): random cases with Ns, gaps,
                  short reads and the stress rows of make_dp_case, at the SE
                  main path's shape, at the rescue's (W + 1 = 1105), the
-                 tiled form's W + 1 = 2049, 2605 and 8192 (one to four
-                 tiles), at every window where a variant's capacity or a tile count
-                 ends: one column short of it, exactly at it, and one past
-                 it (edge_windows). Every case runs a second time with an
-                 SNV overlay holding every kind of nibble (make_dp_ov),
-                 through the overlay instantiations of every kernel (W =
-                 288 and 1104 among them). Then the anchor-scan kernel
+                 ring kernel's W + 1 = 2049, 2137 (reads of 2,104 bases),
+                 2605 and 8192 (one pass; two tiles; four tiles forced),
+                 the tilings forced onto one-pass windows (FORCED_TILES,
+                 up to 12 tiles), at every window where the columns a
+                 planned variant computes or a tile count ends: one column
+                 short of it, exactly at it, and one past it
+                 (edge_windows). Every case runs a second time with an SNV
+                 overlay holding every kind of nibble (make_dp_ov), through
+                 the overlay instantiations of every kernel (W = 288 and
+                 1104 among them). Then the anchor-scan kernel
                  (ops/anchor_cuda.anchor_scan_core) against the plain core
                  (ops/splice.anchor_scan_plain_core), exact, on
                  tests/torch_anchor_cases.make_anchor_case's rows over a
@@ -71,7 +74,7 @@ Phases; any failure exits non-zero:
                  and the card: the SAM bytes must be equal; so do 512
                  pairs at -X 2500 (the rescue window stays min(-X, 1000) +
                  L) and 256 SE reads of 2,100 bp, whose DP window (W =
-                 2136) takes the column-tiled kernel.
+                 2136) takes the ring kernel in one pass.
   6. FM path   - the same genome without its k-mer table, so that seeding
                  is FM backward search: index A (full suffix array: ftab
                  jump + 12 LF rounds of 22 bp seeds, maximal segments for
@@ -268,9 +271,10 @@ Phases; any failure exits non-zero:
                  each DP kernel's time on its main path's own inputs (the
                  narrow one also on the per-read path's, C = 16,384, on the
                  RNA path's, and with the overlay on the graph path's; the
-                 tiled one on the 2,100 bp reads', the one-block overlay
-                 one on the 250 bp graph reads'; both on the RNA PE path's
-                 own inputs; the narrow one on the per-shard SE step's of
+                 ring kernel on the 2,100 bp reads', the one-warp overlay
+                 one at 10 columns a lane on the 250 bp graph reads'; both
+                 on the RNA PE path's own inputs; the narrow one on the
+                 per-shard SE step's of
                  the 3.2 Gbp genome (C = 4096 at batch 8192) and
                  RepeatAligner.align_batch's, the wide one on the sharded
                  PE ladder's host-mode rescue; the narrow one on cli.align's
@@ -474,19 +478,30 @@ def make_dp_ov(seed, rd, ref, density=0.25, stress=True):
 
 def edge_windows(kernel: str):
     """Windows W at which a variant of `kernel` ("dp_score",
-    "dp_score_wide" or "dp_score_tiled", with or without the overlay)
-    ends: W + 1 one short of, at and one past each
-    variant's capacity and each count of tiles (1 to 4) of every tiled
-    width, up to W + 1 = 8,193; and the rescue's window W + 1 = 1105, the
-    tiled form's W + 1 = 2605 (two tiles of 12 columns a lane) and the
-    graph SE window of 250 bp reads, 289."""
+    "dp_score_wide" or "dp_score_ring", with or without the overlay)
+    ends: W + 1 one short of, at and one past the columns that each plan
+    dp_cuda.dispatch_plan picks computes (its capacity times its tiles),
+    up to three tiles of the ring kernel; and the rescue's window W + 1 =
+    1105, the long reads' 2137 and the graph SE window of 250 bp reads,
+    289."""
     from hisat2_tpu_torch.ops import dp_cuda
-    caps = {32 * k for k in range(1, dp_cuda.NARROW_MAX_COLS // 32 + 1)}
-    caps |= {32 * w * k for w, k in dp_cuda.WIDE_VARIANTS}
-    caps |= {n * 128 * k for k in dp_cuda.TILE_CPLS for n in range(1, 5)}
-    cols = {c + d for c in caps for d in (-1, 0, 1)} | {289, 1105, 2605}
-    return [c - 1 for c in sorted(cols) if c <= 8193
+    top = 3 * dp_cuda.dispatch_plan(dp_cuda.ONE_PASS_COLS).capacity + 1
+    caps = set()
+    for c in range(1, top + 1):
+        p = dp_cuda.dispatch_plan(c - 1)
+        caps.add(p.capacity * p.tiles(c - 1))
+    cols = {c + d for c in caps for d in (-1, 0, 1)} | {289, 1105, 2137}
+    return [c - 1 for c in sorted(cols) if 1 <= c <= top
             and dp_cuda.dispatch_plan(c - 1).kernel == kernel]
+
+
+# (warps, columns a lane, W): ring plans of few warps forced onto windows
+# that the planned one covers in one pass, so that the carry from one tile
+# to the next is checked at many tiles (12 at 2 x 3 on W = 2136) and at
+# both lane widths of the overlay masks; 28 x 5 on W = 2136 is one pass of
+# the most warps
+FORCED_TILES = ((2, 3, 2136), (3, 4, 1104), (5, 7, 2604), (4, 12, 8191),
+                (2, 9, 1104), (28, 5, 2136))
 
 
 def edge_case_shape(W: int):
@@ -684,14 +699,15 @@ def variant_key(W: int, ov: bool) -> str:
 
 
 def variant_of(mangled: str):
-    """'dp_score_kernel<CPL=5>' or 'dp_score_wide_kernel<CPL=9>' from a
-    mangled kernel name ('...<CPL=5,OV>' for an overlay instantiation,
-    '...<CPL=8,TILED>' for the column-tiled form), 'anchor_scan_tile0' or
+    """'dp_score_kernel<CPL=5>', 'dp_score_wide_kernel<CPL=9>' or
+    'dp_score_ring_kernel<CPL=12>' from a mangled kernel name
+    ('...<CPL=5,OV>' for an overlay instantiation, '...<CPL=8,TILED>' for
+    the column-tiled form older builds had), 'anchor_scan_tile0' or
     'anchor_scan_deep', or None."""
     a = re.search(r"(anchor_scan_(?:tile0|deep))", mangled)
     if a:
         return a.group(1)
-    m = re.search(r"(dp_score_(?:wide_)?kernel)ILi(\d+)E(?:Lb([01])E)?"
+    m = re.search(r"(dp_score_(?:wide_|ring_)?kernel)ILi(\d+)E(?:Lb([01])E)?"
                   r"(?:Lb([01])E)?", mangled)
     if not m:
         return None
@@ -1794,8 +1810,8 @@ def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
           flush=True)
     del al
 
-    # -- 250 bp reads: the DP window W = 256 + 2 * 16 = 288 takes the
-    # one-block kernel's overlay instantiation
+    # -- 250 bp reads: the DP window W = 256 + 2 * 16 = 288 (289 columns)
+    # takes the one-warp kernel's overlay instantiation at 10 columns a lane
     s250, _, _ = simulate_reads(hap[0], 2048, seed=36, rdlen=250)
     captured_w = []
 
@@ -1808,14 +1824,14 @@ def graph_phase(fm, al_linear, seqs_linear_rps, card, profile):
         sam_card_equals_cpu(run_stream, gfm, make_batches(s250, 0, 2048, 256),
                             ref, "the graph index, 2048 reads of 250 bp "
                             "(DP window W = 288)", "graph",
-                            ("dp_score_wide", "dp_score_ov"))
+                            (kernel_of(288), "dp_score_ov"))
         from hisat2_tpu_torch.ops import dp_cuda
-        out["wide_ov_launches"] = dp_cuda.launches["dp_score_wide"]
+        out["w288_launches"] = dp_cuda.launches["dp_score_ov"]
     finally:
         tpipe.dp_score = real_dp
     check(bool(captured_w) and captured_w[0][3].shape[1] == 288,
           "the 250 bp graph reads passed no W = 288 overlay window")
-    out["captured_wide_ov"] = captured_w[0]
+    out["captured_w288"] = captured_w[0]
 
     # -- the FM-seeded graph index ------------------------------------------
     alf, _ = card_equals_cpu(run_stream, gfm_fm, small,
@@ -3614,10 +3630,12 @@ def main() -> int:
     max_err: dict[str, int] = {}
 
     def check_dp(rd, pen, lens, ref, scp_cum, what, ov=None, quiet=False,
-                 kc=None):
-        name = variant_key(ref.shape[1], ov is not None)
+                 kc=None, plan=None):
+        name = (variant_key(ref.shape[1], ov is not None) if plan is None
+                else plan.kernel + ("_ov" if ov is not None else ""))
         kc = kc or consts
-        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **kc)
+        got = dp_cuda.dp_score(rd, pen, lens, ref, scp_cum, ov=ov, **kc,
+                               plan=plan)
         want = dp_fill_plain(rd, pen, lens, ref, scp_cum, ov=ov, **kc)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
@@ -3629,40 +3647,50 @@ def main() -> int:
                   f"L={rd.shape[1]} W={ref.shape[1]}", flush=True)
 
     # every kernel, without and with an SNV overlay of every kind of
-    # nibble: the test shapes, the SE and rescue shapes, the tiled form at
-    # W + 1 = 2049, 2605 and 8192 (one to four tiles), and every edge window
-    edges = [(100 + W, *edge_case_shape(W), W)
+    # nibble: the test shapes, the SE and rescue shapes, the ring kernel
+    # in one pass at W + 1 = 2049, 2137, 2605 and 8192 and in four tiles
+    # at 8192, every edge window under the plan of a full card (at C = 16
+    # the ring kernel's plan takes more warps: the random cases at small C
+    # check those), and the tilings forced onto one-pass windows
+    # (FORCED_TILES: up to 12 tiles)
+    edges = [(100 + W, *edge_case_shape(W), W, dp_cuda.dispatch_plan(W))
              for W in edge_windows("dp_score") + edge_windows("dp_score_wide")
-             + edge_windows("dp_score_tiled")]
-    n_edges = 0
-    for seed, C, L, W in [(0, 24, 60, 92), (1, 24, 60, 92),
-                          (2, 8192, 104, 136), (3, 37, 104, 256),
-                          (4, 512, 104, 1104), (5, 19, 104, 2047),
-                          (6, 64, 104, 2048), (7, 64, 104, 2604),
-                          (8, 64, 104, 8191), (9, 64, 256, 288),
-                          (10, 64, 104, 1104)] + edges:
+             + edge_windows("dp_score_ring")]
+    forced = [(200 + W, *edge_case_shape(W), W,
+               dp_cuda.Plan("dp_score_ring", nw, k))
+              for nw, k, W in FORCED_TILES]
+    for seed, C, L, W, *plan in [
+            (0, 24, 60, 92), (1, 24, 60, 92), (2, 8192, 104, 136),
+            (3, 37, 104, 256), (4, 512, 104, 1104), (5, 19, 104, 2047),
+            (6, 64, 104, 2048), (7, 64, 104, 2604), (8, 64, 104, 8191),
+            (9, 64, 256, 288), (10, 64, 104, 1104), (11, 64, 2104, 2136),
+            (12, 64, 104, 8191, dp_cuda.Plan("dp_score_ring", 14, 5))] \
+            + edges + forced:
+        plan = plan[0] if plan else None
         rd, quals, lens, ref = make_dp_case(seed, C, L, W)
         t = [torch.from_numpy(a).to(dev) for a in (rd, quals, lens, ref)]
         pen, scp_cum = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
         ov = torch.from_numpy(make_dp_ov(seed, rd, ref)).to(dev)
         quiet = seed >= 100
-        check_dp(t[0], pen, t[2], t[3], scp_cum, f"random case {seed}",
-                 quiet=quiet)
-        check_dp(t[0], pen, t[2], t[3], scp_cum, f"random case {seed} with "
-                 f"an overlay of every kind of nibble", ov, quiet=quiet)
+        what = f"random case {seed}" + (f", {plan} in {plan.tiles(W)} "
+                                        f"tiles" if plan else "")
+        check_dp(t[0], pen, t[2], t[3], scp_cum, what, quiet=quiet,
+                 plan=plan)
+        check_dp(t[0], pen, t[2], t[3], scp_cum, f"{what} with an overlay "
+                 f"of every kind of nibble", ov, quiet=quiet, plan=plan)
         # local mode's match bonus of 2, without and with the overlay
         lpen, lscp = (x.contiguous() for x in dp_inputs(local_tab, t[1],
                                                          t[2]))
-        check_dp(t[0], lpen, t[2], t[3], lscp, f"random case {seed} at "
-                 f"match bonus 2", quiet=True, kc=local_consts)
-        check_dp(t[0], lpen, t[2], t[3], lscp, f"random case {seed} at "
-                 f"match bonus 2 with an overlay", ov, quiet=True,
-                 kc=local_consts)
-        n_edges += quiet
-    print(f"[kernels] and at {n_edges} edge windows (W + 1 one short of, at "
-          f"and one past each variant's capacity and each tile count up to "
-          f"four): every kernel == plain, without and with an overlay; every "
-          f"case again at local mode's match bonus of 2 "
+        check_dp(t[0], lpen, t[2], t[3], lscp, f"{what} at match bonus 2",
+                 quiet=True, kc=local_consts, plan=plan)
+        check_dp(t[0], lpen, t[2], t[3], lscp, f"{what} at match bonus 2 "
+                 f"with an overlay", ov, quiet=True, kc=local_consts,
+                 plan=plan)
+    print(f"[kernels] and at {len(edges)} edge windows (W + 1 one short of, "
+          f"at and one past the columns each planned variant computes, up "
+          f"to three tiles past one pass) and {len(forced)} forced tilings "
+          f"{FORCED_TILES}: every kernel == plain, without and with an "
+          f"overlay; every case again at local mode's match bonus of 2 "
           f"({local_consts['match_bonus']}); max abs err {max_err}",
           flush=True)
     anchor_phase(dev, max_err)
@@ -3832,31 +3860,33 @@ def main() -> int:
                         opts=dict(maxins=2500))
 
     # -- long reads: reads of 2,100 bp give _stage_dp a window of W =
-    # 2104 + 2 * 16 = 2136 (W + 1 > 2048): the column-tiled kernel
-    captured_tiled = []
+    # 2104 + 2 * 16 = 2136 (W + 1 > 2048): the one-block kernel in one
+    # pass of 14 warps
+    captured_long = []
+    long_w = LONG_PAD + 32
 
-    def recording_tiled(*a, **kw):
-        if (not captured_tiled and a[0].is_cuda
-                and kernel_of(a[3].shape[1]) == "dp_score_tiled"):
-            captured_tiled.append([x.clone() for x in a])
+    def recording_long(*a, **kw):
+        if not captured_long and a[0].is_cuda and a[3].shape[1] == long_w:
+            captured_long.append([x.clone() for x in a])
         return real_dp(*a, **kw)
     long_seqs, long_starts, long_indel = simulate_reads(
         fm.ref.joined, LONG_N, seed=13, rdlen=LONG_RDLEN)
-    tpipe.dp_score = recording_tiled
+    tpipe.dp_score = recording_long
     try:
         _, long_text = sam_card_equals_cpu(
             run_stream, fm, make_batches(long_seqs, 0, LONG_N, LONG_PAD),
             fm.ref, f"{LONG_N} reads of {LONG_RDLEN} bp (DP window W = "
-            f"{LONG_PAD + 32})", "long", need=("dp_score_tiled",))
-        tiled_launches = dict(dp_cuda.launches)
+            f"{long_w})", "long", need=(kernel_of(long_w),))
+        long_launches = dict(dp_cuda.launches)
     finally:
         tpipe.dp_score = real_dp
-    check(bool(captured_tiled), "the long reads launched no tiled DP")
+    check(bool(captured_long), f"the long reads passed no W = {long_w} DP "
+                               f"window")
     lrate = sum(not int(ln.split("\t")[1]) & 4
                 for ln in long_text.splitlines()) / LONG_N
     check(lrate >= 0.9, f"only {lrate:.4f} of the long reads aligned")
     print(f"[long] {lrate:.4f} of {LONG_N} reads of {LONG_RDLEN} bp aligned; "
-          f"launches {tiled_launches}", flush=True)
+          f"launches {long_launches}", flush=True)
 
     phase_done("PE path and long reads")
 
@@ -3951,10 +3981,10 @@ def main() -> int:
              "per-read path (Aligner._device_align, index A)"),
             ("dp_score_ov", gres["captured"], gres["launches"],
              "graph path (SE, PE and FM-seeded graph streams)"),
-            ("dp_score_tiled", captured_tiled[0],
-             tiled_launches["dp_score_tiled"], "SE path, 2,100 bp reads"),
-            ("dp_score_wide_ov", gres["captured_wide_ov"],
-             gres["wide_ov_launches"], "graph SE path, 250 bp reads"),
+            (kernel_of(long_w), captured_long[0],
+             long_launches[kernel_of(long_w)], "SE path, 2,100 bp reads"),
+            (variant_key(288, True), gres["captured_w288"],
+             gres["w288_launches"], "graph SE path, 250 bp reads"),
             ("dp_score", rres["captured"], rres["launches"],
              "RNA SE path (streams with and without known sites)"),
             ("dp_score", pres["captured"], pres["launches"]["dp_score"],

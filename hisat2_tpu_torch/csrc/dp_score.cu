@@ -43,47 +43,65 @@
 // base of N by a per-thread bit mask whose fix-up runs only in warps
 // that hold one; a read base of N by the row's constants.
 //
-// Windows of up to 256 columns (the SE path): one warp per candidate,
-// CPL = ceil((W+1)/32) columns per lane in registers. The diagonal
-// neighbour crosses lanes by __shfl_up_sync, the running max is a per-lane
-// scan plus a warp-shuffle scan. No barrier; shared memory holds only the
-// staged row constants; each thread keeps its own 3'-clip maximum and the
-// warp reduces once at the end.
+// Windows of up to 384 columns (the SE path; graph reads of 250 bp, W + 1
+// = 289): one warp per candidate, CPL = ceil((W+1)/32) columns per lane
+// in registers, 1..12. The diagonal neighbour crosses lanes by
+// __shfl_up_sync, the running max is a per-lane scan plus a warp-shuffle
+// scan. No barrier; shared memory holds only the staged row constants;
+// each thread keeps its own 3'-clip maximum and the warp reduces once at
+// the end. Above 8 columns a lane the row's scan is paid once for 9..12
+// cells, and 1,024 candidates are 1,024 warps, resident at once.
 //
-// Wider windows, up to 2048 columns in one pass (the mate rescue, W =
-// min(maxins, 1000) + L; graph reads of 224 bp and more with the overlay):
-// one block of 4 warps per candidate, 128 * CPL columns, CPL = 3..16 (more
-// warps with fewer columns each were slower at every window measured:
-// the per-row scan and hand-off are paid per warp). The warps are
-// skewed: at step t warp w fills row t - w. What a warp needs from its
-// left neighbour was then produced a step earlier: the neighbour's last
-// column's H of the row above (ring of 4 in shared memory) and the
+// Wider windows, up to 2048 columns (the mate rescue, W = min(maxins,
+// 1000) + L): one block of 4 warps per candidate, 128 * CPL columns, CPL
+// = 4..16 (more warps with fewer columns each were slower at every window
+// measured: the per-row scan and hand-off are paid per warp). The warps
+// are skewed: at step t warp w fills row t - w. What a warp needs from
+// its left neighbour was then produced a step earlier: the neighbour's
+// last column's H of the row above (ring of 4 in shared memory) and the
 // running-max prefix of this row through the neighbour (ring of 2), which
-// each warp publishes with its own total folded in, so the reader takes one
-// value. One block barrier a step, len + 3 steps. As in the one-warp
+// each warp publishes with its own total folded in, so the reader takes
+// one value. One block barrier a step, len + 3 steps. As in the one-warp
 // kernel, the row's constants (read base, mismatch score, clip floor) are
 // staged in shared memory once, so no global load sits in the row loop.
-// The wrapper picks CPL by the window (ops/dp_cuda.dispatch_plan) and
-// this file refuses a plan that does not cover it. The widest variant uses 128
-// registers a thread, so four blocks fit an SM and the rescue's 512
-// candidates are resident in one wave on 132 SMs.
+// The widest variant uses 128 registers a thread, so four blocks fit an SM
+// and the rescue's 512 candidates are resident in one wave on 132 SMs.
+// At 3 and 4 warps this lockstep hand-off costs fewer instructions a row
+// than the ring below (PERF.md, section 6), so the rescue keeps it.
 //
 // Any wider window (reads of about 2 kb and more: W = L + 32 in
-// _stage_dp) takes the same block walking the window in column tiles of
-// 128 * CPL columns (template flag TILED, CPL = 4, 8, 12 or 16; one launch,
-// any number of tiles). A tile's first column needs, for every read row,
-// the H of the row above in the previous tile's last column and the
-// running-max prefix of the row through all tiles before: the thread that
-// holds a tile's last column (warp 3, lane 31) writes both to shared
-// memory (2 * L + 1 int32 behind the staged rows) at the step of that
-// row, and the thread that holds the next tile's first column (warp 0,
-// lane 0) reads them at its step of the row. Warp 0 runs row i at step i
-// and warp 3 at step i + 3, so in a tile the reader takes row i's value
-// before the writer overwrites it: one slot per row. The 3'-clip best and
-// the row maxima are maxima over columns and carry across tiles in
-// registers; the window-N and overlay fix-ups are per column and need
-// nothing at a tile edge. The untiled instantiations compile to what they
-// were before the flag (same registers, same row loop).
+// _stage_dp): the ring kernel, one block of NW warps per candidate (2 to
+// kRingMaxWarps(CPL), up to 32), CPL = 3..12 columns a lane, the window in
+// one pass of NW * 32 * CPL columns where it fits (ops/dp_cuda.
+// dispatch_plan picks NW and CPL from the window and the candidates). No
+// block-wide barrier in the row loop: each warp hands its neighbour to the
+// right what it needs through a ring of kRing slots in shared memory, the
+// running-max prefix of the row through its last column and that
+// column's H, and publishes the rows it has finished as a count
+// (st.release after the slot; the reader's ld.acquire before it). A warp
+// waits only for its left neighbour's row and may run up to kRing rows
+// ahead of its right neighbour, so the warps of a block pipeline over the
+// rows: len + NW - 1 steps for the window, where 4 warps in lockstep took
+// len + 3 for each tile of 128 * CPL columns. The left neighbour's prefix
+// enters a row only after the warp has filled and scanned its own columns
+// (max(prefix, own scan) in every lane), so the wait sits behind the
+// row's first half; its H of the row is kept in lane 0 for the next row's
+// diagonal. A warp re-reads a count only when the one it read last is not
+// enough, and sleeps between reads.
+//
+// Past one pass (W + 1 > NW * 32 * CPL at the most warps a CPL allows)
+// the ring kernel walks the window in column tiles of NW * 32 * CPL
+// columns. A tile's first column needs, for every read row, the last
+// column's H of the row in the tile before and the running-max prefix of
+// the row through all tiles before: the last warp writes both to a carry
+// slot of the row (2 int32 a row behind the rings), and warp 0, which
+// begins the next tile once it has finished its rows of this one, reads
+// them under the last warp's count; every warp keeps counting its rows
+// across the tiles. The carry of row i is not overwritten before warp 0
+// has read it: the last warp reaches row i of the next tile only through
+// warp 0's row i. The 3'-clip best and the row maxima are maxima over
+// columns and carry across tiles in registers; the window-N and overlay
+// fix-ups are per column and need nothing at a tile edge.
 //
 // The SNV overlay (graph indexes; template flag OV). The JAX package has
 // no overlay in its TPU kernel and sends a graph index's DP through the
@@ -101,10 +119,9 @@
 // either side keeps -n_pen. Above 8 columns a lane the four masks are
 // 16-bit lanes of a 64-bit pair (OvMask): with one 32-bit word of nibbles
 // live the 16-column one-block variant spilled 28 bytes at its 128
-// registers (nvcc 12.9.86); with the masks it does not. Both kernels have
-// overlay instantiations, tiled or not; the instantiations without OV
-// compile to what they were before the flag (same registers, same row
-// loop).
+// registers (nvcc 12.9.86); with the masks it does not. Every kernel has
+// overlay instantiations; the instantiations without OV compile to what
+// they were before the flag (same registers, same row loop).
 
 #include <cstdint>
 #include <type_traits>
@@ -423,10 +440,9 @@ dp_score_kernel(const int32_t* __restrict__ rd,
 
 // Four blocks an SM: the 512 candidates of a rescue launch are resident
 // in one wave on 132 SMs, and a thread may use up to 128 registers.
-// OV: the SNV overlay, as in the one-warp kernel. TILED: the window is
-// walked in column tiles of 128 * CPL columns, any number of them (see the
-// note at the top); without it one pass covers W + 1 <= 128 * CPL.
-template <int CPL, bool OV, bool TILED>
+// OV: the SNV overlay, as in the one-warp kernel. One pass covers W + 1 <=
+// 128 * CPL.
+template <int CPL, bool OV>
 __global__ void __launch_bounds__(32 * kWideWarps, 4)
 dp_score_wide_kernel(const int32_t* __restrict__ rd,
                      const int32_t* __restrict__ pen,
@@ -439,9 +455,7 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
                      int rd_open, int rd_ext, int rf_open, int rf_ext)
 {
     constexpr int NW = kWideWarps;
-    constexpr int CAP = 32 * NW * CPL;  // columns of one pass (tile)
-    extern __shared__ int4 rows[];      // RowK of each read row; TILED:
-                                        // then the tile carries (below)
+    extern __shared__ int4 rows[];      // RowK of each read row
     __shared__ int pfx[NW][2];          // run prefix through warp w, row r & 1
     __shared__ int hedge[NW][4];        // warp w's last H after row r - 1
     __shared__ int wbest[NW];
@@ -468,35 +482,19 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
     DP_KEEP(hedge_in);
     DP_KEEP(pfx_out);
     DP_KEEP(hedge_out);
-    // Tile carries (TILED): carry_h[i] is the H of read row i - 1 in the
-    // last column of the tile before (carry_h[0], the row above the read,
-    // is 0 in every column), carry_r[i] the running-max prefix of row i
-    // through every tile before. The thread that holds a tile's first
-    // column (warp 0, lane 0) reads row i's at step i; the one that holds
-    // its last column (warp NW - 1, lane 31) writes them for the next tile
-    // at step i + NW - 1, after the reader has taken the old value, so one
-    // slot per row is enough.
-    int* carry_h = reinterpret_cast<int*>(rows + L);
-    int* carry_r = carry_h + L + 1;
 
     stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, threadIdx.x,
                32 * NW);
-    if constexpr (TILED) {
-        if (threadIdx.x == 0) carry_h[0] = 0;
-    }
     // Clipping the whole read is every thread's starting value, in a
     // register of its own: folded as -scp_tot into the last three-way max
     // instead, nvcc 12.9 emitted VIMNMX3 on +scp_tot.
     int best = -scp_tot;
-    const int ntiles = TILED ? W / CAP + 1 : 1;     // ceil((W + 1) / CAP)
-    for (int tile = 0; tile < ntiles; ++tile) {
-        const bool first = lane == 0 && warp == 0 && tile == 0;
-        const bool lead = TILED && lane == 0 && warp == 0 && tile > 0;
-        const bool tail = TILED && last && warp == NW - 1;
+    {
+        const bool first = lane == 0 && warp == 0;
         Cols<CPL> col;
         cols_init<CPL, OV>(col, ref + (size_t)c * W,
                            OV ? ov + (size_t)c * W : nullptr,
-                           tile * CAP + threadIdx.x * CPL, W, rd_open, rd_ext);
+                           threadIdx.x * CPL, W, rd_open, rd_ext);
         if (last) hedge[warp][0] = col.H[CPL - 1];
         __syncthreads();
 
@@ -510,9 +508,6 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
                 int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
                 int pin = kNeg;         // run prefix of the columns left
                 if (edge) { hleft = lds(hedge_in + o3); pin = lds(pfx_in + o1); }
-                if constexpr (TILED) {
-                    if (lead) { hleft = carry_h[i]; pin = carry_r[i]; }
-                }
                 int G[CPL], M[CPL];
                 const int run = fill_g<CPL, OV>(col, G, M, hleft, r, sm, sn,
                                                 cf, first, pin);
@@ -524,9 +519,6 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
                 // 3' soft clip: end the alignment after read position i + 1
                 best = addmax(rowmax, -r.clipx - scp_tot, best);
                 if (last) sts(hedge_out + ((o3 + 4) & 12), col.H[CPL - 1]);
-                if constexpr (TILED) {
-                    if (tail) { carry_h[i + 1] = col.H[CPL - 1]; carry_r[i] = tot; }
-                }
             }
             __syncthreads();
         }
@@ -538,6 +530,224 @@ dp_score_wide_kernel(const int32_t* __restrict__ rd,
     if (threadIdx.x == 0) {
         int b = wbest[0];
 #pragma unroll
+        for (int w = 1; w < NW; ++w) b = max(b, wbest[w]);
+        out[c] = b;
+    }
+}
+
+// Slots of each ring between neighbouring warps of the ring kernel (a
+// power of two): a warp may run this many rows ahead of its right
+// neighbour.
+constexpr int kRing = 4;
+
+// Warps a block of the ring kernel may have at CPL columns a lane.
+// __launch_bounds__(32 * kRingMaxWarps(CPL), 1) leaves each thread
+// 65,536 / (32 * kRingMaxWarps(CPL)) registers; ops/dp_cuda.RING_MAX_WARPS
+// holds the same table.
+constexpr int kRingMaxWarps(int cpl)
+{
+    return cpl <= 4 ? 32 : cpl <= 5 ? 28 : cpl <= 7 ? 24 : cpl <= 10 ? 16
+        : 12;
+}
+
+// Dynamic shared memory of a ring launch: the staged rows (int4),
+// the rings (kRing int2 a warp) and two slots for the block's edges, the
+// tile carries where the window takes more than one tile (int2 a row),
+// the warps' row counts and best scores (one int each). ops/dp_cuda.
+// smem_bytes computes the same.
+constexpr size_t ring_smem(int L, int nw, int ntiles)
+{
+    return 16 * (size_t)L + 8 * ((size_t)nw * kRing + 2)
+        + (ntiles > 1 ? 8 * (size_t)L : 0) + 8 * (size_t)nw;
+}
+
+// Shared-memory hand-off of the ring kernel: a row count published
+// with release order after the slot it covers, read with acquire order
+// before the slot is read.
+__device__ __forceinline__ int lds_acquire(unsigned addr)
+{
+    int v;
+    asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+                 : "=r"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void sts_release(unsigned addr, int v)
+{
+    asm volatile("st.release.cta.shared.b32 [%0], %1;"
+                 : : "r"(addr), "r"(v) : "memory");
+}
+
+// Waits until the count at `addr` exceeds `need`. `seen` keeps the value
+// read last, so a count already high enough costs no load; between reads
+// the warp sleeps, so a waiting warp takes no issue slots from the warps
+// at work. A wait that never ends (a fault in the hand-off) traps instead
+// of holding the card.
+__device__ __forceinline__ void wait_count(int& seen, unsigned addr,
+                                           int need)
+{
+    for (unsigned spins = 0; seen <= need; ++spins) {
+        if (spins == (1u << 24)) __trap();
+        if (spins) __nanosleep(32);
+        seen = lds_acquire(addr);
+    }
+}
+
+__device__ __forceinline__ int2 lds2(unsigned addr)
+{
+    int2 v;
+    asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];"
+                 : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void sts2(unsigned addr, int x, int y)
+{
+    asm volatile("st.shared.v2.s32 [%0], {%1, %2};"
+                 : : "r"(addr), "r"(x), "r"(y) : "memory");
+}
+
+// One block of NW = blockDim.x / 32 warps per candidate (2..
+// kRingMaxWarps(CPL)), CPL columns a lane, NW * 32 * CPL columns a tile,
+// as many tiles as the window takes (see the note at the top). OV: the
+// SNV overlay, as in the one-warp kernel.
+template <int CPL, bool OV>
+__global__ void __launch_bounds__(32 * kRingMaxWarps(CPL), 1)
+dp_score_ring_kernel(const int32_t* __restrict__ rd,
+                     const int32_t* __restrict__ pen,
+                     const int32_t* __restrict__ rdlens,
+                     const int32_t* __restrict__ ref,
+                     const int32_t* __restrict__ scp_cum,
+                     const int32_t* __restrict__ ov,    // (C, W), read if OV
+                     int32_t* __restrict__ out,
+                     int L, int W, int match_bonus, int n_pen,
+                     int rd_open, int rd_ext, int rf_open, int rf_ext)
+{
+    extern __shared__ int4 rows[];      // RowK of each read row, then the
+                                        // hand-off state (ring_smem)
+    const int NW = blockDim.x >> 5;
+    int tid = threadIdx.x;
+    int lane = tid & 31;
+    int warp = tid >> 5;
+    DP_KEEP(tid);
+    DP_KEEP(lane);
+    DP_KEEP(warp);
+    const int cap = 32 * CPL * NW;      // columns of one tile
+    const int ntiles = W / cap + 1;     // ceil((W + 1) / cap)
+    const int c = blockIdx.x;
+    const int32_t* rdc = rd + (size_t)c * L;
+    const int32_t* penc = pen + (size_t)c * L;
+    const int32_t* scpc = scp_cum + (size_t)c * (L + 1);
+    const int len = min(max(rdlens[c], 0), L);
+    const int scp_tot = scpc[L];
+    int sm = match_bonus + rf_ext;
+    int sn = rf_ext - n_pen;
+    int cf = rf_ext - rf_open;
+    DP_KEEP(sm);
+    DP_KEEP(sn);
+    DP_KEEP(cf);
+    // ring[w][s % kRing]: warp w's (running-max prefix of the row through
+    // its last column, H of that column) after row s, for warp w + 1;
+    // carry[i]: the same of the last warp after row i of a tile, for warp
+    // 0 in the next; none[0]: what warp 0 reads in the first tile (no
+    // column left of it), none[1]: where the last warp writes in the last
+    // (no warp right of it); done[w]: the rows warp w has finished,
+    // counted over the tiles (row s of the count: tile * len + i).
+    int2* ring = reinterpret_cast<int2*>(rows + L);
+    int2* none = ring + NW * kRing;
+    int2* carry = none + 2;
+    int* done = reinterpret_cast<int*>(carry + (ntiles > 1 ? L : 0));
+    int* wbest = done + NW;
+    const unsigned ring_in =
+        smem_addr(ring + (warp > 0 ? warp - 1 : 0) * kRing);
+    const unsigned ring_out = smem_addr(ring + warp * kRing);
+    unsigned done_left = smem_addr(done + (warp > 0 ? warp : NW) - 1);
+    unsigned done_right = smem_addr(done + (warp + 1 < NW ? warp + 1 : 0));
+    unsigned done_me = smem_addr(done + warp);
+    DP_KEEP(done_left);
+    DP_KEEP(done_right);
+    DP_KEEP(done_me);
+
+    stage_rows(rows, rdc, penc, scpc, len, n_pen, rf_ext, threadIdx.x,
+               32 * NW);
+    if (threadIdx.x < NW) done[threadIdx.x] = 0;
+    if (threadIdx.x == 0) none[0] = make_int2(kNeg, kNeg);
+    __syncthreads();
+    // Clipping the whole read is every thread's starting value, in a
+    // register of its own: folded as -scp_tot into the last three-way max
+    // instead, nvcc 12.9 emitted VIMNMX3 on +scp_tot.
+    int best = -scp_tot;
+    int seen_left = 0;                  // done[] of the warp read from,
+    int seen_right = 0;                 // of the warp written to, last read
+    unsigned in_off = 0, out_off = 0;   // byte offsets of row s's slots
+    constexpr int kNever = 1 << 30;     // a lag no count waits for
+    for (int tile = 0; tile < ntiles; ++tile) {
+        const int j0 = tile * cap + tid * CPL;
+        const bool first = tile == 0 && tid == 0;
+        // Where row s comes from and goes to, and how far behind the
+        // count it waits for runs: the left warp's ring (no lag), the
+        // last warp's carry of the tile before (a tile behind), nothing;
+        // the ring of this warp (the right warp's count kRing rows
+        // behind), the carry, nothing. A ring's offset runs on across
+        // the tiles with its row count; a carry's starts at row 0.
+        unsigned in_at = ring_in, in_mask = 8 * kRing - 1;
+        unsigned out_at = ring_out, out_mask = 8 * kRing - 1;
+        int in_lag = 0, out_lag = kRing;
+        if (warp == 0) {
+            in_at = smem_addr(tile > 0 ? carry : none);
+            in_mask = tile > 0 ? ~0u : 0u;
+            in_lag = tile > 0 ? len : kNever;
+            in_off = 0;
+        }
+        if (warp + 1 == NW) {
+            out_at = smem_addr(tile + 1 < ntiles ? carry : none + 1);
+            out_mask = tile + 1 < ntiles ? ~0u : 0u;
+            out_lag = kNever;
+            out_off = 0;
+        }
+        DP_KEEP(in_at);
+        DP_KEEP(out_at);
+        Cols<CPL> col;
+        cols_init<CPL, OV>(col, ref + (size_t)c * W,
+                           OV ? ov + (size_t)c * W : nullptr, j0, W,
+                           rd_open, rd_ext);
+        // lane 0: the row above's H in column j0 - 1 (above the read: 0
+        // inside the window, as cols_init sets it)
+        int hold = (j0 >= 1 && j0 <= W + 1) ? 0 : kNeg;
+        const int s0 = tile * len;      // row i of the tile is row s0 + i
+        for (int s = s0; s < s0 + len; ++s) {
+            const RowK r = staged_row(rows, s - s0);
+            int hleft = __shfl_up_sync(kFull, col.H[CPL - 1], 1);
+            if (lane == 0) hleft = hold;
+            int G[CPL], M[CPL];
+            const int run = fill_g<CPL, OV>(col, G, M, hleft, r, sm, sn, cf,
+                                            first, kNeg);
+            const int tot = warp_scan_max(run);
+            const int up = __shfl_up_sync(kFull, tot, 1);
+            wait_count(seen_left, done_left, s - in_lag);
+            const int2 v = lds2(in_at + in_off);
+            in_off = (in_off + 8) & in_mask;
+            const int pin = v.x;        // run prefix of the columns left
+            hold = v.y;
+            const int excl = lane == 0 ? pin : max(up, pin);
+            const int rowmax = fill_h(col, G, M, excl, r.clipx);
+            // 3' soft clip: end the alignment after this read row
+            best = addmax(rowmax, -r.clipx - scp_tot, best);
+            wait_count(seen_right, done_right, s - out_lag);
+            __syncwarp();               // every lane's slot read before
+            if (lane == 31) {           // the count
+                sts2(out_at + out_off, max(tot, pin), col.H[CPL - 1]);
+                sts_release(done_me, s + 1);
+            }
+            out_off = (out_off + 8) & out_mask;
+        }
+        best = max(best, col_max(col) - len * rf_ext);
+    }
+    best = __reduce_max_sync(kFull, best);
+    if (lane == 0) wbest[warp] = best;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int b = wbest[0];
         for (int w = 1; w < NW; ++w) b = max(b, wbest[w]);
         out[c] = b;
     }
@@ -577,12 +787,11 @@ cudaError_t launch(const Args& a)
     return cudaGetLastError();
 }
 
-template <int CPL, bool OV, bool TILED>
+template <int CPL, bool OV>
 cudaError_t launch_wide(const Args& a)
 {
-    const size_t smem = (size_t)a.L * sizeof(int4)
-        + (TILED ? (2 * (size_t)a.L + 1) * sizeof(int) : 0);
-    const auto kernel = dp_score_wide_kernel<CPL, OV, TILED>;
+    const size_t smem = (size_t)a.L * sizeof(int4);
+    const auto kernel = dp_score_wide_kernel<CPL, OV>;
     const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<a.C, 32 * kWideWarps, smem, a.stream>>>(
@@ -591,27 +800,45 @@ cudaError_t launch_wide(const Args& a)
     return cudaGetLastError();
 }
 
-// Which one-block variants this file compiles, with and without the
-// overlay: every CPL of 3..16 in one pass, the column-tiled form at every
-// fourth CPL (ops/dp_cuda.TILE_CPLS). None spills (nvcc 12.9.86).
-constexpr bool wide_compiled(int cpl, bool tiled)
+template <int CPL, bool OV>
+cudaError_t launch_ring(const Args& a, int nw)
 {
-    return cpl >= 3 && cpl <= 16 && (!tiled || cpl % 4 == 0);
+    const size_t smem = ring_smem(a.L, nw, a.W / (32 * nw * CPL) + 1);
+    const auto kernel = dp_score_ring_kernel<CPL, OV>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<a.C, 32 * nw, smem, a.stream>>>(
+        a.rd, a.pen, a.rdlens, a.ref, a.scp_cum, a.ov, a.out, a.L, a.W, a.mb,
+        a.np, a.ro, a.re, a.fo, a.fe);
+    return cudaGetLastError();
 }
 
-template <bool OV, bool TILED, int K = 16>
-cudaError_t launch_wide_cpl(const Args& a, int cpl)
+// The one-block kernels are compiled, with and without the overlay, at
+// every CPL of kMinCpl..kRingMaxCpl for the ring kernel (ops/dp_cuda.
+// RING_CPLS: wider lanes took more registers than they saved instructions,
+// and the build time of every process that launches a kernel) and of
+// kWideMinCpl..kMaxCpl for the lockstep one (WIDE_VARIANTS: 3 columns a
+// lane, 384, is the one-warp kernel's). None spills.
+constexpr int kMinCpl = 3;
+constexpr int kWideMinCpl = 4;
+constexpr int kRingMaxCpl = 12;
+constexpr int kMaxCpl = 16;
+
+template <bool OV, int K = kMaxCpl>
+cudaError_t launch_block(const Args& a, bool ring, int nw, int cpl)
 {
-    if constexpr (K < 3) {
+    if constexpr (K < kMinCpl) {
         return cudaErrorInvalidValue;
     } else {
-        if (cpl == K) {
-            if constexpr (wide_compiled(K, TILED))
-                return launch_wide<K, OV, TILED>(a);
-            else
-                return cudaErrorInvalidValue;
+        if (cpl != K)
+            return launch_block<OV, K - 1>(a, ring, nw, cpl);
+        if constexpr (K <= kRingMaxCpl) {
+            if (ring) return launch_ring<K, OV>(a, nw);
         }
-        return launch_wide_cpl<OV, TILED, K - 1>(a, cpl);
+        if constexpr (K >= kWideMinCpl) {
+            if (!ring) return launch_wide<K, OV>(a);
+        }
+        return cudaErrorInvalidValue;
     }
 }
 
@@ -624,13 +851,14 @@ extern "C" int dp_score_fused_form() { return DP_FUSED; }
 // Plain C entry point. Pointers are device pointers to contiguous int32
 // arrays: rd, pen (C, L); rdlens (C,); ref (C, W); scp_cum (C, L+1);
 // out (C,); ov (C, W) SNV-overlay nibbles, or null for the
-// instantiations without the overlay. The plan names the kernel: warps =
-// 1 is the one-warp kernel with cpl columns per lane, warps = 4 the
-// one-block kernel, in column tiles where `tiled` is 1. A plan this file
-// did not compile, an untiled one that covers fewer than W + 1 columns,
-// or a read too long for the staged rows is refused with
-// cudaErrorInvalidValue. Launches on `stream` and returns
-// cudaGetLastError().
+// instantiations without the overlay. The plan names the kernel: `ring`
+// = 1 is the ring kernel with `warps` warps (2..kRingMaxWarps(cpl), cpl
+// 3..12), in as many column tiles as the window takes; otherwise warps =
+// 1 is the one-warp kernel with cpl columns per lane (1..12) and warps =
+// 4 the one-block kernel in lockstep (cpl 4..16). A plan this file did not
+// compile, a one-pass one that covers fewer than W + 1 columns, or a read
+// too long for the shared memory is refused with cudaErrorInvalidValue.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int dp_score_launch(const void* rd, const void* pen,
                                const void* rdlens, const void* ref,
                                const void* scp_cum, const void* ov,
@@ -638,7 +866,7 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
                                int match_bonus, int n_pen,
                                int rd_open, int rd_ext,
                                int rf_open, int rf_ext,
-                               int warps, int cpl, int tiled, void* stream)
+                               int warps, int cpl, int ring, void* stream)
 {
     const Args a{static_cast<const int32_t*>(rd),
                  static_cast<const int32_t*>(pen),
@@ -650,30 +878,30 @@ extern "C" int dp_score_launch(const void* rd, const void* pen,
                  C, L, W, match_bonus, n_pen, rd_open, rd_ext, rf_open,
                  rf_ext, static_cast<cudaStream_t>(stream)};
     const int invalid = static_cast<int>(cudaErrorInvalidValue);
-    if (W < 0 || L < 0 || warps < 1 || cpl < 1 || (tiled && warps == 1) ||
-        (!tiled && (long long)32 * warps * cpl < (long long)W + 1))
+    if (W < 0 || L < 0 || warps < 1 || cpl < 1 || (ring && warps == 1) ||
+        (!ring && (long long)32 * warps * cpl < (long long)W + 1))
         return invalid;
-    const size_t smem = warps == 1
-        ? (size_t)kWarpsPerBlock * L * sizeof(int4)
-        : (size_t)L * sizeof(int4) + (tiled ? (2 * (size_t)L + 1) * 4 : 0);
-    if (smem > kSmemMax)
-        return invalid;
+    if (warps == 1) {
+        if ((size_t)kWarpsPerBlock * L * sizeof(int4) > kSmemMax)
+            return invalid;
 #define DP_NARROW(K) case K: return static_cast<int>( \
         a.ov ? launch<K, true>(a) : launch<K, false>(a));
-    if (warps == 1) {
         switch (cpl) {
             DP_NARROW(1) DP_NARROW(2) DP_NARROW(3) DP_NARROW(4)
             DP_NARROW(5) DP_NARROW(6) DP_NARROW(7) DP_NARROW(8)
+            DP_NARROW(9) DP_NARROW(10) DP_NARROW(11) DP_NARROW(12)
             default: return invalid;
         }
-    }
 #undef DP_NARROW
-    if (warps != kWideWarps)
+    }
+    if (cpl < kMinCpl || cpl > kMaxCpl)
         return invalid;
-    const cudaError_t err = a.ov
-        ? (tiled ? launch_wide_cpl<true, true>(a, cpl)
-                 : launch_wide_cpl<true, false>(a, cpl))
-        : (tiled ? launch_wide_cpl<false, true>(a, cpl)
-                 : launch_wide_cpl<false, false>(a, cpl));
+    if (ring ? cpl > kRingMaxCpl || warps > kRingMaxWarps(cpl)
+                   || ring_smem(L, warps, W / (32 * warps * cpl) + 1)
+                      > kSmemMax
+             : warps != kWideWarps || (size_t)L * sizeof(int4) > kSmemMax)
+        return invalid;
+    const cudaError_t err = a.ov ? launch_block<true>(a, ring, warps, cpl)
+                                 : launch_block<false>(a, ring, warps, cpl);
     return static_cast<int>(err);
 }

@@ -120,9 +120,11 @@ def test_fm_sam_on_card_equals_cpu(name, seed_mode, how):
 @pytest.mark.gpu
 def test_overlay_kernel_matches_plain_at_edge_windows():
     """The overlay instantiations of every kernel against the plain
-    version at every window where one of their variants ends (the tiled
-    form's tile counts too), with an overlay holding every kind of nibble;
-    W = 288 (graph reads of 250 bp) and 1104 among them."""
+    version at every window where one of their variants ends (the ring
+    kernel's tile counts too), with an overlay holding every kind of nibble;
+    W = 288 (graph reads of 250 bp: the one-warp kernel at 10 columns a
+    lane), 1104 and 2136 among them; then the tilings forced onto
+    one-pass windows (chip_smoke.FORCED_TILES)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the overlay kernel runs only on one")
     from hisat2_tpu_torch.align.scoring import Scoring
@@ -138,14 +140,20 @@ def test_overlay_kernel_matches_plain_at_edge_windows():
         t = [torch.from_numpy(a).cuda() for a in (rd, quals, lens, ref, ov)]
         pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
         return (t[0], pen, t[2], t[3], scp), t[4]
+    for nw, cpl, W in chip_smoke.FORCED_TILES:
+        a, ov = case(W)
+        plan = dp_cuda.Plan("dp_score_ring", nw, cpl)
+        got = dp_cuda.dp_score(*a, ov=ov, **consts, plan=plan)
+        assert torch.equal(got, dp_fill_plain(*a, ov=ov, **consts)), plan
     for W in (chip_smoke.edge_windows("dp_score")
               + chip_smoke.edge_windows("dp_score_wide")
-              + chip_smoke.edge_windows("dp_score_tiled")
-              + [136, 288, 1104]):
+              + chip_smoke.edge_windows("dp_score_ring")
+              + [136, 288, 1104, 2136]):
         a, ov = case(W)
-        kernel = dp_cuda.dispatch_plan(W).kernel
+        plan = dp_cuda.dispatch_plan(W)       # the plan of a full card
+        kernel = plan.kernel
         before = dict(dp_cuda.launches)
-        got = dp_cuda.dp_score(*a, ov=ov, **consts)
+        got = dp_cuda.dp_score(*a, ov=ov, **consts, plan=plan)
         assert dp_cuda.launches["dp_score_ov"] == before["dp_score_ov"] + 1
         assert dp_cuda.launches[kernel] == before[kernel] + 1
         want = dp_fill_plain(*a, ov=ov, **consts)
@@ -304,9 +312,10 @@ def test_rna_pe_sam_on_card_equals_cpu(known):
 @pytest.mark.gpu
 @pytest.mark.parametrize("what", ["long", "graph250"])
 def test_wide_windows_sam_on_card_equals_cpu(what):
-    """Reads of 2,100 bp (DP window W = 2136: the tiled kernel) and graph
-    reads of 250 bp (W = 288 with the overlay: the one-block kernel's
-    overlay instantiation): the card's SAM equals the CPU path's."""
+    """Reads of 2,100 bp (DP window W = 2136: the one-block kernel in one
+    pass) and graph reads of 250 bp (W = 288 with the overlay: the one-warp
+    kernel's overlay instantiation at 10 columns a lane): the card's SAM
+    equals the CPU path's."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     g = np.random.default_rng(24).integers(0, 4, 60000).astype(np.uint8)
@@ -315,7 +324,7 @@ def test_wide_windows_sam_on_card_equals_cpu(what):
         fm = build_fm_index(ref)
         seqs, _, _ = chip_smoke.simulate_reads(ref.joined, 48, 25, rdlen=2100)
         items = chip_smoke.make_batches(seqs, 0, 48, 2104)
-        kernel = "dp_score_tiled"
+        kernel = chip_smoke.kernel_of(2136)
     else:
         from hisat2_tpu_torch.index.graph_index import build_graph_index
         snps, haps = chip_smoke.simulate_variants(ref.joined, 31, 250, 12)
@@ -323,7 +332,7 @@ def test_wide_windows_sam_on_card_equals_cpu(what):
         hap = chip_smoke.apply_haplotype(ref.joined, snps, haps, 32)
         seqs, _, _ = chip_smoke.simulate_reads(hap[0], 256, 26, rdlen=250)
         items = chip_smoke.make_batches(seqs, 0, 256, 256)
-        kernel = "dp_score_wide"
+        kernel = chip_smoke.variant_key(288, True)
 
     def sam(device):
         return chip_smoke.run_stream(Aligner(fm, device=device), items,
@@ -475,8 +484,8 @@ def test_dp_kernel_at_local_match_bonus_matches_plain():
     assert consts["match_bonus"] == 2
     for W in (chip_smoke.edge_windows("dp_score")
               + chip_smoke.edge_windows("dp_score_wide")
-              + chip_smoke.edge_windows("dp_score_tiled")
-              + [136, 288, 1104]):
+              + chip_smoke.edge_windows("dp_score_ring")
+              + [136, 288, 1104, 2136]):
         rd, quals, lens, ref = chip_smoke.make_dp_case(
             200 + W, *chip_smoke.edge_case_shape(W), W)
         ov = torch.from_numpy(chip_smoke.make_dp_ov(W, rd, ref)).cuda()
@@ -484,7 +493,8 @@ def test_dp_kernel_at_local_match_bonus_matches_plain():
         pen, scp = (x.contiguous() for x in dp_inputs(sctab, t[1], t[2]))
         a = (t[0], pen, t[2], t[3], scp)
         for o in (None, ov):
-            got = dp_cuda.dp_score(*a, ov=o, **consts)
+            got = dp_cuda.dp_score(*a, ov=o, **consts,
+                                   plan=dp_cuda.dispatch_plan(W))
             assert torch.equal(got, dp_fill_plain(*a, ov=o, **consts)), W
         # the bonus changes the scores
         assert not torch.equal(got, dp_cuda.dp_score(

@@ -8,10 +8,11 @@ verify_ungapped, _stage_fin_rows and _stage_dp on a graph bundle, with
 candidates on and around SNV sites so the overlay decides scores. And the
 DP alone: ops/sw.dp_fill_plain(..., ov), the plain version of the CUDA
 kernel's overlay instantiation, against hisat2_tpu.ops.sw.dp_score_batch(
-..., ov) at the SE shape and the rescue's wide window, with nibbles of
-every kind (0, 1..4 naming the read base or not, 15) over real bases and
-over N read and window bases; with an all-zero overlay it must equal the
-call without one and the Pallas kernel in interpret mode."""
+..., ov) at the SE shape, the rescue's wide window and the 289-column
+window of 250 bp graph reads, with nibbles of every kind (0, 1..4 naming
+the read base or not, 15) over real bases and over N read and window
+bases; with an all-zero overlay it must equal the call without one and the
+Pallas kernel in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -225,7 +226,8 @@ def _dp_case(seed, C, Lr, W):
 
 @pytest.mark.parametrize("seed,C,Lr,W", [
     (0, 64, 104, 136), (1, 64, 104, 136), (2, 8, 104, 1104),
-    (3, 16, 24, 31), (4, 16, 104, 159), (5, 16, 104, 255)])
+    (3, 16, 24, 31), (4, 16, 104, 159), (5, 16, 104, 255),
+    (6, 16, 256, 288)])
 def test_plain_dp_with_overlay_matches_jax(seed, C, Lr, W):
     rd, quals, lens, ref, ov = _dp_case(seed, C, Lr, W)
     # nibbles of every kind, over real bases and over Ns on either side

@@ -187,12 +187,13 @@ def _need_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "seed,C,W", [(20, 37, 256), (21, 513, 1104), (22, 19, 2047)]
+    "seed,C,W", [(20, 37, 384), (21, 513, 1104), (22, 19, 2047)]
     + [(100 + W, edge_case_shape(W)[0], W)
        for W in edge_windows("dp_score_wide")])
 def test_wide_kernel_matches_plain(seed, C, W):
-    """The one-block-per-candidate kernel at W + 1 in {257, 1105, 2048}
-    and at every window where one of its variants ends."""
+    """The lockstep one-block-per-candidate kernel at W + 1 in {385 (its
+    first window, past the one-warp kernel's 384), 1105, 2048} and at
+    every window where one of its variants ends."""
     _need_card()
     rd, quals, lens, ref = make_dp_case(seed, C, L, W)
     sc = Scoring()
@@ -210,9 +211,10 @@ def test_wide_kernel_matches_plain(seed, C, W):
 
 @pytest.mark.gpu
 def test_wide_kernel_refuses_past_its_maximum():
-    """Past the one-block kernel's single pass (W + 1 > 2048) nothing is
-    refused any more: the column-tiled form takes the window, counted in
-    launches["dp_score_tiled"], equal to the plain version."""
+    """Past the lockstep kernel's single pass (W + 1 > 2048) nothing is
+    refused: the ring kernel takes the window (W = 2048 and 2604 in one
+    pass, 8191 in two tiles), counted in launches["dp_score_ring"], equal
+    to the plain version."""
     _need_card()
     sc = Scoring()
     dev = torch.device("cuda")
@@ -224,7 +226,7 @@ def test_wide_kernel_refuses_past_its_maximum():
         before = dict(dp_cuda.launches)
         got = dp_cuda.dp_score(*args, **sc.dp_consts())
         torch.cuda.synchronize()
-        assert dp_cuda.launches["dp_score_tiled"] \
-            == before["dp_score_tiled"] + 1
+        assert dp_cuda.launches["dp_score_ring"] \
+            == before["dp_score_ring"] + 1
         assert dp_cuda.launches["dp_score_wide"] == before["dp_score_wide"]
         assert torch.equal(got, dp_fill_plain(*args, **sc.dp_consts()))

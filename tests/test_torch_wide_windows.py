@@ -1,12 +1,12 @@
-"""DP windows past the one-block kernel's single pass and overlay windows
-past the one-warp kernel, end to end against the JAX package: SAM bytes
-and stats equal, exact. On the card these windows take the column-tiled
-kernel and the one-block kernel's overlay instantiations (ops/dp_cuda);
-here, as on any CPU tensor, the plain version.
+"""DP windows past the lockstep one-block kernel's single pass and
+overlay windows past 256 columns, end to end against the JAX package:
+SAM bytes and stats equal, exact. On the card these windows take the ring
+kernel and the one-warp kernel's overlay instantiation at 10 columns a
+lane (ops/dp_cuda); here, as on any CPU tensor, the plain version.
 
   * single-end reads of 2,100 bp: _stage_dp's window is L + 2 * dp_pad =
-    2104 + 32 = 2136 bases (W + 1 = 2137 > 2048 columns: the tiled
-    kernel), reads with mismatches and a deletion, so every one takes
+    2104 + 32 = 2136 bases (W + 1 = 2137 > 2048 columns: the ring kernel
+    in one pass), reads with mismatches and a deletion, so every one takes
     the DP;
   * paired-end at -X 2500, on tests/test_torch_paired_emit's genome and
     pair kinds (N-laden mates only the rescue places, random mates it
@@ -109,7 +109,7 @@ def test_se_long_reads(how):
     jal = JAligner(jfm)
     tal = TAligner(FMIndex.from_object(jfm), device="cpu")
     W = tb.seqs.shape[1] + 2 * tal.opts.dp_pad
-    assert W == 2136 and dp_cuda.dispatch_plan(W).kernel == "dp_score_tiled"
+    assert W == 2136 and dp_cuda.dispatch_plan(W).kernel == "dp_score_ring"
     if how == "stream":
         jt, js = _sam(lambda al, wr: jemit.align_and_emit_stream(al, [jb],
                                                                  wr),
@@ -158,7 +158,7 @@ def test_graph_se_250bp(graph250, how):
     tal = TAligner(FMIndex.from_object(w["jfm"]), device="cpu")
     assert tal.overlay is not None
     W = tb.seqs.shape[1] + 2 * tal.opts.dp_pad
-    assert W == 288 and dp_cuda.dispatch_plan(W).kernel == "dp_score_wide"
+    assert W == 288 and dp_cuda.dispatch_plan(W).kernel == "dp_score"
     if how == "stream":
         jt, js = _sam(lambda al, wr: jemit.align_and_emit_stream(al, [jb],
                                                                  wr),
