@@ -32,7 +32,6 @@ graph index, the per-pair ladder (paired.align_pairs + pairs_to_sam).
 from __future__ import annotations
 
 import ctypes
-import time
 
 import numpy as np
 import torch
@@ -41,6 +40,7 @@ from ..io.reads import ReadBatch
 from ..io import sam as samio
 from ..native import samfmt_lib
 from ..ops import wire as _wire
+from ..utils import metrics as _metrics
 from . import mapq as _mapq
 from . import paired as _paired
 from . import paired_rna as _prna
@@ -94,9 +94,10 @@ def submit_se(al: Aligner, batch: ReadBatch):
     batch is aligned at finish time, on the per-read path; so is a run
     with Zs:Z tags on a graph index (the tags come from the per-read
     finalizers), and a --tmo run (contiguous records never report)."""
-    if not al.opts.seed_mode or al.opts.tmo or _zs_run(al):
-        return ("legacy", batch)
-    return ("fast", batch, *al.device_align_fast(batch))
+    with _metrics.span("submit", batch):
+        if not al.opts.seed_mode or al.opts.tmo or _zs_run(al):
+            return ("legacy", batch)
+        return ("fast", batch, *al.device_align_fast(batch))
 
 
 def _zs_run(al: Aligner) -> bool:
@@ -105,17 +106,21 @@ def _zs_run(al: Aligner) -> bool:
 
 
 def finish_se(al: Aligner, handle, writer) -> dict:
+    batch = handle[1]
     if handle[0] == "legacy":
-        return _align_and_emit_legacy(al, handle[1], writer)
-    _, batch, fp, merged_dev, extras, ready = handle
-    t0 = time.perf_counter()
-    if ready is not None:
-        ready.synchronize()
-    al.metrics.t_fetch += time.perf_counter() - t0
-    st = _finish_fastpack(al, batch, fp.numpy(), merged_dev, writer,
-                          {k: v.numpy() if torch.is_tensor(v) else v
-                           for k, v in extras.items()})
-    al.metrics.t_host += time.perf_counter() - t0
+        with _metrics.span("finish", batch):
+            st = _align_and_emit_legacy(al, batch, writer)
+        _metrics.count("slow_reads", len(batch))
+    else:
+        _, batch, fp, merged_dev, extras, ready = handle
+        with _metrics.span("finish", batch, al.metrics, "t_host"):
+            with _metrics.span("finish.fetch", None, al.metrics, "t_fetch"):
+                if ready is not None:
+                    ready.synchronize()
+            st = _finish_fastpack(al, batch, fp.numpy(), merged_dev, writer,
+                                  {k: v.numpy() if torch.is_tensor(v) else v
+                                   for k, v in extras.items()})
+    _metrics.count("reads_finished", len(batch))
     return st
 
 
@@ -188,9 +193,11 @@ def _stream(al, item_tuples, writer, submit_fn, finish_fn,
     def drain_one():
         fut, h, pt = pending.popleft()
         if fut is not None:
-            text, st = fut.result()
+            with _metrics.span("stream.wait", h[1]):
+                text, st = fut.result()
             if text:
-                w(text)
+                with _metrics.span("stream.write", h[1]):
+                    w(text)
         else:                # legacy handle: aligned here, on the real writer
             st = finish_fn(al, h, writer)
         done(st, pt)
@@ -334,30 +341,33 @@ def _finish_slow_and_stitch(al, batch, ex, merged_dev, writer, fast,
         mg_fut = al.gather_merged_async(merged_dev, grows)
 
     slow_out: dict[int, list] = {}
+    _metrics.count("slow_reads", int(slow.size))
     if slow.size:
-        K2 = (smg_h.shape[1] if smg_h is not None else merged_dev.shape[1])
-        msc = np.full((B, K2), NEG_INF, np.int64)
-        mpos = np.zeros((B, K2), np.int64)
-        mfw = np.zeros((B, K2), bool)
-        mgap = np.zeros((B, K2), bool)
+        with _metrics.span("finish.ladder"):
+            K2 = (smg_h.shape[1] if smg_h is not None
+                  else merged_dev.shape[1])
+            msc = np.full((B, K2), NEG_INF, np.int64)
+            mpos = np.zeros((B, K2), np.int64)
+            mfw = np.zeros((B, K2), bool)
+            mgap = np.zeros((B, K2), bool)
 
-        def fill(rows, g):
-            msc[rows] = g[:, :, 0]
-            mpos[rows] = g[:, :, 1]
-            mfw[rows] = (g[:, :, 2] & 1) > 0
-            mgap[rows] = (g[:, :, 2] & 2) > 0
-        if smg_h is not None:
-            sv = srows_h >= 0
-            if sv.any():
-                fill(srows_h[sv], smg_h[sv])
-        if mg_fut is not None:
-            mg = mg_fut()
-            if mg.size:
-                fill(grows, mg)
-        merged = dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
+            def fill(rows, g):
+                msc[rows] = g[:, :, 0]
+                mpos[rows] = g[:, :, 1]
+                mfw[rows] = (g[:, :, 2] & 1) > 0
+                mgap[rows] = (g[:, :, 2] & 2) > 0
+            if smg_h is not None:
+                sv = srows_h >= 0
+                if sv.any():
+                    fill(srows_h[sv], smg_h[sv])
+            if mg_fut is not None:
+                mg = mg_fut()
+                if mg.size:
+                    fill(grows, mg)
+            merged = dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
 
-        slow_out = _slow_ladder(al, batch, merged, slow, filtered,
-                                min_scs, lens, stats)
+            slow_out = _slow_ladder(al, batch, merged, slow, filtered,
+                                    min_scs, lens, stats)
 
     _write_in_order(writer, fbuf, fast, read_end, slow_out)
     return stats
@@ -476,8 +486,9 @@ def _finish_fastpack(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         return _finish_fastpack_cols(al, batch, fp, merged_dev, writer, ex,
                                      lens, L, min_scs, filtered, KFB,
                                      force_slow, merged_full)
-    fast, fbuf, read_end, stats, nvalid = _native_fast_se(
-        al, batch, fp, ex, KFB, lens, L)
+    with _metrics.span("finish.native"):
+        fast, fbuf, read_end, stats, nvalid = _native_fast_se(
+            al, batch, fp, ex, KFB, lens, L)
     return _finish_slow_and_stitch(
         al, batch, ex, merged_dev, writer, fast, filtered, nvalid, min_scs,
         lens, fbuf, read_end, stats)
@@ -730,10 +741,13 @@ def _finish_fastpack_cols(al: Aligner, batch: ReadBatch, fp: np.ndarray,
 
     slow_out: dict[int, list] = {}
     if not rna:
-        fbuf, read_end = fmt_fast(fast)
+        with _metrics.span("finish.native"):
+            fbuf, read_end = fmt_fast(fast)
+        _metrics.count("slow_reads", int(slow.size))
         if slow.size:
-            slow_out = _slow_ladder(al, batch, build_merged(), slow,
-                                    filtered, min_scs, lens, stats)
+            with _metrics.span("finish.ladder"):
+                slow_out = _slow_ladder(al, batch, build_merged(), slow,
+                                        filtered, min_scs, lens, stats)
         return _stitch_cols(writer, fbuf, fast, read_end, slow_out, stats)
     # RNA: rescue FIRST, format after — contiguous winners rejoin
     # the native fast path instead of the per-read ladder, and
@@ -901,24 +915,27 @@ def _finish_fastpack_cols(al: Aligner, batch: ReadBatch, fp: np.ndarray,
             stats["uniq"] += int(elig.size)
     # ---- per-read stragglers ----
     pr = np.flatnonzero(~fast & ~vec_done)
+    _metrics.count("slow_reads", int(pr.size))
     if pr.size:
-        res_map = al._finalize_results(batch, merged, only_rows=pr)
-        for i in pr:
-            i = int(i)
-            res = res_map.get(i)
-            if res is None:
-                res = ReadResult(filtered=_filter_reason(batch, i,
-                                                         lens))
-            lines = _format_slow(al, batch, i, res, sc)
-            if not res.aligned:
-                stats["unal"] += 1
-            elif len(res.alns) > 1 or (res.secbest is not None
-                                       and res.secbest >= min_scs[i]):
-                stats["multi"] += 1
-            else:
-                stats["uniq"] += 1
-            slow_out[i] = lines
-    fbuf, read_end = fmt_fast(fast)
+        with _metrics.span("finish.ladder"):
+            res_map = al._finalize_results(batch, merged, only_rows=pr)
+            for i in pr:
+                i = int(i)
+                res = res_map.get(i)
+                if res is None:
+                    res = ReadResult(filtered=_filter_reason(batch, i,
+                                                             lens))
+                lines = _format_slow(al, batch, i, res, sc)
+                if not res.aligned:
+                    stats["unal"] += 1
+                elif len(res.alns) > 1 or (res.secbest is not None
+                                           and res.secbest >= min_scs[i]):
+                    stats["multi"] += 1
+                else:
+                    stats["uniq"] += 1
+                slow_out[i] = lines
+    with _metrics.span("finish.native"):
+        fbuf, read_end = fmt_fast(fast)
     return _stitch_cols(writer, fbuf, fast, read_end, slow_out, stats)
 
 
@@ -1302,29 +1319,34 @@ def submit_pe(al: Aligner, b1: ReadBatch, b2: ReadBatch):
     batches with known splice sites (TLEN leaves out their introns) and
     per-base qualities on the fused step."""
     o = al.opts
-    if _pe_rna_ok(al):
-        return _prna.submit_pe_rna(al, b1, b2)
-    if not o.seed_mode or o.tmo or _zs_run(al) or len(al.ssdb):
-        return ("legacy", b1, b2)
-    out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, o.khits + 3))
-    if out is None:                      # per-base qualities
-        return ("legacy", b1, b2)
-    return ("fast", b1, b2, out)
+    with _metrics.span("submit", b1):
+        if _pe_rna_ok(al):
+            return _prna.submit_pe_rna(al, b1, b2)
+        if not o.seed_mode or o.tmo or _zs_run(al) or len(al.ssdb):
+            return ("legacy", b1, b2)
+        out = _paired.stage_pe_packed(al, b1, b2, KP=max(8, o.khits + 3))
+        if out is None:                      # per-base qualities
+            return ("legacy", b1, b2)
+        return ("fast", b1, b2, out)
 
 
 def finish_pe(al: Aligner, handle, writer) -> dict:
+    b1 = handle[1]
     if handle[0] == "legacy":
-        return _align_and_emit_pe_legacy(al, handle[1], handle[2], writer)
-    if handle[0] == "rna":
-        return _prna.finish_pe_rna(al, handle, writer)
-    _, b1, b2, out = handle
-    ready = out[5]
-    t0 = time.perf_counter()
-    if ready is not None:
-        ready.synchronize()
-    al.metrics.t_fetch += time.perf_counter() - t0
-    st = _finish_pe_pack(al, b1, b2, out, writer)
-    al.metrics.t_host += time.perf_counter() - t0
+        with _metrics.span("finish", b1):
+            st = _align_and_emit_pe_legacy(al, b1, handle[2], writer)
+        _metrics.count("slow_reads", 2 * len(b1))
+    elif handle[0] == "rna":
+        st = _prna.finish_pe_rna(al, handle, writer)
+    else:
+        _, b1, b2, out = handle
+        ready = out[5]
+        with _metrics.span("finish", b1, al.metrics, "t_host"):
+            with _metrics.span("finish.fetch", None, al.metrics, "t_fetch"):
+                if ready is not None:
+                    ready.synchronize()
+            st = _finish_pe_pack(al, b1, b2, out, writer)
+    _metrics.count("reads_finished", 2 * len(b1))
     return st
 
 
@@ -1689,8 +1711,9 @@ def _finish_pe_pack(al: Aligner, b1: ReadBatch, b2: ReadBatch, out,
     NRB = _paired.pepack_nr(fp.shape[1])     # report slots in the base pack
     # local mode takes the NumPy fast path, as in hisat2_tpu
     fast_pe = _numpy_fast_pe if al.scoring.local else _native_fast_pe
-    fast, fbuf, pair_end, stats = fast_pe(al, b1, b2, fp, ex, NRB,
-                                          force_slow)
+    with _metrics.span("finish.native"):
+        fast, fbuf, pair_end, stats = fast_pe(al, b1, b2, fp, ex, NRB,
+                                              force_slow)
     return _finish_pe_slow_and_stitch(
         al, b1, b2, ex, out, writer, fast, fp[:, -1].astype(np.int64),
         fp[:, 0].astype(np.int64), b1.lens.astype(np.int64),
@@ -2005,110 +2028,115 @@ def _finish_pe_slow_and_stitch(al, b1, b2, ex, out, writer, fast, aux,
         g_fut = _paired._gather_pe_slow(m1_dev, m2_dev, pt_dev, miss)
 
     slow_out: dict[int, list] = {}
+    _metrics.count("slow_reads", 2 * int(slow.size))
     if slow.size:
-        K2 = int(m1_dev.shape[1])
-        KP2 = int(pt_dev.shape[1])
-        msc1 = np.full((B, K2), NEG_INF, np.int64)
-        msc2 = np.full((B, K2), NEG_INF, np.int64)
-        mpos1 = np.zeros((B, K2), np.int64)
-        mpos2 = np.zeros((B, K2), np.int64)
-        mfw1 = np.zeros((B, K2), bool)
-        mfw2 = np.zeros((B, K2), bool)
-        mg1 = np.zeros((B, K2), bool)
-        mg2 = np.zeros((B, K2), bool)
-        ptf = np.zeros((B, KP2, 3), np.int64)
-        ptf[:, :, 0] = NEG_INF
+        with _metrics.span("finish.ladder"):
+            K2 = int(m1_dev.shape[1])
+            KP2 = int(pt_dev.shape[1])
+            msc1 = np.full((B, K2), NEG_INF, np.int64)
+            msc2 = np.full((B, K2), NEG_INF, np.int64)
+            mpos1 = np.zeros((B, K2), np.int64)
+            mpos2 = np.zeros((B, K2), np.int64)
+            mfw1 = np.zeros((B, K2), bool)
+            mfw2 = np.zeros((B, K2), bool)
+            mg1 = np.zeros((B, K2), bool)
+            mg2 = np.zeros((B, K2), bool)
+            ptf = np.zeros((B, KP2, 3), np.int64)
+            ptf[:, :, 0] = NEG_INF
 
-        def fill(rows, ga, gb):
-            msc1[rows] = ga[:, :, 0]
-            mpos1[rows] = ga[:, :, 1]
-            mfw1[rows] = (ga[:, :, 2] & 1) > 0
-            mg1[rows] = (ga[:, :, 2] & 2) > 0
-            msc2[rows] = gb[:, :, 0]
-            mpos2[rows] = gb[:, :, 1]
-            mfw2[rows] = (gb[:, :, 2] & 1) > 0
-            mg2[rows] = (gb[:, :, 2] & 2) > 0
-        if g_fut is not None:
-            ga, gb, gp = g_fut()
-            fill(miss, ga, gb)
-            ptf[miss] = gp
-        hrows = grows[hit]
-        if hrows.size:
-            js = np.fromiter((pred_j[int(r)] for r in hrows), np.int64,
-                             hrows.size)
-            fill(hrows, ex["sm1"][js], ex["sm2"][js])
-            ptf[hrows] = ex["spt"][js]
-        m1h = dict(score=msc1, pos=mpos1, fw=mfw1, gapped=mg1)
-        m2h = dict(score=msc2, pos=mpos2, fw=mfw2, gapped=mg2)
-        grid = _paired._grid_from_pairtop(ptf, m1h, m2h)
+            def fill(rows, ga, gb):
+                msc1[rows] = ga[:, :, 0]
+                mpos1[rows] = ga[:, :, 1]
+                mfw1[rows] = (ga[:, :, 2] & 1) > 0
+                mg1[rows] = (ga[:, :, 2] & 2) > 0
+                msc2[rows] = gb[:, :, 0]
+                mpos2[rows] = gb[:, :, 1]
+                mfw2[rows] = (gb[:, :, 2] & 1) > 0
+                mg2[rows] = (gb[:, :, 2] & 2) > 0
+            if g_fut is not None:
+                with _metrics.span("finish.gather", None, al.metrics,
+                                   "t_gather"):
+                    ga, gb, gp = g_fut()
+                fill(miss, ga, gb)
+                ptf[miss] = gp
+            hrows = grows[hit]
+            if hrows.size:
+                js = np.fromiter((pred_j[int(r)] for r in hrows), np.int64,
+                                 hrows.size)
+                fill(hrows, ex["sm1"][js], ex["sm2"][js])
+                ptf[hrows] = ex["spt"][js]
+            m1h = dict(score=msc1, pos=mpos1, fw=mfw1, gapped=mg1)
+            m2h = dict(score=msc2, pos=mpos2, fw=mfw2, gapped=mg2)
+            grid = _paired._grid_from_pairtop(ptf, m1h, m2h)
 
-        # vectorized mixed/unal resolution: the dominant slow category is
-        # "no concordant pair, one mate aligned, in-step rescue DP
-        # failed"; only rescued/discordant/gapped/alt rows are left to the
-        # per-pair ladder below
-        vec_lines, slow = _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h,
-                                        m2h, l1, l2, ex, stats)
-        slow_out.update(vec_lines)
+            # vectorized mixed/unal resolution: the dominant slow category is
+            # "no concordant pair, one mate aligned, in-step rescue DP
+            # failed"; only rescued/discordant/gapped/alt rows are left to the
+            # per-pair ladder below
+            vec_lines, slow = _pe_mixed_vec(al, b1, b2, slow, nvalid, m1h,
+                                            m2h, l1, l2, ex, stats)
+            slow_out.update(vec_lines)
 
-        def mate_cands(m, batch, i, min_sc, rdlen):
-            cs = []
-            seen = set()
-            for s, p, f, g in zip(*(m[x][i] for x in
-                                    ("score", "pos", "fw", "gapped"))):
-                key = (int(p), bool(f))
-                if s >= min_sc and key not in seen:
-                    seen.add(key)
-                    cs.append(dict(score=int(s), pos=key[0], fw=key[1],
-                                   kind="reg", gapped=bool(g),
-                                   extent=rdlen))
-            return cs[:o.top_cands]
+            def mate_cands(m, batch, i, min_sc, rdlen):
+                cs = []
+                seen = set()
+                for s, p, f, g in zip(*(m[x][i] for x in
+                                        ("score", "pos", "fw", "gapped"))):
+                    key = (int(p), bool(f))
+                    if s >= min_sc and key not in seen:
+                        seen.add(key)
+                        cs.append(dict(score=int(s), pos=key[0], fw=key[1],
+                                       kind="reg", gapped=bool(g),
+                                       extent=rdlen))
+                return cs[:o.top_cands]
 
-        # finalize every ungapped slow-pair candidate in one vectorized
-        # pass per mate
-        fin_cache: dict[tuple, object] = {}
-        items = {0: [], 1: []}
-        for i in slow:
-            i = int(i)
-            for mi, (mh, bb, lm) in enumerate(((m1h, b1, l1),
-                                               (m2h, b2, l2))):
-                min_i = sc.min_score(int(lm[i]))
-                for c in mate_cands(mh, bb, i, min_i, int(lm[i])):
-                    if not c["gapped"]:
-                        items[mi].append((i, c["pos"], c["fw"]))
-        for mi, bb, lm in ((0, b1, l1), (1, b2, l2)):
-            if not items[mi]:
-                continue
-            ridx = np.asarray([x[0] for x in items[mi]])
-            upos = np.asarray([x[1] for x in items[mi]])
-            ufw = np.asarray([x[2] for x in items[mi]])
-            alns = al._finalize_ungapped_list(bb, ridx, upos, ufw, lm[ridx])
-            for (i, p, f), a in zip(items[mi], alns):
-                fin_cache[(mi, i, p, f)] = a
+            # finalize every ungapped slow-pair candidate in one vectorized
+            # pass per mate
+            fin_cache: dict[tuple, object] = {}
+            items = {0: [], 1: []}
+            for i in slow:
+                i = int(i)
+                for mi, (mh, bb, lm) in enumerate(((m1h, b1, l1),
+                                                   (m2h, b2, l2))):
+                    min_i = sc.min_score(int(lm[i]))
+                    for c in mate_cands(mh, bb, i, min_i, int(lm[i])):
+                        if not c["gapped"]:
+                            items[mi].append((i, c["pos"], c["fw"]))
+            for mi, bb, lm in ((0, b1, l1), (1, b2, l2)):
+                if not items[mi]:
+                    continue
+                ridx = np.asarray([x[0] for x in items[mi]])
+                upos = np.asarray([x[1] for x in items[mi]])
+                ufw = np.asarray([x[2] for x in items[mi]])
+                alns = al._finalize_ungapped_list(bb, ridx, upos, ufw,
+                                                  lm[ridx])
+                for (i, p, f), a in zip(items[mi], alns):
+                    fin_cache[(mi, i, p, f)] = a
 
-        def finalize(batch, i, c, rdlen):
-            mi = 0 if batch is b1 else 1
-            key = (mi, i, c["pos"], c["fw"])
-            if not c["gapped"] and key in fin_cache:
-                return fin_cache[key]
-            return al._finalize(i, batch, c["score"], c["pos"], c["fw"],
-                                c["gapped"], rdlen)
+            def finalize(batch, i, c, rdlen):
+                mi = 0 if batch is b1 else 1
+                key = (mi, i, c["pos"], c["fw"])
+                if not c["gapped"] and key in fin_cache:
+                    return fin_cache[key]
+                return al._finalize(i, batch, c["score"], c["pos"], c["fw"],
+                                    c["gapped"], rdlen)
 
-        rescue: list[tuple] = []
-        prs: dict[int, object] = {}
-        for i in slow:
-            i = int(i)
-            prs[i] = _paired._pair_result_one(
-                al, i, b1, b2, m1h, m2h, grid, mate_cands, finalize,
-                rescue)
-        if rescue:
-            dev_resc = None
-            if ex is not None and "rescue" in ex:
-                dev_resc = {int(row[0]): row for row in ex["rescue"]
-                            if int(row[0]) >= 0}
-            _paired._rescue_mates(al, b1, b2, prs, rescue, finalize,
-                                  dev_cache=dev_resc)
-        for i, pr in prs.items():
-            slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
+            rescue: list[tuple] = []
+            prs: dict[int, object] = {}
+            for i in slow:
+                i = int(i)
+                prs[i] = _paired._pair_result_one(
+                    al, i, b1, b2, m1h, m2h, grid, mate_cands, finalize,
+                    rescue)
+            if rescue:
+                dev_resc = None
+                if ex is not None and "rescue" in ex:
+                    dev_resc = {int(row[0]): row for row in ex["rescue"]
+                                if int(row[0]) >= 0}
+                _paired._rescue_mates(al, b1, b2, prs, rescue, finalize,
+                                      dev_cache=dev_resc)
+            for i, pr in prs.items():
+                slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
 
     _write_in_order(writer, fbuf, fast, pair_end, slow_out)
     return stats

@@ -33,7 +33,6 @@ host rescue is not ported.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -46,6 +45,7 @@ from ..ops import sw as _sw
 from ..ops import wire as _wire
 from ..ops.dp_cuda import dp_score
 from ..utils import alphabet
+from ..utils import metrics as _metrics
 from . import mapq as _mapq
 from .pipeline import (I32, NEG_INF, Aligner, Alignment, ReadResult,
                        _dedup_alns, _merged_dict, _min_scores, _se_core,
@@ -481,42 +481,44 @@ def stage_pe_packed(aligner: Aligner, b1: ReadBatch, b2: ReadBatch,
     extras, ready): pack and extras are host tensors, complete once
     `ready` (a CUDA event, None on the CPU) has been waited on, with
     extras["_wire"] = (L, nvalid bits) for the wire decode; m1, m2 and
-    pair_top stay on the device for the slow-pair gather."""
-    t0 = time.perf_counter()
+    pair_top stay on the device for the slow-pair gather. Its spans
+    submit.pack, submit.step and submit.d2h feed Metrics.t_pack."""
     o = aligner.opts
+    m = aligner.metrics
     B = len(b1)
     L = b1.seqs.shape[1]
-    sw1, nw1, quals1, qc1, l1 = b1.packed()
-    sw2, nw2, quals2, qc2, l2 = b2.packed()
-    if quals1 is not None or quals2 is not None or qc1 != qc2:
-        return None
+    with _metrics.span("submit.pack", None, m, "t_pack"):
+        sw1, nw1, quals1, qc1, l1 = b1.packed()
+        sw2, nw2, quals2, qc2, l2 = b2.packed()
+        if quals1 is not None or quals2 is not None or qc1 != qc2:
+            return None
+        dev = aligner.device
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+        dev_in = (up(sw1.astype(np.int64), torch.int64),
+                  up(nw1.astype(np.int64), torch.int64), up(l1, I32),
+                  up(sw2.astype(np.int64), torch.int64),
+                  up(nw2.astype(np.int64), torch.int64), up(l2, I32), qc1)
     # wire codec parameters (ops/wire.py): nvalid bit width from the
     # combo top-k cap; both sides derive the lane table from (L, nvbits)
     K2 = min(2 * o.top_cands, max(8, o.khits + 3))
     wire_nvbits = max(4, min(KP, K2 ** 2).bit_length())
-    dev = aligner.device
-
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-    pack, m1, m2, pt, extras = _stage_pe_packed_impl(
-        aligner.idx, aligner.sctab,
-        up(sw1.astype(np.int64), torch.int64),
-        up(nw1.astype(np.int64), torch.int64), up(l1, I32),
-        up(sw2.astype(np.int64), torch.int64),
-        up(nw2.astype(np.int64), torch.int64), up(l2, I32), qc1,
-        *_score_args(aligner, L), L=L, KP=KP, **_pe_consts(aligner, B),
-        khits=o.khits, SB=min(B, max(64, B // 16)), RB=min(B, 512),
-        w_resc=rescue_width(o, L), omit_sec=o.omit_sec_seq,
-        n_rep=max(2, min(o.khits, 5)), MB=min(B, max(32, B // 16)),
-        wire_nvbits=wire_nvbits)
-    host, ready = _to_host_async({"pack": pack, **extras})
+    with _metrics.span("submit.step", None, m, "t_pack"):
+        pack, m1, m2, pt, extras = _stage_pe_packed_impl(
+            aligner.idx, aligner.sctab, *dev_in,
+            *_score_args(aligner, L), L=L, KP=KP, **_pe_consts(aligner, B),
+            khits=o.khits, SB=min(B, max(64, B // 16)), RB=min(B, 512),
+            w_resc=rescue_width(o, L), omit_sec=o.omit_sec_seq,
+            n_rep=max(2, min(o.khits, 5)), MB=min(B, max(32, B // 16)),
+            wire_nvbits=wire_nvbits)
+    with _metrics.span("submit.d2h", None, m, "t_pack"):
+        host, ready = _to_host_async({"pack": pack, **extras})
     pack_h = host.pop("pack")
     host["_wire"] = (L, wire_nvbits)
-    m = aligner.metrics
     m.reads += 2 * B
     m.bases += int(b1.lens.sum()) + int(b2.lens.sum())
     m.batches += 1
-    m.t_pack += time.perf_counter() - t0
     return pack_h, m1, m2, pt, host, ready
 
 

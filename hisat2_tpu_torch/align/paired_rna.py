@@ -29,12 +29,11 @@ Here the equivalent is built batch-first:
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..io.reads import ReadBatch
+from ..utils import metrics as _metrics
 from .pipeline import NEG_INF, Aligner
 from . import paired as _paired
 
@@ -380,12 +379,19 @@ def finish_pe_rna(al: Aligner, handle, writer) -> dict:
     """Host half of the spliced PE path: wait for the step's copies,
     splice-rescue the 2B rows, pair on the augmented grid, format fast
     pairs natively, ladder the rest."""
-    from . import emit as _emit
     _, b1, b2, bcat, _fp, merged_dev, extras, ready = handle
-    t0 = time.perf_counter()
-    if ready is not None:
-        ready.synchronize()
-    al.metrics.t_fetch += time.perf_counter() - t0
+    m = al.metrics
+    with _metrics.span("finish", b1, m, "t_host"):
+        with _metrics.span("finish.fetch", None, m, "t_fetch"):
+            if ready is not None:
+                ready.synchronize()
+        return _finish_pe_rna(al, b1, b2, bcat, merged_dev, extras, writer)
+
+
+def _finish_pe_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch,
+                   bcat: ReadBatch, merged_dev, extras, writer) -> dict:
+    """finish_pe_rna once the step's copies have come."""
+    from . import emit as _emit
     ex = {k: v.numpy() if torch.is_tensor(v) else v
           for k, v in extras.items()}
     B = len(b1)
@@ -418,7 +424,8 @@ def finish_pe_rna(al: Aligner, handle, writer) -> dict:
         mgap[miss] = (mg[:, :, 2] & 2) > 0
     merged = dict(score=msc, pos=mpos, fw=mfw, gapped=mgap)
 
-    _rna_rescue_rounds(al, bcat, merged, ex, lens_c)
+    with _metrics.span("finish.rescue", None, al.metrics, "t_rescue"):
+        _rna_rescue_rounds(al, bcat, merged, ex, lens_c)
 
     # split into mates
     def sub(lo, hi):
@@ -429,9 +436,7 @@ def finish_pe_rna(al: Aligner, handle, writer) -> dict:
     spl_all = merged.get("splice", {})
     m1["splice"] = {i: v for i, v in spl_all.items() if i < B}
     m2["splice"] = {i - B: v for i, v in spl_all.items() if i >= B}
-    st = pair_finish_rna(al, b1, b2, bcat, m1, m2, writer)
-    al.metrics.t_host += time.perf_counter() - t0
-    return st
+    return pair_finish_rna(al, b1, b2, bcat, m1, m2, writer)
 
 
 def rescue_pair_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch, m1, m2,
@@ -666,25 +671,26 @@ def pair_finish_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch,
                  np.diff(f1["mm_off"])),
                 (f2["mm_cols"], f2["mm_ref"], f2["mm_off"],
                  np.diff(f2["mm_off"])), nrec)
-            fbuf, rec_ends = _emit._format_pe_records(
-                al, b1, b2, frows, iread, ilv(flag1, flag2),
-                ilv(f1["tidx"], f2["tidx"]),
-                ilv((toff1 + 1).astype(np.int32),
-                    (toff2 + 1).astype(np.int32)),
-                ilv(mq_rec, mq_rec),
-                ilv(f1["c5"], f2["c5"]), ilv(f1["mid"], f2["mid"]),
-                ilv(f1["c3"], f2["c3"]),
-                ilv((toff2 + 1).astype(np.int32),
-                    (toff1 + 1).astype(np.int32)),
-                ilv(tl1.astype(np.int32), (-tl1).astype(np.int32)),
-                np.full(2 * nrec, 1, np.int32),
-                ilv(f1["score"], f2["score"]),
-                ilv(f1["nmm"], f2["nmm"]),
-                np.full(2 * nrec, INT32_MIN, np.int32),
-                ilv(nh, nh), immcols, immref, immoff,
-                m1=ilv(f1["m1"], f2["m1"]),
-                gapn=ilv(f1["gap"], f2["gap"]),
-                xs=ilv(f1["xs"], f2["xs"]))
+            with _metrics.span("finish.native"):
+                fbuf, rec_ends = _emit._format_pe_records(
+                    al, b1, b2, frows, iread, ilv(flag1, flag2),
+                    ilv(f1["tidx"], f2["tidx"]),
+                    ilv((toff1 + 1).astype(np.int32),
+                        (toff2 + 1).astype(np.int32)),
+                    ilv(mq_rec, mq_rec),
+                    ilv(f1["c5"], f2["c5"]), ilv(f1["mid"], f2["mid"]),
+                    ilv(f1["c3"], f2["c3"]),
+                    ilv((toff2 + 1).astype(np.int32),
+                        (toff1 + 1).astype(np.int32)),
+                    ilv(tl1.astype(np.int32), (-tl1).astype(np.int32)),
+                    np.full(2 * nrec, 1, np.int32),
+                    ilv(f1["score"], f2["score"]),
+                    ilv(f1["nmm"], f2["nmm"]),
+                    np.full(2 * nrec, INT32_MIN, np.int32),
+                    ilv(nh, nh), immcols, immref, immoff,
+                    m1=ilv(f1["m1"], f2["m1"]),
+                    gapn=ilv(f1["gap"], f2["gap"]),
+                    xs=ilv(f1["xs"], f2["xs"]))
             last_rec = 2 * np.cumsum(nr) - 1
             pair_end[frows] = rec_ends[last_rec]
             stats["pairs"] += int(frows.size)
@@ -696,18 +702,21 @@ def pair_finish_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     # ---- per-pair ladder for everything else ----
     slow = np.flatnonzero(~fastpe)
     slow_out: dict[int, list] = {}
+    _metrics.count("slow_reads", 2 * int(slow.size))
     if slow.size:
-        mate_cands, finalize = _paired.mate_fns(al)
-        rescue: list[tuple] = []
-        prs: dict[int, object] = {}
-        for i in slow:
-            i = int(i)
-            prs[i] = _paired._pair_result_one(
-                al, i, b1, b2, m1, m2, None, mate_cands, finalize, rescue)
-        if rescue:
-            _paired._rescue_mates(al, b1, b2, prs, rescue, finalize)
-        for i, pr in prs.items():
-            slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
+        with _metrics.span("finish.ladder"):
+            mate_cands, finalize = _paired.mate_fns(al)
+            rescue: list[tuple] = []
+            prs: dict[int, object] = {}
+            for i in slow:
+                i = int(i)
+                prs[i] = _paired._pair_result_one(
+                    al, i, b1, b2, m1, m2, None, mate_cands, finalize,
+                    rescue)
+            if rescue:
+                _paired._rescue_mates(al, b1, b2, prs, rescue, finalize)
+            for i, pr in prs.items():
+                slow_out[i] = _paired.pair_lines(al, b1, b2, i, pr, stats)
 
     _emit._write_in_order(writer, fbuf, fastpe, pair_end, slow_out)
     return stats

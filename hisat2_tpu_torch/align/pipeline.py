@@ -46,7 +46,6 @@ clamped explicitly wherever the JAX code relied on clamping gathers.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -63,6 +62,7 @@ from ..ops import sw as _sw
 from ..ops.dp_cuda import dp_score
 from ..ops.extend import NEG_INF
 from ..utils import alphabet
+from ..utils import metrics as _metrics
 from ..utils.metrics import Metrics
 from . import mapq as _mapq
 from . import splice_model as _splice_model
@@ -906,8 +906,9 @@ class Aligner:
         extras, ready): fastpack and extras are host tensors that are
         complete once `ready` (a CUDA event, None on the CPU) has been
         waited on; merged (B, K2, 3) stays on the device for slow-row
-        gathers (gather_merged_async)."""
-        t0 = time.perf_counter()
+        gathers (gather_merged_async). Its spans submit.pack (the packing
+        and uploads), submit.step (queueing the step) and submit.d2h
+        (the copies) feed Metrics.t_pack."""
         o = self.opts
         B = len(batch)
         L = batch.seqs.shape[1]
@@ -918,8 +919,13 @@ class Aligner:
         m.seeds += 2 * B * o.n_seeds
         m.table_probes += 2 * B * o.n_seeds
         m.candidates += 2 * B * o.verify_cands
-        seq_w, n_w, quals, qconst, lens = batch.packed()
-        up = self._up
+        with _metrics.span("submit.pack", None, m, "t_pack"):
+            seq_w, n_w, quals, qconst, lens = batch.packed()
+            up = self._up
+            dev_in = (up(seq_w.astype(np.int64), torch.int64),
+                      up(n_w.astype(np.int64), torch.int64),
+                      None if quals is None else up(quals, I32), qconst,
+                      up(lens, I32))
         sc = self.scoring
         K2 = min(2 * o.top_cands, max(8, o.khits + 3))
         spl_kw = {}
@@ -936,29 +942,27 @@ class Aligner:
                 SPL=(TB, o.pairs_per_read, min(TB, max(128, TB // 4)), 4,
                      2 * TB, o.dta,
                      max(1, min(8, -(-o.max_intron // 65536)))))
-        fp, merged, extras = _stage_align_packed(
-            self.idx, self.sctab,
-            up(seq_w.astype(np.int64), torch.int64),
-            up(n_w.astype(np.int64), torch.int64),
-            None if quals is None else up(quals, I32), qconst,
-            up(lens, I32), float(sc.score_min.I), float(sc.score_min.S),
-            min(sc.read_gap_open(), sc.ref_gap_open()),
-            B, L, o.max_seeds, o.n_seeds, o.locs_per_seg, o.top_cands,
-            self.min_seg_len, self.fm.ftab_k, K2,
-            max(1, min(o.khits, 5)), min(B, max(32, B // 8)),
-            min(B, max(64, B // 8)), o.dp_pad, o.no_dp, o.nofw, o.norc,
-            self.seeder, self.fb_seeder,
-            self.sc_const, khits=o.khits,
-            SB=B if o.spliced else min(B, max(64, B // 16)),
-            omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)),
-            VC=o.verify_cands, spliced=o.spliced,
-            spl_margin=self._spl_margin(batch), **spl_kw)
-        host, ready = _to_host_async({"fp": fp, **extras})
+        with _metrics.span("submit.step", None, m, "t_pack"):
+            fp, merged, extras = _stage_align_packed(
+                self.idx, self.sctab, *dev_in,
+                float(sc.score_min.I), float(sc.score_min.S),
+                min(sc.read_gap_open(), sc.ref_gap_open()),
+                B, L, o.max_seeds, o.n_seeds, o.locs_per_seg, o.top_cands,
+                self.min_seg_len, self.fm.ftab_k, K2,
+                max(1, min(o.khits, 5)), min(B, max(32, B // 8)),
+                min(B, max(64, B // 8)), o.dp_pad, o.no_dp, o.nofw, o.norc,
+                self.seeder, self.fb_seeder,
+                self.sc_const, khits=o.khits,
+                SB=B if o.spliced else min(B, max(64, B // 16)),
+                omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)),
+                VC=o.verify_cands, spliced=o.spliced,
+                spl_margin=self._spl_margin(batch), **spl_kw)
+        with _metrics.span("submit.d2h", None, m, "t_pack"):
+            host, ready = _to_host_async({"fp": fp, **extras})
         if spl_kw:
             # lanes were enumerated against this site table; the finish
             # re-runs rows that sites published later could affect
             host["spl_ssv"] = self.ssdb.version()
-        m.t_pack += time.perf_counter() - t0
         return host.pop("fp"), merged, host, ready
 
     def _dev_oriented(self, batch: ReadBatch):
@@ -998,7 +1002,8 @@ class Aligner:
 
     def gather_merged_async(self, merged_dev, rows: np.ndarray):
         """Start the gather + host copy of the merged rows of slow reads;
-        returns a closure that waits for and returns them (numpy)."""
+        returns a closure that waits for and returns them (numpy), its
+        wait a finish.gather span that feeds Metrics.t_gather."""
         if rows.size == 0:
             empty = np.zeros((0,) + tuple(merged_dev.shape[1:]), np.int32)
             return lambda: empty
@@ -1006,8 +1011,10 @@ class Aligner:
         got, ready = _to_host_async({"g": merged_dev[ix]})
 
         def wait():
-            if ready is not None:
-                ready.synchronize()
+            with _metrics.span("finish.gather", None, self.metrics,
+                               "t_gather"):
+                if ready is not None:
+                    ready.synchronize()
             return got["g"].numpy()
         return wait
 

@@ -198,6 +198,7 @@ def main(argv=None) -> int:
     from ..index.fm_index import FMIndex
     from ..io import sam as samio
     from ..io.reads import read_reads, read_tab6, batch_iter, batchify
+    from ..utils import metrics as _metrics
 
     # quality scale (pat.h:96 PatternParams): one decode mode for all
     # readers
@@ -614,18 +615,26 @@ def main(argv=None) -> int:
             from ..align.emit import align_and_emit_pe_stream
 
             def pair_batches():
+                # each step, from its resume to its yield, is a `reads`
+                # span (utils/metrics)
                 nonlocal rdid
-                bb1, bb2 = [], []
-                for a, b in pairs:
-                    a.rdid = b.rdid = rdid
-                    rdid += 1
-                    bb1.append(a)
-                    bb2.append(b)
-                    if len(bb1) == args.batch_size:
-                        yield _pad_pair(bb1, bb2, batchify)
+                it = iter(pairs)
+                while True:
+                    with _metrics.span("reads") as sp:
                         bb1, bb2 = [], []
-                if bb1:
-                    yield _pad_pair(bb1, bb2, batchify)
+                        for a, b in it:
+                            a.rdid = b.rdid = rdid
+                            rdid += 1
+                            bb1.append(a)
+                            bb2.append(b)
+                            if len(bb1) == args.batch_size:
+                                break
+                        pb = _pad_pair(bb1, bb2, batchify) if bb1 else None
+                        if pb is not None:
+                            sp.set_batch(pb[0])
+                    if pb is None:
+                        return
+                    yield pb
 
             def _tick(bb, st):
                 nonlocal nreads

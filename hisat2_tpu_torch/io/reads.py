@@ -9,6 +9,12 @@ encoded/padded into dense (B, L) arrays for the device wavefront
 
 Gzip/bzip2 inputs are decompressed transparently (the reference does this in
 its Perl wrapper).
+
+Traced (utils/metrics): each step of batch_iter is a `reads` span, the
+opening of a text input (reads, reference, annotations) an `input.open`
+span, and the wall time of the raw reads under a gzipped input's
+decompressor the counter `input.source_ns`: the wait for the input pipe
+or file.
 """
 
 from __future__ import annotations
@@ -17,12 +23,14 @@ import bz2
 import gzip
 import io
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
 from ..utils import alphabet
+from ..utils import metrics as _metrics
 
 
 @dataclass
@@ -49,11 +57,42 @@ class Read:
 
 def _open_text(path: str | os.PathLike) -> io.TextIOBase:
     path = os.fspath(path)
-    if path.endswith(".gz"):
-        return io.TextIOWrapper(gzip.open(path, "rb"))
-    if path.endswith(".bz2"):
-        return io.TextIOWrapper(bz2.open(path, "rb"))
-    return open(path, "rt")
+    with _metrics.span("input.open"):
+        if path.endswith(".gz"):
+            return io.TextIOWrapper(_Gzip(path))
+        if path.endswith(".bz2"):
+            return io.TextIOWrapper(bz2.open(path, "rb"))
+        return open(path, "rt")
+
+
+class _Source:
+    """A file whose raw reads add their wall time to the tracer's counter
+    `input.source_ns` (a no-op with the tracer off)."""
+    __slots__ = ("fh",)
+
+    def __init__(self, fh):
+        self.fh = fh
+
+    def read(self, n=-1):
+        t0 = time.perf_counter_ns()
+        b = self.fh.read(n)
+        _metrics.count("input.source_ns", time.perf_counter_ns() - t0)
+        return b
+
+
+class _Gzip(gzip.GzipFile):
+    """gzip.open(path, "rb") reading the file through a _Source (gzip
+    reads it 128 KiB at a time); closes the file."""
+
+    def __init__(self, path: str):
+        self._raw = open(path, "rb")
+        super().__init__(fileobj=_Source(self._raw), mode="rb")
+
+    def close(self):
+        try:
+            super().close()
+        finally:
+            self._raw.close()
 
 
 # Solexa (pre-1.3 Illumina) quality -> phred (reference
@@ -277,14 +316,23 @@ def batchify(reads: Sequence[Read], max_len: int | None = None,
 
 def batch_iter(reads: Iterable[Read], batch_size: int,
                pad_to: int | None = None) -> Iterator[ReadBatch]:
-    buf: list[Read] = []
-    for r in reads:
-        buf.append(r)
-        if len(buf) == batch_size:
-            yield batchify(buf, pad_to=pad_to)
-            buf = []
-    if buf:
-        yield batchify(buf, pad_to=pad_to)
+    """Batches of batch_size reads, the last one shorter. Each step, from
+    its resume to its yield (the end of the input too), is a `reads`
+    span."""
+    it = iter(reads)
+    while True:
+        with _metrics.span("reads") as sp:
+            buf: list[Read] = []
+            for r in it:
+                buf.append(r)
+                if len(buf) == batch_size:
+                    break
+            b = batchify(buf, pad_to=pad_to) if buf else None
+            if b is not None:
+                sp.set_batch(b)
+        if b is None:
+            return
+        yield b
 
 
 def read_fasta_continuous(path, k: int, step: int = 1,

@@ -5,8 +5,10 @@ wrappers (ops/dp_cuda.py, ops/anchor_cuda.py).
 Each source is compiled once a process, on first use, into the package's
 git-ignored `_build/kernels/` directory; `build` runs one nvcc for each
 source not yet built, all at once, and waits for them (`seconds` keeps
-each compile's wall time). Nothing here runs when a module is imported:
-this package imports on machines without the CUDA toolkit.
+each compile's wall time; the process counter `kernel_build_ns` of
+utils/metrics, the wall time `build` waited for them). Nothing here runs
+when a module is imported: this package imports on machines without the
+CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from ..utils import metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -66,9 +70,11 @@ def build(*sources: str) -> list[tuple[str, str]]:
     todo = [s for s in dict.fromkeys(sources) if s not in _built]
     if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)
+        t0 = time.perf_counter_ns()
         with ThreadPoolExecutor(len(todo)) as pool:
             for src, (so_path, report, sec) in zip(todo,
                                                    pool.map(_compile, todo)):
                 _built[src] = (so_path, report)
                 seconds[src] = sec
+        metrics.count_process("kernel_build_ns", time.perf_counter_ns() - t0)
     return [_built[s] for s in sources]
