@@ -2937,11 +2937,11 @@ def cli_phase(fm, codes, txs, rps, pps, card, device="cuda"):
     # 3-4. SE reads through the CLI as a subprocess; first the CLI's read
     # layer alone on this host (parse, _reindex, batches: the main thread's
     # work before a batch reaches the stream) on all of its batches
-    from hisat2_tpu_torch.io.reads import batch_iter, read_reads
+    from hisat2_tpu_torch.io.reads import batch_iter, read_source
     seqs, starts, indel = simulate_reads(fm.ref.joined, CLI_SE, seed=7)
     write_fastq(p["fq"], seqs)
     t0 = time.perf_counter()
-    first = list(batch_iter(cli_align._reindex(read_reads(p["fq"]),
+    first = list(batch_iter(cli_align._reindex(read_source([p["fq"]]),
                                                upto=CLI_SE), CLI_BATCH))
     t_parse = time.perf_counter() - t0
     # then the stream alone over all but the last of those batches, on
@@ -2957,7 +2957,7 @@ def cli_phase(fm, codes, txs, rps, pps, card, device="cuda"):
     n_timed = sum(len(b) for b in first[:-1])
     n_parse = sum(len(b) for b in first)
     out.update(parse_rps=n_parse / t_parse, stream_rps=n_timed / t_stream)
-    print(f"[cli] the read layer alone (read_reads, _reindex, batch_iter "
+    print(f"[cli] the read layer alone (read_source, _reindex, batch_iter "
           f"on the main thread): {n_parse} reads in {t_parse:.2f} s = "
           f"{n_parse / t_parse:.1f} reads/s; the stream alone on "
           f"{len(first) - 1} of its batches: {n_timed / t_stream:.1f} "

@@ -197,7 +197,8 @@ def main(argv=None) -> int:
     from ..align.scoring import Scoring
     from ..index.fm_index import FMIndex
     from ..io import sam as samio
-    from ..io.reads import read_reads, read_tab6, batch_iter, batchify
+    from ..io.reads import (read_reads, read_source, read_tab6, batch_iter,
+                            batchify)
     from ..utils import metrics as _metrics
 
     # quality scale (pat.h:96 PatternParams): one decode mode for all
@@ -432,9 +433,8 @@ def main(argv=None) -> int:
                                       int(kv.get("i", 1)))
                 for p in args.unpaired.split(",")])
         else:
-            readers = [read_reads(p, fmt, args.phred64)
-                       for p in args.unpaired.split(",")]
-            stream = itertools.chain(*readers)
+            stream = read_source(args.unpaired.split(","), fmt,
+                                 args.phred64)
         from ..align.emit import align_and_emit_stream
         stream = _reindex(stream, args.skip, args.qupto, args.trim5,
                           args.trim3, args.ignore_quals, args.qc_filter)
@@ -667,7 +667,18 @@ def main(argv=None) -> int:
 
 def _reindex(stream, skip=0, upto=None, trim5=0, trim3=0,
              ignore_quals=False, qc_filter=False):
-    """rdid assignment + -s/-u/-5/-3/--ignore-quals preprocessing."""
+    """rdid assignment + -s/-u/-5/-3/--ignore-quals preprocessing: the
+    block parser's, on a FASTQ source with character qualities (FASTQ has
+    no QSEQ filter field), else read by read."""
+    from ..io.reads import FastqFiles
+    if isinstance(stream, FastqFiles) and stream.blocks:
+        return stream.reindexed(skip, upto, trim5, trim3, ignore_quals)
+    return _reindex_reads(stream, skip, upto, trim5, trim3, ignore_quals,
+                          qc_filter)
+
+
+def _reindex_reads(stream, skip, upto, trim5, trim3, ignore_quals,
+                   qc_filter):
     import numpy as np
     n = 0
     for rdid, r in enumerate(stream):
@@ -749,7 +760,6 @@ def _repeat_pass(rep_aligner, batch, results, al=None, khits: int = 5):
     placements expand to up to `khits` GENOMIC records, each re-finalized
     against its own genome copy."""
     import numpy as np
-    from ..io.reads import batchify
     from ..align.pipeline import Alignment, ReadResult
 
     ktab = getattr(rep_aligner, "kmer_table", None)
@@ -766,8 +776,7 @@ def _repeat_pass(rep_aligner, batch, results, al=None, khits: int = 5):
                 or (r.secbest is not None and r.secbest == r.best)]
     if not cand:
         return
-    sub = batchify([batch.reads[i] for i in cand],
-                   pad_to=batch.seqs.shape[1])
+    sub = batch.take(cand)
     rep_out = rep_aligner.align_repeats(sub)
     report_rep = getattr(rep_aligner, "report_repeat_coords", True)
     for k, i in enumerate(cand):

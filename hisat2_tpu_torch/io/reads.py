@@ -10,18 +10,27 @@ encoded/padded into dense (B, L) arrays for the device wavefront
 Gzip/bzip2 inputs are decompressed transparently (the reference does this in
 its Perl wrapper).
 
+FASTQ has one grammar, the native block parser's (native/fastq.cpp): a
+FastqFiles source (read_source, when every input is FASTQ) is read in
+blocks of BLOCK decompressed bytes, and batch_iter fills each batch's
+arrays from them with one call that releases the interpreter lock;
+read_fastq is a per-Read view over the same parser.
+
 Traced (utils/metrics): each step of batch_iter is a `reads` span, the
 opening of a text input (reads, reference, annotations) an `input.open`
 span, and the wall time of the raw reads under a gzipped input's
 decompressor the counter `input.source_ns`: the wait for the input pipe
-or file.
+or file; the counters `reads_batched` (the reads batch_iter yields) and
+`reads_block` (those of them the block parser put into a batch).
 """
 
 from __future__ import annotations
 
 import bz2
+import dataclasses
 import gzip
 import io
+import itertools
 import os
 import time
 from dataclasses import dataclass, field
@@ -118,22 +127,192 @@ def _parse_qual(qstr: str, qscale=False) -> np.ndarray:
     return np.clip(q, 0, 62)
 
 
+BLOCK = 1 << 20   # decompressed FASTQ bytes read at a time
+_CHUNK = 1024     # records a step of read_fastq's view parses
+
+_SEQ_TAB = alphabet.encode(bytes(range(256)))
+_FASTQ_FAULTS = {-1: "a header with no read name",
+                 -2: "a non-ASCII character in its sequence",
+                 -3: "a non-ASCII character in its qualities",
+                 -4: "bytes that are not UTF-8",
+                 -5: "fewer qualities than bases"}
+
+
+def _qual_table(qscale) -> np.ndarray:
+    """Byte -> quality under `qscale`, as _parse_qual decodes each ASCII
+    character (the parser looks up no other byte)."""
+    t = np.zeros(256, np.int8)
+    if qscale != "int":
+        t[:128] = _parse_qual(bytes(range(128)).decode("ascii"), qscale)
+    return t
+
+
+@dataclass(frozen=True)
+class FastqFiles:
+    """FASTQ files (plain, .gz or .bz2) read in turn as one stream of
+    records, numbered from start_rdid. batch_iter builds its batches from
+    their bytes in blocks; iterating gives each record as a Read.
+
+    skip/upto/trim5/trim3/ignore_quals are cli.align's -s/-u/-5/-3/
+    --ignore-quals (set by `reindexed`): the first `skip` records are
+    dropped, at most `upto` kept, each keeps seq[trim5:len - trim3] and the
+    same slice of its qualities, and ignore_quals makes every quality 30.
+    Integer qualities (qscale "int") are read as text by the per-Read
+    view only, without these."""
+    paths: tuple
+    qscale: object = False
+    start_rdid: int = 0
+    skip: int = 0
+    upto: int | None = None
+    trim5: int = 0
+    trim3: int = 0
+    ignore_quals: bool = False
+
+    @property
+    def blocks(self) -> bool:
+        """batch_iter fills batches from blocks and `reindexed` applies:
+        the qualities are characters."""
+        return self.qscale != "int"
+
+    def reindexed(self, skip=0, upto=None, trim5=0, trim3=0,
+                  ignore_quals=False) -> "FastqFiles":
+        """These files with the preprocessing, rdids from 0."""
+        return dataclasses.replace(
+            self, start_rdid=0, skip=skip, upto=upto, trim5=trim5,
+            trim3=trim3, ignore_quals=bool(ignore_quals))
+
+    def __iter__(self) -> Iterator[Read]:
+        blocks = _FastqBlocks(self, raw=True)
+        try:
+            while (got := blocks.take(_CHUNK)) is not None:
+                seqs, quals, lens, qlens, names, rdids = got
+                for i, name in enumerate(names):
+                    q = quals[i, :qlens[i]]
+                    q = (_parse_qual(q.tobytes().decode(), "int")
+                         if self.qscale == "int" else q.astype(np.int32))
+                    yield Read(name, seqs[i, :lens[i]].copy(), q,
+                               int(rdids[i]))
+        finally:
+            blocks.close()
+
+
+class _FastqBlocks:
+    """One pass over a FastqFiles: each file opened in turn through
+    _open_text, read BLOCK bytes at a time from under its text layer, and
+    parsed whole records at a time by native fastq_parse. A record cut by
+    a block's end waits for the next block."""
+
+    def __init__(self, src: FastqFiles, raw: bool):
+        from ..native import fastq_lib
+        self.lib = fastq_lib()
+        self.src, self.raw = src, raw
+        self.paths = iter(src.paths)
+        self.fh = self.path = None
+        self.skip, self.left, self.rdid = src.skip, src.upto, src.start_rdid
+        self.width = 8            # the last batch's row length
+        self.qual_tab = _qual_table(src.qscale)
+        self.names = np.empty(0, np.uint8)
+        self.out = np.zeros(5, np.int64)
+
+    def close(self) -> None:
+        if self.fh is not None:
+            self.fh.close()
+            self.fh = None
+        self.paths = iter(())
+
+    def _open(self, path) -> None:
+        self.fh, self.path = _open_text(path), path
+        self.buf = np.empty(0, np.uint8)
+        self.pos = self.base = 0          # base: file bytes before buf
+        self.eof = False
+
+    def _more(self) -> None:
+        blk = self.fh.buffer.read(BLOCK)
+        if not blk:
+            self.eof = True
+            return
+        tail = self.buf[self.pos:].tobytes()
+        self.base += self.pos
+        self.buf = np.frombuffer(tail + blk if tail else blk, np.uint8)
+        self.pos = 0
+
+    def take(self, n: int):
+        """Up to n records as (seqs, quals, lens, qlens, names, rdids), or
+        None past the input's end. Batch rows (raw False) are batchify's:
+        the longest read rounded up to 8, at least 8. Raw rows hold each
+        record's bases (lens) and qualities (qlens, the quality line's
+        bytes for "int")."""
+        if self.left is not None:
+            n = min(n, self.left)
+        src, W = self.src, self.width
+        seqs = np.empty((n, W), np.uint8)
+        quals = np.empty((n, W), np.int8)
+        lens = np.empty(n, np.int32)
+        qlens = np.empty(n, np.int32)
+        names, rows = [], 0
+        while rows < n:
+            if self.fh is None:
+                path = next(self.paths, None)
+                if path is None:
+                    break
+                self._open(path)
+            nb = self.buf.size - self.pos
+            if self.names.size < nb:
+                self.names = np.empty(max(nb, BLOCK), np.uint8)
+            st = self.lib.fastq_parse(
+                self.buf.ctypes.data + self.pos, nb, self.eof, n - rows,
+                self.skip, W, _SEQ_TAB, self.qual_tab,
+                src.trim5, src.trim3, src.ignore_quals, self.raw,
+                src.qscale == "int", seqs[rows:], quals[rows:],
+                lens[rows:], qlens[rows:], self.names, self.out)
+            got, used, skipped, nname, need = self.out.tolist()
+            if got:
+                names.append(self.names[:nname].tobytes())
+            rows += got
+            self.pos += used
+            self.skip -= skipped
+            if st == 0 and rows < n:              # this file's end
+                self.fh.close()
+                self.fh = None
+            elif st == 1:
+                self._more()
+            elif st == 2:
+                W = -(-max(need, W + W // 2) // 8) * 8
+                seqs = _widen(seqs, rows, W, alphabet.N)
+                quals = _widen(quals, rows, W, 0)
+            elif st < 0:
+                raise ValueError(
+                    f"{os.fspath(self.path)}: the FASTQ record at byte "
+                    f"{self.base + self.pos} has {_FASTQ_FAULTS[st]}")
+        if rows == 0:
+            return None
+        seqs, quals, lens, qlens = seqs[:rows], quals[:rows], lens[:rows], \
+            qlens[:rows]
+        if self.raw:
+            self.width = W
+        else:
+            L = max(8, -(-int(lens.max()) // 8) * 8)
+            if L != W:
+                seqs = np.ascontiguousarray(seqs[:, :L])
+                quals = np.ascontiguousarray(quals[:, :L])
+            self.width = L
+        rdids = np.arange(self.rdid, self.rdid + rows, dtype=np.int64)
+        self.rdid += rows
+        if self.left is not None:
+            self.left -= rows
+        return (seqs, quals, lens, qlens,
+                b"".join(names)[:-1].decode().split("\n"), rdids)
+
+
+def _widen(a: np.ndarray, rows: int, width: int, pad) -> np.ndarray:
+    """a with rows of `width`, its first `rows` rows copied (padded)."""
+    w = np.full((a.shape[0], width), pad, a.dtype)
+    w[:rows, :a.shape[1]] = a[:rows]
+    return w
+
+
 def read_fastq(path, phred64=False, start_rdid: int = 0) -> Iterator[Read]:
-    with _open_text(path) as fh:
-        rdid = start_rdid
-        while True:
-            hdr = fh.readline()
-            if not hdr:
-                return
-            hdr = hdr.strip()
-            if not hdr:
-                continue
-            seq = fh.readline().strip()
-            fh.readline()  # '+'
-            qual = fh.readline().strip()
-            yield Read(hdr[1:].split()[0], alphabet.encode(seq),
-                       _parse_qual(qual, phred64), rdid)
-            rdid += 1
+    return iter(FastqFiles((path,), phred64, start_rdid))
 
 
 def read_fasta(path, start_rdid: int = 0) -> Iterator[Read]:
@@ -210,15 +389,21 @@ def read_qseq(path, phred64=True, start_rdid: int = 0
             rdid += 1
 
 
-def read_reads(path, fmt: str | None = None, phred64=False,
-               start_rdid: int = 0) -> Iterator[Read]:
-    """Auto-dispatch on extension unless fmt given ('fastq'|'fasta')."""
+def _format(path, fmt: str | None) -> str | None:
+    """fmt, or where it is None the format that path's extension names."""
     if fmt is None:
         p = os.fspath(path)
         for ext in (".gz", ".bz2"):
             if p.endswith(ext):
                 p = p[: -len(ext)]
         fmt = "fasta" if p.endswith((".fa", ".fasta", ".mfa", ".fna", ".ffn")) else "fastq"
+    return fmt
+
+
+def read_reads(path, fmt: str | None = None, phred64=False,
+               start_rdid: int = 0) -> Iterator[Read]:
+    """Auto-dispatch on extension unless fmt given ('fastq'|'fasta')."""
+    fmt = _format(path, fmt)
     if fmt == "fasta":
         return read_fasta(path, start_rdid)
     if fmt == "raw":
@@ -226,6 +411,15 @@ def read_reads(path, fmt: str | None = None, phred64=False,
     if fmt == "qseq":
         return read_qseq(path, phred64, start_rdid)
     return read_fastq(path, phred64, start_rdid)
+
+
+def read_source(paths: Sequence, fmt: str | None = None, phred64=False):
+    """The reads of `paths` in turn: a FastqFiles where every path is
+    FASTQ (batch_iter then builds batches from blocks), else the per-Read
+    readers chained."""
+    if all(_format(p, fmt) == "fastq" for p in paths):
+        return FastqFiles(tuple(paths), phred64)
+    return itertools.chain(*[read_reads(p, fmt, phred64) for p in paths])
 
 
 @dataclass
@@ -246,6 +440,14 @@ class ReadBatch:
 
     def __len__(self) -> int:
         return int(self.lens.size)
+
+    def take(self, rows: Sequence[int]) -> "ReadBatch":
+        """The batch of these rows, at the same row length: what batchify
+        gives for their reads with pad_to the batch's row length."""
+        idx = np.asarray(rows, np.int64)
+        return ReadBatch(self.seqs[idx], self.quals[idx], self.lens[idx],
+                         [self.names[i] for i in rows], self.rdids[idx],
+                         [self.reads[i] for i in rows] if self.reads else [])
 
     def packed(self):
         """Transfer-packed form: (seq_words, n_words, quals_or_None,
@@ -314,12 +516,36 @@ def batchify(reads: Sequence[Read], max_len: int | None = None,
     return ReadBatch(seqs, quals, lens, names, rdids, list(reads))
 
 
-def batch_iter(reads: Iterable[Read], batch_size: int,
-               pad_to: int | None = None) -> Iterator[ReadBatch]:
-    """Batches of batch_size reads, the last one shorter. Each step, from
-    its resume to its yield (the end of the input too), is a `reads`
-    span."""
-    it = iter(reads)
+def batch_iter(reads: Iterable[Read], batch_size: int) -> Iterator[ReadBatch]:
+    """Batches of batch_size reads, the last one shorter: from blocks of
+    the bytes of a FastqFiles with character qualities (its ReadBatch.reads
+    empty), else from the Reads through batchify. Each step, from its
+    resume to its yield (the end of the input too), is a `reads` span."""
+    if isinstance(reads, FastqFiles) and reads.blocks:
+        return _block_batches(reads, batch_size)
+    return _read_batches(iter(reads), batch_size)
+
+
+def _block_batches(src: FastqFiles, batch_size: int) -> Iterator[ReadBatch]:
+    blocks = _FastqBlocks(src, raw=False)
+    try:
+        while True:
+            with _metrics.span("reads") as sp:
+                got = blocks.take(batch_size)
+                if got is not None:
+                    seqs, quals, lens, _, names, rdids = got
+                    b = ReadBatch(seqs, quals, lens, names, rdids)
+                    sp.set_batch(b)
+                    _metrics.count("reads_block", len(b))
+                    _metrics.count("reads_batched", len(b))
+            if got is None:
+                return
+            yield b
+    finally:
+        blocks.close()
+
+
+def _read_batches(it: Iterator[Read], batch_size: int) -> Iterator[ReadBatch]:
     while True:
         with _metrics.span("reads") as sp:
             buf: list[Read] = []
@@ -327,9 +553,10 @@ def batch_iter(reads: Iterable[Read], batch_size: int,
                 buf.append(r)
                 if len(buf) == batch_size:
                     break
-            b = batchify(buf, pad_to=pad_to) if buf else None
+            b = batchify(buf) if buf else None
             if b is not None:
                 sp.set_batch(b)
+                _metrics.count("reads_batched", len(b))
         if b is None:
             return
         yield b

@@ -9,9 +9,11 @@ via ctypes (no pybind dependency):
   dpkernel.cpp  — single-pair affine-gap DP traceback
   juncscore.cpp — threaded host junction scorer + acceptance gates
                   (ops/splice_host.junction_score_gate)
+  fastq.cpp     — the FASTQ block parser (io/reads: batch_iter's blocks,
+                  read_fastq)
 
-The sources are copies of the JAX package's, so both packages format SAM
-and trace back gapped alignments with the same code. Libraries build into
+The first five sources are copies of the JAX package's, so both packages
+format SAM and trace back gapped alignments with the same code. Libraries build into
 the package's own `_build/native/` directory (git-ignored). A failed
 build raises: the aligner has no slower path to fall back to.
 """
@@ -231,5 +233,22 @@ def juncscore_lib() -> ctypes.CDLL:
             _c_i64, _c_i64,              # canon/noncanon pen
             f64, f64,                    # donor/acceptor PWM
             _i64, f32, _c_i32]           # out, out_ps, nthreads
+        lib._configured = True
+    return lib
+
+
+def fastq_lib() -> ctypes.CDLL:
+    lib = load("fastq", "fastq.cpp")
+    if not getattr(lib, "_configured", False):
+        i8 = ndpointer(np.int8, flags="C_CONTIGUOUS")
+        lib.fastq_parse.restype = _c_i32
+        lib.fastq_parse.argtypes = [
+            ctypes.c_void_p, _c_i64, _c_i32,  # buf, nbytes, at_eof
+            _c_i64, _c_i64,              # max_records, skip
+            _c_i32, _u8, i8,             # width, seq_tab, qual_tab
+            _c_i64, _c_i64, _c_i32,      # trim5, trim3, ignore_quals
+            _c_i32, _c_i32,              # raw, qual_bytes
+            _u8, i8, _i32, _i32,         # seqs, quals, lens, qlens
+            _u8, _i64]                   # names, out
         lib._configured = True
     return lib

@@ -7,11 +7,13 @@ Paired-end flags are in test_torch_cli_flags_pe.py; spliced alignment,
 other indexes, the drivers' own options and the refusals in
 test_torch_cli_flags_idx.py."""
 
+import gzip
 import shlex
 
 import pytest
 import torch
 
+from hisat2_tpu_torch.io import reads as treads
 from torch_cli_common import both, flag_data
 
 torch.set_num_threads(1)
@@ -55,16 +57,31 @@ CASES = [
     ("policy", FQ + "--policy SEED=0,20;DPS=30;MMP=C5;RDG=6,2", []),
     ("un_al", QFQ + "--un {d}/un.fq --al {d}/al.fq", ["un.fq", "al.fq"]),
     ("un_only_summary", FQ + "--un {d}/un.fq -t", ["un.fq"]),
+    ("fastq_gz_members", BASE + "-U {d}/r.q.fq.gz --batch-size 24", []),
 ]
+# cases run with the read layer's FASTQ block size cut to these bytes, so
+# that records and CRLF line ends straddle blocks
+BLOCKS = {"fastq_gz_members": 333}
 
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    return flag_data(tmp_path_factory.mktemp("tflags"))
+    """flag_data's files, and r.q.fq with CRLF line ends as a gzip file
+    of 5-record members."""
+    got = flag_data(tmp_path_factory.mktemp("tflags"))
+    d = got["dir"]
+    lines = (d / "r.q.fq").read_bytes().replace(b"\n", b"\r\n").splitlines(
+        keepends=True)
+    (d / "r.q.fq.gz").write_bytes(b"".join(
+        gzip.compress(b"".join(lines[i:i + 20]))
+        for i in range(0, len(lines), 20)))
+    return got
 
 
 @pytest.mark.parametrize("case,cmd,side", CASES, ids=[c[0] for c in CASES])
-def test_se_flags(data, capsys, case, cmd, side):
+def test_se_flags(data, capsys, monkeypatch, case, cmd, side):
+    if case in BLOCKS:
+        monkeypatch.setattr(treads, "BLOCK", BLOCKS[case])
     d = data["dir"]
     argv = shlex.split(cmd.format(d=d, cmd=data["cmdline"]))
     t = both("align", argv, [str(d / "o.sam")] + [str(d / s) for s in side],

@@ -9,6 +9,7 @@ timing and memory columns of `--met-file` lines are masked in both."""
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import importlib
 import os
@@ -47,14 +48,38 @@ def _read(path):
         return fh.read()
 
 
+@contextlib.contextmanager
+def _one_finish_thread():
+    """hisat2_tpu's streamed finishes on one worker thread. Its SE native
+    finish reuses one scratch buffer per aligner (`_fin_scratch`), so two
+    batches finishing at once on its three threads can swap their SAM
+    text; the records a batch gets do not depend on the thread count.
+    The port allocates its buffers per call and keeps its threads."""
+    from hisat2_tpu.align import emit
+    stream = emit._stream
+
+    def one(al, items, writer, submit_fn, finish_fn, on_batch, depth,
+            workers):
+        return stream(al, items, writer, submit_fn, finish_fn, on_batch,
+                      depth, min(workers, 1))
+
+    emit._stream = one
+    try:
+        yield
+    finally:
+        emit._stream = stream
+
+
 def run_one(main, argv, outs, capsys) -> dict:
     """main(argv) with the files `outs` removed first: its return code,
     stdout, stderr, and the bytes of each of `outs` (None if not
-    written)."""
+    written). hisat2_tpu's main runs with one finish thread."""
     for p in outs:
         if os.path.exists(p):
             os.remove(p)
-    rc = main(list(argv))
+    with (_one_finish_thread() if main.__module__.startswith("hisat2_tpu.")
+          else contextlib.nullcontext()):
+        rc = main(list(argv))
     cap = capsys.readouterr()
     return dict(rc=rc, out=cap.out, err=cap.err,
                 files={os.path.basename(p): _read(p) for p in outs})
