@@ -860,59 +860,60 @@ def _finish_fastpack_cols(al: Aligner, batch: ReadBatch, fp: np.ndarray,
         fast &= ~force_slow
     vec_done = np.zeros(B, bool)
     if svec.any():
-        vr = np.flatnonzero(svec)
-        c0s = [vf[int(i)] for i in vr]
-        vA = np.asarray([c["posA"] for c in c0s], np.int64)
-        vB = np.asarray([c["posB"] for c in c0s], np.int64)
-        vJ = np.asarray([c["j"] for c in c0s], np.int64)
-        vF = np.asarray([c["fw"] for c in c0s], bool)
-        vStr = np.asarray([c["strand"] for c in c0s])
-        vSc = np.asarray([c["score"] for c in c0s], np.int32)
-        fin2 = al._spliced_fin_rows(batch, vr, vA, vB, vJ, vF,
-                                    vStr, lens[vr])
-        okm = fin2["ok"].copy()
-        # every contiguous placement must be redundant with the
-        # spliced span (reference RedundantAlns start/end dedup,
-        # pipeline._dedup_alns); rows keeping a real secondary fall
-        # to the per-read ladder (genuinely multimapped junction
-        # reads), as do rows with more placements than rep slots
-        spl_start = vA + fin2["c5"]
-        spl_end = vB + fin2["c5"] + fin2["mid"]
-        nsurv = np.zeros(vr.size, np.int64)
-        for k in range(KF):
-            r = reps[k]
-            in_rep = nrep[vr] > k
-            st_k = r["astart"][vr]
-            en_k = st_k + (lens[vr] - r["c5"][vr] - r["c3"][vr])
-            same = ((r["fw"][vr] == vF) & ~r["gapped"][vr]
-                    & ((st_k == spl_start) | (en_k == spl_end)))
-            nsurv += (in_rep & ~same).astype(np.int64)
-        okm &= (nsurv == 0) & (nrep[vr] <= KF)
-        if okm.any():
-            sel = np.flatnonzero(okm)
-            elig = vr[sel]
-            ntrip = np.diff(fin2["mm_off"])
-            keep3 = np.repeat(okm, ntrip)
-            mm_off2 = np.zeros(sel.size + 1, np.int64)
-            np.cumsum(ntrip[sel], out=mm_off2[1:])
-            flag2 = np.where(vF[sel], 0, 16).astype(np.int32)
-            ones = np.ones(sel.size, np.int32)
-            sbuf, sends = _format_records(
-                al, batch, elig, elig, flag2,
-                fin2["tidx"][sel], fin2["toff"][sel],
-                60 * ones, fin2["c5"][sel], fin2["mid"][sel],
-                fin2["c3"][sel], vSc[sel], fin2["nm"][sel],
-                np.full(sel.size, INT32_MIN, np.int32), ones,
-                fin2["mm_cols"][keep3], fin2["mm_ref"][keep3],
-                mm_off2, m1=fin2["m1"][sel],
-                gapn=fin2["gap"][sel], xs=fin2["xs"][sel])
-            stext = sbuf.decode("ascii")
-            prev = 0
-            for kk, i in enumerate(elig):
-                slow_out[int(i)] = [stext[prev:int(sends[kk])]]
-                prev = int(sends[kk])
-            vec_done[elig] = True
-            stats["uniq"] += int(elig.size)
+        with _metrics.span("finish.splice"):
+            vr = np.flatnonzero(svec)
+            c0s = [vf[int(i)] for i in vr]
+            vA = np.asarray([c["posA"] for c in c0s], np.int64)
+            vB = np.asarray([c["posB"] for c in c0s], np.int64)
+            vJ = np.asarray([c["j"] for c in c0s], np.int64)
+            vF = np.asarray([c["fw"] for c in c0s], bool)
+            vStr = np.asarray([c["strand"] for c in c0s])
+            vSc = np.asarray([c["score"] for c in c0s], np.int32)
+            fin2 = al._spliced_fin_rows(batch, vr, vA, vB, vJ, vF,
+                                        vStr, lens[vr])
+            okm = fin2["ok"].copy()
+            # every contiguous placement must be redundant with the
+            # spliced span (reference RedundantAlns start/end dedup,
+            # pipeline._dedup_alns); rows keeping a real secondary fall
+            # to the per-read ladder (genuinely multimapped junction
+            # reads), as do rows with more placements than rep slots
+            spl_start = vA + fin2["c5"]
+            spl_end = vB + fin2["c5"] + fin2["mid"]
+            nsurv = np.zeros(vr.size, np.int64)
+            for k in range(KF):
+                r = reps[k]
+                in_rep = nrep[vr] > k
+                st_k = r["astart"][vr]
+                en_k = st_k + (lens[vr] - r["c5"][vr] - r["c3"][vr])
+                same = ((r["fw"][vr] == vF) & ~r["gapped"][vr]
+                        & ((st_k == spl_start) | (en_k == spl_end)))
+                nsurv += (in_rep & ~same).astype(np.int64)
+            okm &= (nsurv == 0) & (nrep[vr] <= KF)
+            if okm.any():
+                sel = np.flatnonzero(okm)
+                elig = vr[sel]
+                ntrip = np.diff(fin2["mm_off"])
+                keep3 = np.repeat(okm, ntrip)
+                mm_off2 = np.zeros(sel.size + 1, np.int64)
+                np.cumsum(ntrip[sel], out=mm_off2[1:])
+                flag2 = np.where(vF[sel], 0, 16).astype(np.int32)
+                ones = np.ones(sel.size, np.int32)
+                sbuf, sends = _format_records(
+                    al, batch, elig, elig, flag2,
+                    fin2["tidx"][sel], fin2["toff"][sel],
+                    60 * ones, fin2["c5"][sel], fin2["mid"][sel],
+                    fin2["c3"][sel], vSc[sel], fin2["nm"][sel],
+                    np.full(sel.size, INT32_MIN, np.int32), ones,
+                    fin2["mm_cols"][keep3], fin2["mm_ref"][keep3],
+                    mm_off2, m1=fin2["m1"][sel],
+                    gapn=fin2["gap"][sel], xs=fin2["xs"][sel])
+                stext = sbuf.decode("ascii")
+                prev = 0
+                for kk, i in enumerate(elig):
+                    slow_out[int(i)] = [stext[prev:int(sends[kk])]]
+                    prev = int(sends[kk])
+                vec_done[elig] = True
+                stats["uniq"] += int(elig.size)
     # ---- per-read stragglers ----
     pr = np.flatnonzero(~fast & ~vec_done)
     _metrics.count("slow_reads", int(pr.size))

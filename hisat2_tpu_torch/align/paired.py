@@ -856,9 +856,21 @@ def _pair_result_one(aligner, i, b1, b2, m1, m2, grid, mate_cands,
             pr.best = total
             # distinct secondary concordant pairs (-k; reference reports
             # up to khits concordant combos, aln_sink.h selection)
-            seen = {(w1["pos"], w1.get("fw"), w2["pos"], w2.get("fw"))}
+            def place(x, b, rdlen):
+                """A candidate's placement key, worked out once: a spliced
+                candidate written unspliced keys by its diagonal, so it
+                and the contiguous candidate there count once."""
+                k = x.get("key")
+                if k is None:
+                    k = x["key"] = (
+                        aligner._spliced_diag(i, b, x["c"], rdlen)
+                        if x.get("kind") == "spl" else x["pos"])
+                return k
+            seen = {(place(w1, b1, l1), w1.get("fw"),
+                     place(w2, b2, l2), w2.get("fw"))}
             for t, x1, x2 in combos[1:]:
-                key = (x1["pos"], x1.get("fw"), x2["pos"], x2.get("fw"))
+                key = (place(x1, b1, l1), x1.get("fw"),
+                       place(x2, b2, l2), x2.get("fw"))
                 if key in seen:
                     continue
                 seen.add(key)
@@ -1046,6 +1058,7 @@ def _rescue_mates(aligner, b1, b2, results, rescue, finalize,
                                          if op in ("I", "D")),
                            gap_exts=sum(n - 1 for op, n in cigar
                                         if op in ("I", "D")))
+        aligner._free_known_snvs(a_resc, rd[k], q[k], mds, int(wstart))
         loc = aligner.fm.ref.joined_to_text(jpos, a_resc.ref_span)
         if loc is None:
             continue

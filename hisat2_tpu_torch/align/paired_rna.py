@@ -315,39 +315,40 @@ def _fin_mate_records(al, bcat, B, rec_pair, tcol, aug, spl, mate2: bool,
 
     spl_idx = np.flatnonzero(is_spl)
     if spl_idx.size:
-        cands = [spl[int(rec_pair[t])][int(tcol[t]) - K2]
-                 for t in spl_idx]
-        multi = np.asarray(["segs" in c for c in cands], bool)
-        vA = np.asarray([c["posA"] for c in cands], np.int64)
-        vB = np.asarray([c["posB"] for c in cands], np.int64)
-        vJ = np.asarray([c["j"] for c in cands], np.int64)
-        vF = np.asarray([c["fw"] for c in cands], bool)
-        vStr = np.asarray([c["strand"] for c in cands])
-        vSc = np.asarray([c["score"] for c in cands], np.int64)
-        rdl = lens_m[rec_pair[spl_idx]]
-        F = al._spliced_fin_rows(bcat, rows_c[spl_idx], vA, vB, vJ, vF,
-                                 vStr, rdl)
-        oks = F["ok"] & ~multi & (F["gap"] > 0) & (F["m1"] > 0) \
-            & (F["m1"] < F["mid"])
-        out["ok"][spl_idx] = oks
-        out["tidx"][spl_idx] = F["tidx"]
-        out["toff"][spl_idx] = F["toff"]
-        out["astart"][spl_idx] = vA + F["c5"]
-        out["c5"][spl_idx] = F["c5"]
-        out["mid"][spl_idx] = F["mid"]
-        out["c3"][spl_idx] = F["c3"]
-        out["m1"][spl_idx] = F["m1"]
-        out["gap"][spl_idx] = F["gap"]
-        out["xs"][spl_idx] = F["xs"]
-        out["score"][spl_idx] = vSc.astype(np.int32)
-        out["nmm"][spl_idx] = F["nm"]
-        out["fw"][spl_idx] = vF
-        out["istart"][spl_idx] = vA + F["c5"] + F["m1"]
-        cnt_s = np.diff(F["mm_off"])
-        mm_cnt[spl_idx] = cnt_s
-        mm_store[1] = (spl_idx,
-                       np.repeat(np.arange(spl_idx.size), cnt_s),
-                       F["mm_cols"], F["mm_ref"])
+        with _metrics.span("finish.splice"):
+            cands = [spl[int(rec_pair[t])][int(tcol[t]) - K2]
+                     for t in spl_idx]
+            multi = np.asarray(["segs" in c for c in cands], bool)
+            vA = np.asarray([c["posA"] for c in cands], np.int64)
+            vB = np.asarray([c["posB"] for c in cands], np.int64)
+            vJ = np.asarray([c["j"] for c in cands], np.int64)
+            vF = np.asarray([c["fw"] for c in cands], bool)
+            vStr = np.asarray([c["strand"] for c in cands])
+            vSc = np.asarray([c["score"] for c in cands], np.int64)
+            rdl = lens_m[rec_pair[spl_idx]]
+            F = al._spliced_fin_rows(bcat, rows_c[spl_idx], vA, vB, vJ, vF,
+                                     vStr, rdl)
+            oks = F["ok"] & ~multi & (F["gap"] > 0) & (F["m1"] > 0) \
+                & (F["m1"] < F["mid"])
+            out["ok"][spl_idx] = oks
+            out["tidx"][spl_idx] = F["tidx"]
+            out["toff"][spl_idx] = F["toff"]
+            out["astart"][spl_idx] = vA + F["c5"]
+            out["c5"][spl_idx] = F["c5"]
+            out["mid"][spl_idx] = F["mid"]
+            out["c3"][spl_idx] = F["c3"]
+            out["m1"][spl_idx] = F["m1"]
+            out["gap"][spl_idx] = F["gap"]
+            out["xs"][spl_idx] = F["xs"]
+            out["score"][spl_idx] = vSc.astype(np.int32)
+            out["nmm"][spl_idx] = F["nm"]
+            out["fw"][spl_idx] = vF
+            out["istart"][spl_idx] = vA + F["c5"] + F["m1"]
+            cnt_s = np.diff(F["mm_off"])
+            mm_cnt[spl_idx] = cnt_s
+            mm_store[1] = (spl_idx,
+                           np.repeat(np.arange(spl_idx.size), cnt_s),
+                           F["mm_cols"], F["mm_ref"])
 
     # merge the two ragged mismatch streams into record order
     mm_off = np.zeros(N + 1, np.int64)
@@ -562,6 +563,14 @@ def pair_finish_rna(al: Aligner, b1: ReadBatch, b2: ReadBatch,
     g1sel = a1["gapped"][rows, t1sel]
     g2sel = a2["gapped"][rows, t2sel]
     fastpe &= ~(in_rep & (g1sel | g2sel)).any(axis=1)
+    if khits < 2:
+        # the second-best combo's total feeds MAPQ unreported: where it
+        # holds a spliced candidate, which the ladder may count as a
+        # duplicate of the first (one written unspliced), the ladder decides
+        j2 = np.argmax(hit2, axis=1)
+        K2 = KA - _SPL_COLS
+        fastpe &= ~(hit2.any(axis=1) & ((t1[rows[:, 0], j2] >= K2)
+                                        | (t2[rows[:, 0], j2] >= K2)))
 
     stats = _paired.new_pair_stats()
     mqc = _emit._MapqCache(sc)

@@ -655,13 +655,14 @@ def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
         nNs = ((seqs >= 4) & (ar < lens.to(I32)[:, None])).sum(dim=1,
                                                                dtype=I32)
         TBs, PJs, ABs, NCs, NLs, dta_s, tiles_s = SPL
-        (sp32, sp16, need, spl_cov, spl_nsel,
-         sp32b, sp16b, spl_nsel2) = _splice.spliced_stage(
-            idx, sctab, merged, st, need, nNs, B,
-            spl_kss[0], spl_kss[1], spl_kss[2], spl_kss[3],
-            minsc_i, minsc_s, spl_nceil[0], spl_nceil[1], spl_margin,
-            spl_introns[0], spl_introns[1], TBs, PJs, ABs, NCs, NLs,
-            dta_s, tiles=tiles_s)
+        with _metrics.span("submit.splice"):
+            (sp32, sp16, need, spl_cov, spl_nsel,
+             sp32b, sp16b, spl_nsel2) = _splice.spliced_stage(
+                idx, sctab, merged, st, need, nNs, B,
+                spl_kss[0], spl_kss[1], spl_kss[2], spl_kss[3],
+                minsc_i, minsc_s, spl_nceil[0], spl_nceil[1], spl_margin,
+                spl_introns[0], spl_introns[1], TBs, PJs, ABs, NCs, NLs,
+                dta_s, tiles=tiles_s)
         bex = dict(bex, splanes32=sp32, splanes16=sp16, spl_cov=spl_cov,
                    spl_nsel=spl_nsel, splanes32b=sp32b, splanes16b=sp16b,
                    spl_nsel2=spl_nsel2)
@@ -2169,8 +2170,8 @@ class Aligner:
         _finalize_spliced for segs == [(posA,0),(posB,j)]): optimal outer
         clips, per-segment M lengths, NM, and mismatch (col, refchar)
         triples for the native MD builder. Returns column dict with an
-        `ok` mask (fragment containment; ineligible rows fall back to the
-        per-read path)."""
+        `ok` mask (fragment containment, and a junction left on both sides
+        of the clips; ineligible rows fall back to the per-read path)."""
         ref = self.fm.ref
         N = rows.size
         L = batch.seqs.shape[1]
@@ -2222,9 +2223,9 @@ class Aligner:
                         (A - np.take_along_axis(A, jj[:, None], 1))
                         - (SL - SCP), -BIG)
         e = (L - np.argmax(vals[:, ::-1], axis=1)).astype(np.int64)
+        # a clip that takes a whole anchor leaves no junction: such a
+        # candidate is written unspliced by the ladder (_finalize_spliced)
         degen = (jj - c5 <= 0) | (e - jj <= 0)
-        c5 = np.where(degen, 0, c5)
-        e = np.where(degen, rdlens, e)
         c3 = rdlens - e
         aligned_mask = (ar[None, :] >= c5[:, None]) & (ar[None, :] < e[:, None])
         nm = ((mm_sc | isn) & aligned_mask).sum(axis=1).astype(np.int32)
@@ -2236,7 +2237,7 @@ class Aligner:
         f = np.searchsorted(ref.frag_joined, astart, side="right") - 1
         fc = np.clip(f, 0, len(ref.frag_joined) - 1)
         ok = (f >= 0) & (astart + span
-                         <= ref.frag_joined[fc] + ref.frag_len[fc])
+                         <= ref.frag_joined[fc] + ref.frag_len[fc]) & ~degen
 
         mmsel = (mm | isn) & aligned_mask
         ri, cols = np.nonzero(mmsel)
@@ -2256,13 +2257,13 @@ class Aligner:
                     mm_cols=mm_cols, mm_ref=mm_ref, mm_off=mm_off,
                     xs=np.where(strands == "+", 1, 2).astype(np.int32))
 
-    def _finalize_spliced(self, i, batch, c: dict, rdlen: int
-                          ) -> Alignment | None:
-        """Materialize a spliced candidate: CIGAR M/N/M(/N/M...), MD over
-        the exon windows, XS:A strand (sam.h:930-940). Single-junction
-        candidates carry posA/posB/j; multi-intron chains (the reference's
-        hybridSearch_recur recursion, spliced_aligner.h:331) carry a
-        `segs` list of (joined_pos, read_start) exon segments."""
+    def _spliced_form(self, i, batch, c: dict, rdlen: int):
+        """A spliced candidate's segments and optimal outer soft clips
+        (mirrors the kernel's clip-aware prefix/suffix cummins): (segs,
+        bounds, rd, win, mm, isn, A, SCP, c5, e), the read in alignment
+        orientation, its window over the exons, the penalized mismatches
+        and Ns, the prefix sums of the column and clip penalties, and the
+        aligned columns [c5, e); None where a segment is empty."""
         ref = self.fm.ref
         rd = batch.seqs[i, :rdlen].astype(np.uint8)
         if not c["fw"]:
@@ -2274,8 +2275,6 @@ class Aligner:
         win = np.concatenate(
             [ref.get_stretch(p + j0, j1 - j0)
              for (p, j0), j1 in zip(segs, bounds[1:])])
-        # recover optimal outer soft clips (mirrors the kernel's clip-aware
-        # prefix/suffix cummins)
         q = batch.quals[i, :rdlen].astype(np.int64)
         if not c["fw"]:
             q = q[::-1].copy()
@@ -2299,16 +2298,63 @@ class Aligner:
         # toward larger e (fewer clipped bases)
         vals = (A[jlast:] - A[jlast]) - (SCP[-1] - SCP[jlast:])
         e = rdlen - int(np.argmax(vals[::-1]))
+        return segs, bounds, rd, win, mm, isn, A, SCP, c5, e
+
+    def _spliced_diag(self, i, batch, c: dict, rdlen: int) -> int:
+        """The placement key of a spliced candidate: posA, or, where its
+        clips take a whole anchor (it is written unspliced), the diagonal
+        of the segment left, as a contiguous candidate's."""
+        f = None if "segs" in c else self._spliced_form(i, batch, c, rdlen)
+        if f is None:
+            return c["posA"]
+        segs, bounds, *_, c5, e = f
+        return segs[1][0] if c5 >= bounds[1] and e > c5 else c["posA"]
+
+    def _finalize_spliced(self, i, batch, c: dict, rdlen: int
+                          ) -> Alignment | None:
+        """Materialize a spliced candidate: CIGAR M/N/M(/N/M...), MD over
+        the exon windows, XS:A strand (sam.h:930-940). Single-junction
+        candidates carry posA/posB/j; multi-intron chains (the reference's
+        hybridSearch_recur recursion, spliced_aligner.h:331) carry a
+        `segs` list of (joined_pos, read_start) exon segments.
+
+        Where the optimal clips take a whole anchor, no junction is left:
+        the record is the other segment alone, the anchor soft-clipped,
+        unspliced (no N, no XS:A, no novel site), with the AS of that form
+        (the candidate's score less its intron penalty). A multi-intron
+        chain or a read clipped whole gives None there."""
+        ref = self.fm.ref
+        f = self._spliced_form(i, batch, c, rdlen)
+        if f is None:
+            return None
+        segs, bounds, rd, win, mm, isn, A, SCP, c5, e = f
         c3 = rdlen - e
-        if j1 - c5 <= 0 or e - jlast <= 0:
-            if len(segs) > 2:
-                return None
-            c5, c3, e = 0, 0, rdlen
+        degen = bounds[1] - c5 <= 0 or e - bounds[len(segs) - 1] <= 0
+        if degen and (len(segs) > 2 or e <= c5):
+            return None
         mid_mask = np.zeros(rdlen, bool)
         mid_mask[c5:e] = True
         nm = int(((mm | isn) & mid_mask).sum())
         md, _ = samio.make_md(rd[c5:e], win[c5:e], [("M", e - c5)])
         cigar = [("S", c5)] if c5 else []
+        if degen:
+            # the segment left: the second where the head clip took the
+            # first anchor, else the first
+            diag = segs[1][0] if c5 >= bounds[1] else segs[0][0]
+            cigar.append(("M", e - c5))
+            if c3:
+                cigar.append(("S", c3))
+            aln = Alignment(joined_pos=diag + c5, fw=c["fw"],
+                            score=int(A[e] - A[c5] - SCP[c5]
+                                      - (SCP[-1] - SCP[e])),
+                            cigar=cigar, nmm=nm, md=md, nm=nm)
+            if self.opts.zs_tags:
+                aln.zs_snps = self._zs_string(rd, diag, c5, e)
+            loc = ref.joined_to_text(aln.joined_pos, aln.ref_span)
+            if loc is None:
+                return None
+            aln.tidx, aln.toff = loc
+            return aln
         for k in range(len(segs)):
             lo = max(bounds[k], c5)
             hi = min(bounds[k + 1], e)
@@ -2648,12 +2694,40 @@ class Aligner:
         span = sum(n for op, n in cigar if op in ("M", "D"))
         md, nm = samio.make_md(rd, window[ref_start:ref_start + span],
                                cigar)
-        return Alignment(
+        aln = Alignment(
             joined_pos=wstart + ref_start, fw=fw, score=s, cigar=cigar,
             nmm=len(mds),
             gap_opens=sum(1 for op, n in cigar if op in ("I", "D")),
             gap_exts=sum(n - 1 for op, n in cigar if op in ("I", "D")),
             md=md, nm=nm)
+        self._free_known_snvs(aln, rd, q, mds, wstart)
+        return aln
+
+    def _free_known_snvs(self, aln: Alignment, rd, q, mds, wstart: int
+                         ) -> None:
+        """Graph mode: a read base that is a known SNV's alternative
+        allele costs nothing and is no mismatch in NM or XM (MD, which
+        spells the linear reference, still shows it), as the ungapped and
+        spliced finalizers score it. The host DP traceback and the mate
+        rescue's DP score the linear reference; this sets the score and
+        counts of their alignment right. mds: (read offset, window offset)
+        of its mismatches, the window starting at joined position
+        wstart."""
+        if self.overlay is None or not mds:
+            return
+        joined = self.fm.ref.joined
+        mm_pens = self.scoring.mm_pens()
+        for ro, wo in mds:
+            p = wstart + wo
+            b = int(rd[ro])
+            if b >= 4 or not 0 <= p < joined.size or joined[p] >= 4:
+                continue
+            ov = int(self.overlay[p])
+            if ov == b + 1 or ov == 15:
+                aln.score += (int(mm_pens[min(max(int(q[ro]), 0), 63)])
+                              + self.scoring.match_bonus)
+                aln.nm -= 1
+                aln.nmm -= 1
 
     def _adjust_snp_gaps(self, aln: Alignment, rd: np.ndarray) -> None:
         """Un-penalize DP gaps that exactly match a known DEL/INS SNP

@@ -1,12 +1,14 @@
 // Affine-gap DP + traceback for one (read, ref-window) pair.
 //
-// Exact mirror of the NumPy host traceback in ops/sw.py:dp_traceback —
-// same fill identities (running-max closure of the read-gap row), same
-// end-cell tie-breaks (largest i, then smallest j), same traceback state
-// machine — so swapping it in changes nothing but speed. The reference's
-// equivalent is its SSE DP + BtBranchTracer pair (aligner_sw.cpp,
-// aligner_bt.cpp); here the winners-only host traceback is the hot part
-// worth native code (the batched fill runs on TPU).
+// The fill identities (running-max closure of the read-gap row), end-cell
+// tie-breaks (largest i, then smallest j) and traceback state machine of
+// hisat2_tpu's NumPy host traceback (hisat2_tpu/ops/sw.py:dp_traceback),
+// but for one fix: a 5' clip that ends at the window's first column is a
+// clip (S), where that version writes its bases as a leading insertion
+// under the clip's score. The reference's equivalent is its SSE DP +
+// BtBranchTracer pair (aligner_sw.cpp, aligner_bt.cpp); here the
+// winners-only host traceback is the hot part worth native code (the
+// batched fill runs on the device).
 //
 // Build: g++ -O3 -shared -fPIC (see native/__init__.py).
 
@@ -143,14 +145,19 @@ extern "C" int32_t dp_traceback_one(
                     nmds++;
                 }
                 i--; j--;
+            } else if (j == 0) {
+                // the window's first column holds col0, the better of a 5'
+                // clip and a leading ref gap; F there is col0 too, so the
+                // clip is tested first
+                if (Hc[0] == -SCP[i])
+                    break;
+                state = 'F';
             } else if (Hc[j] == Ec[j]) {
                 state = 'E';
             } else if (Hc[j] == Fc[j]) {
                 state = 'F';
-            } else if (Hc[j] == -SCP[i]) {
-                break;  // 5' clip start (checked last: prefer real ops)
             } else {
-                state = 'F';  // j == 0 boundary: leading ref-gap column
+                break;  // 5' clip start (checked last: prefer real ops)
             }
         } else if (state == 'E') {
             ops.push_back('D');

@@ -75,6 +75,66 @@ def deep_calls(device="cuda") -> int:
     return int(_counter(torch.device(device)).item())
 
 
+def window_tests(kvalid: torch.Tensor, mpos: torch.Tensor, pos, down,
+                 rdlens, has_n, live, min_intron, *, W: int, A: int,
+                 NC: int, tiles: int) -> torch.Tensor:
+    """The window tests one anchor scan needs, on the scan's device as an
+    int64 scalar, with no host synchronisation: 16 a word, and each row
+    tests words nearest first until it holds its NC-th hit, else to the
+    end of tile 0, or of its last tile when the deep branch is taken (some
+    live row without an N anchor has no hit in tile 0). This is
+    chip_smoke.anchor_need's rule, worked out from the core's answer
+    (kvalid, mpos) and its inputs, for either core.
+
+    An entry's word is mpos // 16. Tile t's window starts at word b_t, the
+    window's first character clamped at 0, over 16: b_0 + t * W/16 down,
+    b_0 - t * W/16 up, and windows clamped at 0 all cover words [0, W/16).
+    A row's entries run nearest first, tile by tile; within a tile the
+    words only rise (down) or fall (up), so a word that does not marks a
+    new tile, and an entry's tile is the first at or past that bound whose
+    window holds its word."""
+    dev = pos.device
+    S = pos.shape[0]
+    i64 = torch.int64
+    if S == 0:
+        return torch.zeros((), dtype=i64, device=dev)
+    NW = W // 16
+    pos, rdl = pos.to(i64), rdlens.to(i64)
+    mi = torch.as_tensor(min_intron, dtype=i64, device=dev)
+    ws = torch.where(down, pos + mi + rdl - A, pos - mi - W)
+    b0 = torch.div(ws, 16, rounding_mode="floor")
+    q0 = torch.div(b0, NW, rounding_mode="floor")
+    # down: tiles below tc are clamped; up: tiles from tc on
+    tc = torch.where(down, (-q0).clamp_min(0), (q0 + 1).clamp_min(0))
+    big = torch.full_like(pos, 1 << 40)
+    t = prev = None
+    for k in range(NC):
+        w = torch.div(mpos[:, k].to(i64), 16, rounding_mode="floor")
+        lo = torch.zeros_like(pos) if k == 0 else t + torch.where(
+            down, w <= prev, w >= prev).to(i64)
+        tf = torch.where(down, torch.div(w - b0, NW, rounding_mode="floor"),
+                         torch.div(b0 + NW - 1 - w, NW,
+                                   rounding_mode="floor"))
+        in0 = w < NW                 # inside the clamped windows
+        t = torch.where(
+            down,
+            torch.minimum(torch.where(in0 & (lo < tc), lo, big),
+                          torch.where(tf >= torch.maximum(lo, tc), tf, big)),
+            torch.minimum(torch.where((tf >= lo) & (tf < tc), tf, big),
+                          torch.where(in0, torch.maximum(lo, tc), big)))
+        prev = w
+        if k == 0:
+            t0 = t
+    bt = torch.where(down, b0 + t * NW, b0 - t * NW).clamp_min(0)
+    need = t * NW + torch.where(down, w - bt, bt + NW - 1 - w) + 1
+    live_t = torch.ones_like(has_n) if live is None else live.to(torch.bool)
+    deep = torch.zeros((), dtype=torch.bool, device=dev)
+    if tiles > 1:
+        deep = (live_t & ~has_n & ~(kvalid[:, 0] & (t0 == 0))).any()
+    rest = torch.where(deep, tiles * NW, NW)
+    return 16 * torch.where(kvalid[:, NC - 1], need, rest).sum()
+
+
 def anchor_scan_core(rows: torch.Tensor, pos: torch.Tensor,
                      down: torch.Tensor, rdlens: torch.Tensor,
                      acode: torch.Tensor, has_n: torch.Tensor, live,

@@ -46,6 +46,7 @@ from . import anchor_cuda as _anchor_cuda
 from . import rank as _rank
 from ..align import splice_model as _sm
 from ..align.scoring import mm_pen_of as _mm_pen_of, sc_pen_of as _sc_pen_of
+from ..utils import metrics as _metrics
 
 I32 = torch.int32
 NEG = -(1 << 28)
@@ -926,6 +927,12 @@ def anchor_scan(idx: dict, rd, rdlens, pos, down, min_intron,
             else _anchor_cuda.anchor_scan_core)
     kvalid, mpos = core(idx["text_rows"], pos, down, rdlens, acode, has_n,
                         live, min_intron, W=W, A=A, NC=NC, tiles=tiles)
+    if _metrics.tracing():
+        _metrics.count_device("anchor.window_tests",
+                              _anchor_cuda.window_tests(
+                                  kvalid, mpos, pos, down, rdlens, has_n,
+                                  live, min_intron, W=W, A=A, NC=NC,
+                                  tiles=tiles))
     # mate diagonal from match position
     mate = torch.where(down[:, None], mpos - (rdlens - A)[:, None], mpos)
     # same-fragment + intron-range guards (the scorer re-gates; these

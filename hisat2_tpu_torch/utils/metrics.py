@@ -17,8 +17,11 @@ one shared no-op. A span that names a Metrics field (`t_fetch`, ...) adds
 its time to that field whether or not the tracer is on, less the time of
 the field-naming spans nested in it on its thread, so the `t_*` columns
 never count one second twice. `count(name, n)` adds to an integer
-counter kept beside the spans; `count_process` to one kept for the whole
-process, tracing or not (set-up work, such as the kernel builds).
+counter kept beside the spans; `count_device(name, x)` adds a scalar
+tensor to one kept on its device, read once by `stop_trace` (work that the
+device step works out, counted with no synchronisation); `count_process`
+to one kept for the whole process, tracing or not (set-up work, such as
+the kernel builds).
 """
 
 from __future__ import annotations
@@ -181,6 +184,7 @@ class Tracer:
     def __init__(self):
         self.spans: list[Span] = []
         self.counters: dict[str, int] = {}
+        self.device: dict = {}        # count_device's tensors
         self.lock = threading.Lock()
         self.main = threading.main_thread().ident
         self.ids = itertools.count()
@@ -215,8 +219,15 @@ def stop_trace() -> dict | None:
     t, _tracer = _tracer, None
     if t is None:
         return None
+    dev = {k: int(v.item()) for k, v in t.device.items()}
     with _lock:
-        return {"spans": t.spans, "counters": {**t.counters, **PROCESS}}
+        return {"spans": t.spans,
+                "counters": {**t.counters, **dev, **PROCESS}}
+
+
+def tracing() -> bool:
+    """Whether the tracer is on: a site whose count costs work asks first."""
+    return _tracer is not None
 
 
 def count(name: str, n: int = 1) -> None:
@@ -224,6 +235,18 @@ def count(name: str, n: int = 1) -> None:
     if t is not None:
         with t.lock:
             t.counters[name] = t.counters.get(name, 0) + n
+
+
+def count_device(name: str, x) -> None:
+    """Add the scalar tensor x to the counter `name`, on x's device."""
+    t = _tracer
+    if t is not None:
+        with t.lock:
+            acc = t.device.get(name)
+            if acc is None:
+                t.device[name] = x.clone()
+            else:
+                acc += x
 
 
 def count_process(name: str, n: int = 1) -> None:

@@ -511,3 +511,28 @@ def test_dp_kernel_refuses_bad_inputs():
             dp_cuda.dp_score(z, z, lens, ref, scp, **sc.dp_consts(),
                              plan=plan)
     assert dp_cuda.launches == before
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_traceback_clip_at_window_start(k):
+    """A read whose first k bases lie before its window (a mate rescue's
+    window that ends at the anchor): the DP clips them at the window's
+    first column, and the traceback writes that clip as S, so the
+    record's tags agree with its CIGAR. hisat2_tpu's traceback writes them
+    as a leading insertion under the clip's score (ROADMAP.md Queue C
+    20)."""
+    rng = np.random.default_rng(70 + k)
+    g = rng.integers(0, 4, 400).astype(np.uint8)
+    p, L, W = 100, 60, 160
+    rd = g[p:p + L].copy()
+    rd[k + 20] = (rd[k + 20] + 2) % 4
+    q = rng.integers(2, 42, L).astype(np.int64)
+    window = g[p + k:p + k + W]
+    sc, jsc = Scoring(), JScoring()
+    s, ref_start, cigar, mds = dp_traceback(sc, rd, q, window)
+    assert cigar[0] == ("S", k) and ref_start == 0
+    assert cigar[1:] == [("M", L - k)] and mds == [(k + 20, 20)]
+    clip = int(sc.sc_pens()[q[:k]].sum())
+    assert s == -clip - int(sc.mm_pens()[q[k + 20]])
+    js, _, jcig, _ = j_dp_traceback(jsc, rd, q, window)
+    assert js == s and jcig[0] == ("I", k)

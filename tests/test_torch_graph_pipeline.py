@@ -14,7 +14,10 @@ novel indels and reverse complements on top, so the overlay reaches the
 verify, the finalization, the DP and the per-read finish. Checked exactly:
 align_and_emit_stream (packed step), align_and_emit_pe_stream (packed and
 fused steps), the seed_mode=False paths, zs_tags=True, align_batch +
-results_to_sam and align_pairs + pairs_to_sam."""
+results_to_sam and align_pairs + pairs_to_sam; exactly but for the records
+where the JAX package scores a known SNV's allele as a mismatch after a DP
+traceback or a mate rescue (ROADMAP.md Queue C 19), which are held to a
+walk of their CIGAR instead (tests/torch_walk.py)."""
 
 import copy
 import io
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from test_torch_graph_index import HAP_AT, MULTI_AT, graph_world
+from torch_walk import assert_alns_like_reference, assert_sam_like_reference
 import test_torch_native_cache  # noqa: F401  (JAX native libs, built once under a lock)
 from hisat2_tpu.align import emit as jemit
 from hisat2_tpu.align import paired as jpaired
@@ -289,7 +293,7 @@ def test_se_sam_bytes_match(world, name, opts):
                       world["se"]["t"])
     assert dp_cuda.launches == before       # CPU: the plain version
     assert tst == jst
-    assert ttext == jtext
+    assert_sam_like_reference(tal, ttext, jtext)
     f = _fields(ttext)
     # the cases of the JAX package's own graph tests, through the stream
     for name_, cigar in (("r0_alt", "100M"), ("r1_ref", "100M"),
@@ -324,15 +328,20 @@ def test_align_batch_and_results_to_sam(world, name, seed_mode, zs):
     jres = jal.align_batch(jb)
     tres = tal.align_batch(tb)
     assert len(tres) == len(jres)
-    for t, j in zip(tres, jres):
-        assert (t.best, t.secbest, t.filtered) == (j.best, j.secbest,
-                                                   j.filtered)
+    for i, (t, j) in enumerate(zip(tres, jres)):
+        assert t.filtered == j.filtered
         assert len(t.alns) == len(j.alns)
-        for a, b in zip(t.alns, j.alns):
-            for fld in ("joined_pos", "fw", "score", "cigar", "nmm",
-                        "gap_opens", "gap_exts", "md", "nm", "tidx", "toff",
-                        "zs_snps"):
-                assert getattr(a, fld) == getattr(b, fld), fld
+        diff = [assert_alns_like_reference(
+            tal, a, b, tb, i, ("joined_pos", "fw", "score", "cigar", "nmm",
+                               "gap_opens", "gap_exts", "md", "nm", "tidx",
+                               "toff", "zs_snps"))
+            for a, b in zip(t.alns, j.alns)]
+        if any(diff):       # best and secbest follow the alignments' AS
+            assert (t.best, t.secbest) == (
+                t.alns[0].score,
+                t.alns[1].score if len(t.alns) > 1 else None)
+        else:
+            assert (t.best, t.secbest) == (j.best, j.secbest)
     assert any(a.zs_snps for r in tres for a in r.alns) == zs
     # the known deletion and insertion: zero-cost gaps
     for k, op in ((3, "D"), (4, "I")):
@@ -343,7 +352,8 @@ def test_align_batch_and_results_to_sam(world, name, seed_mode, zs):
         b, res, al, w), jsam, jal, ref, jb, jres)
     ttext, tst = _sam(lambda al, b, res, w: tpipe.results_to_sam(
         b, res, al, w), tsam, tal, ref, tb, tres)
-    assert tst == jst and ttext == jtext
+    assert tst == jst
+    assert_sam_like_reference(tal, ttext, jtext)
 
 
 def test_legacy_emit_on_a_graph_index(world):
@@ -357,7 +367,8 @@ def test_legacy_emit_on_a_graph_index(world):
                               jb)
             ttext, tst = _sam(temit._align_and_emit_legacy, tsam, tal, ref,
                               tb)
-            assert tst == jst and ttext == jtext
+            assert tst == jst
+            assert_sam_like_reference(tal, ttext, jtext)
 
 
 @pytest.mark.parametrize("name", ["table", "fm"])
@@ -375,7 +386,7 @@ def test_pe_sam_bytes_match(world, name, step, opts):
                       [world["pe"][step]["t"]])
     assert dp_cuda.launches == before
     assert tst == jst
-    assert ttext == jtext
+    assert_sam_like_reference(tal, ttext, jtext)
     assert tst["conc_uniq"] + tst["conc_multi"] > NPE // 2
     lines = [ln.split("\t") for ln in ttext.splitlines()]
     # pairs whose mates carry alt alleles come out penalty-free
@@ -393,18 +404,20 @@ def test_align_pairs_and_pairs_to_sam(world, seed_mode):
     jres = jpaired.align_pairs(jal, jb1, jb2)
     tres = tpaired.align_pairs(tal, tb1, tb2)
     assert [r.kind for r in tres] == [r.kind for r in jres]
-    for t, j in zip(tres, jres):
+    for i, (t, j) in enumerate(zip(tres, jres)):
         assert (t.best, t.secbest) == (j.best, j.secbest)
-        for a, b in ((t.aln1, j.aln1), (t.aln2, j.aln2)):
+        for a, b, tb in ((t.aln1, j.aln1, tb1), (t.aln2, j.aln2, tb2)):
             assert (a is None) == (b is None)
             if a is not None:
-                assert (a.joined_pos, a.fw, a.score, a.cigar, a.md, a.nm) \
-                    == (b.joined_pos, b.fw, b.score, b.cigar, b.md, b.nm)
+                assert_alns_like_reference(
+                    tal, a, b, tb, i,
+                    ("joined_pos", "fw", "score", "cigar", "md", "nm"))
     jtext, jst = _sam(lambda al, r, w: jpaired.pairs_to_sam(
         jb1, jb2, r, al, w), jsam, jal, ref, jres)
     ttext, tst = _sam(lambda al, r, w: tpaired.pairs_to_sam(
         tb1, tb2, r, al, w), tsam, tal, ref, tres)
-    assert tst == jst and ttext == jtext
+    assert tst == jst
+    assert_sam_like_reference(tal, ttext, jtext)
 
 
 def test_options_still_unported_raise(world):
@@ -420,5 +433,6 @@ def test_options_still_unported_raise(world):
             al, jemit.submit_pe(al, *jp), w), jsam, jal, world["ref"])
         ttext, tst = _sam(lambda al, w: temit.finish_pe(
             al, temit.submit_pe(al, *tp), w), tsam, tal, world["ref"])
-        assert tst == jst and ttext == jtext
+        assert tst == jst
+        assert_sam_like_reference(tal, ttext, jtext)
         assert tst["pairs"] == 24

@@ -24,8 +24,10 @@ N_SE, N_PE = 300, 150
 # waits, or the spliced finishes' gathers around their rescue)
 PARENT = {"input.open": {"reads"}, "submit.pack": {"submit"},
           "submit.step": {"submit"}, "submit.d2h": {"submit"},
+          "submit.splice": {"submit.step"},
           "finish.fetch": {"finish"}, "finish.native": {"finish"},
           "finish.ladder": {"finish"}, "finish.rescue": {"finish"},
+          "finish.splice": {"finish"},
           "finish.gather": {"finish.ladder", "finish", "finish.rescue"}}
 TOP = {"reads", "submit", "finish", "stream.wait", "stream.write"}
 MODES = {
@@ -157,6 +159,8 @@ def test_children_inside_parents(run):
                 "finish.fetch", "stream.wait"} <= names
     if run["mode"] == "pe_rna":
         assert "finish.rescue" in names
+    if run["mode"].endswith("_rna"):   # the spliced step's splice pass
+        assert "submit.splice" in names
     for s in spans:
         assert s.t0 <= s.t1 and s.cpu_ns >= 0
         if s.parent is None:
@@ -274,3 +278,106 @@ def test_gzip_input_one_path(tmp_path):
             continue
         assert tr["counters"]["input.source_ns"] > 0
         assert [s.name for s in tr["spans"]] == ["input.open"] * 2
+
+
+# ---- the splice layer: spans and the anchor scan's window tests ----
+
+@pytest.fixture(scope="module")
+def rna(tmp_path_factory):
+    """Transcripts planted in a 120 kb genome (chip_smoke's gene model),
+    its index with their splice sites and exons, 256 RNA reads and 128
+    pairs cut along them."""
+    import chip_smoke
+    d = tmp_path_factory.mktemp("trace_rna")
+    rng = np.random.default_rng(5)
+    g = rng.integers(0, 4, 120_000).astype(np.uint8)
+    txs = chip_smoke.simulate_gene_model(g, 6, n_tx=16)
+    (d / "g.fa").write_text(f">chrR\n{alphabet.decode(g)}\n")
+    with open(d / "g.ss", "w") as ss, open(d / "g.exon", "w") as ex:
+        for strand, exons in txs:
+            for (_, e), (a, _) in zip(exons, exons[1:]):
+                ss.write(f"chrR\t{e - 1}\t{a}\t{strand}\n")
+            for a, e in exons:
+                ex.write(f"chrR\t{a}\t{e - 1}\t{strand}\n")
+    assert cli_build.main([str(d / "g.fa"), str(d / "idx"), "--ss",
+                           str(d / "g.ss"), "--exon", str(d / "g.exon"),
+                           "--quiet"]) == 0
+    se, _ = chip_smoke.simulate_rna_reads(g, txs, 256, 7)
+    p1, p2, _ = chip_smoke.simulate_rna_pairs(g, txs, 128, 8)
+    for name, reads in (("s.fq", se), ("p1.fq", p1), ("p2.fq", p2)):
+        (d / name).write_text(_fastq(
+            (f"r{i}", alphabet.decode(r), "I" * r.size)
+            for i, r in enumerate(reads)))
+    return d
+
+
+def _align_rna(d, pe):
+    reads = ["-1", str(d / "p1.fq"), "-2", str(d / "p2.fq")] if pe else \
+        ["-U", str(d / "s.fq")]
+    out = d / ("pe.sam" if pe else "se.sam")
+    assert cli_align.main(["-x", str(d / "idx"), *reads, "-S", str(out),
+                           "--batch-size", str(BATCH), "--quiet",
+                           "--device", "cpu"]) == 0
+    return out.read_bytes()
+
+
+@pytest.mark.parametrize("pe", [False, True], ids=["se", "pe"])
+def test_splice_spans_and_window_tests(rna, pe, monkeypatch):
+    """A traced RNA run: one submit.splice a batch inside its submit.step,
+    finish.splice inside the finishes, on the main thread (the spliced
+    stream's finishes run there); anchor.window_tests equals the plain
+    count of chip_smoke.anchor_need's rule over the calls of the plain
+    core, captured; the SAM is the untraced run's."""
+    import chip_smoke
+    from hisat2_tpu_torch.ops import splice
+    calls = []
+    core = splice.anchor_scan_plain_core
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return core(*args, **kw)
+    plain = _align_rna(rna, pe)
+    monkeypatch.setattr(splice, "anchor_scan_plain_core", capture)
+    metrics.start_trace()
+    try:
+        traced = _align_rna(rna, pe)
+    finally:
+        tr = metrics.stop_trace()
+    assert traced == plain
+    spans = tr["spans"]
+    ids = {s.id: s for s in spans}
+    sub = [s for s in spans if s.name == "submit.splice"]
+    fin = [s for s in spans if s.name == "finish.splice"]
+    n_batches = -(-(128 if pe else 256) // BATCH)
+    assert sorted(s.batch for s in sub) == list(range(n_batches))
+    assert fin
+    for s in sub:
+        assert ids[s.parent].name == "submit.step" and s.main
+    for s in fin:
+        assert ids[s.parent].name == "finish" and s.main
+        assert ids[s.parent].batch == s.batch
+    want = 0
+    assert calls
+    for (rows, pos, down, rdl, acode, has_n, live, mi), kw in calls:
+        kv, _ = splice.anchor_scan_plain_keys(rows, pos, down, rdl, acode,
+                                              has_n, live, mi, **kw)
+        need, _ = chip_smoke.anchor_need(
+            (rows, pos, down, rdl, acode, has_n, live, mi), kv, kw["W"],
+            kw["NC"], kw["tiles"])
+        want += 16 * int(need.sum())
+    assert want > 0
+    assert tr["counters"]["anchor.window_tests"] == want
+
+
+def test_splice_sites_off_leave_nothing(rna, monkeypatch):
+    """With the tracer off the splice sites keep nothing: the anchor
+    scan's count is never worked out and the spans are the shared no-op."""
+    from hisat2_tpu_torch.ops import anchor_cuda
+
+    def refuse(*a, **k):
+        raise AssertionError("window tests counted with the tracer off")
+    monkeypatch.setattr(anchor_cuda, "window_tests", refuse)
+    metrics.stop_trace()
+    _align_rna(rna, True)
+    assert metrics.stop_trace() is None
+    assert metrics.span("submit.splice") is metrics.span("finish.splice")
