@@ -24,6 +24,13 @@ batched tensor stages over a read wavefront; one call per batch
 The fastpack layout is the JAX package's, so the same native finisher
 turns it into the same SAM bytes.
 
+The step runs in three parts: segment A (_packed_a: steps 1-5 and the
+DP's inputs), the DP call (_dp_run, always an eager launch of the
+module's dp_score) and segment B (_packed_b: the DP merge-back, 7 and 8).
+On a CUDA device, Aligner.device_align_fast replays the two segments of a
+non-spliced step from CUDA graphs once a batch shape comes back
+(StepGraphs, _StepGraph); every other batch runs the three parts eagerly.
+
 RNA mode (AlignerOpts.spliced): the same step also runs the splice pass 1
 (ops/splice.spliced_stage: junction lanes from the candidate grid and the
 site table, scored and gated, the anchor scan for short far anchors) and
@@ -194,12 +201,22 @@ def _sort_desc(key: torch.Tensor, *vals: torch.Tensor, k: int):
     return [torch.gather(a, 1, order) for a in (key, *vals)]
 
 
-def _min_scores(minsc_i: float, minsc_s: float, lens: torch.Tensor):
-    """ceil(I + S * len) in float32, as the device computes it (the host
-    uses float64: emit._finish_fastpack)."""
+def _min_consts(minsc_i: float, minsc_s: float, device):
+    """I and S of the minimum score as float32 scalars on `device`, made
+    once an Aligner: a step captured into a CUDA graph copies nothing from
+    the host."""
     f32 = torch.float32
-    i = torch.tensor(minsc_i, dtype=f32, device=lens.device)
-    s = torch.tensor(minsc_s, dtype=f32, device=lens.device)
+    return (torch.tensor(minsc_i, dtype=f32, device=device),
+            torch.tensor(minsc_s, dtype=f32, device=device))
+
+
+def _min_scores(minsc_i, minsc_s, lens: torch.Tensor):
+    """ceil(I + S * len) in float32, as the device computes it (the host
+    uses float64: emit._finish_fastpack). I and S are floats or the
+    float32 device scalars of _min_consts."""
+    f32 = torch.float32
+    i = torch.as_tensor(minsc_i, dtype=f32, device=lens.device)
+    s = torch.as_tensor(minsc_s, dtype=f32, device=lens.device)
     return torch.ceil(i + s * lens.to(f32)).to(I32)
 
 
@@ -333,7 +350,17 @@ def _stage_dp(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
     The fill is ops/dp_cuda.dp_score (the CUDA kernel on a CUDA tensor);
     sc_const holds its six scoring integers (Scoring.dp_consts). On a
     graph index the windows' SNV-overlay nibbles go to the kernel too."""
-    R, L = seqs2.shape
+    prep = _dp_prep(idx, sctab, seqs2, quals2, lens2, pos_top, dp_rows,
+                    dp_pad)
+    return _dp_keep(_dp_run(prep, sc_const), prep)
+
+
+def _dp_prep(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
+             dp_rows, dp_pad: int) -> dict:
+    """_stage_dp up to the fill: the kernel's inputs `args` (rd, pen,
+    rdlens, ref, scp_cum) and `ov`, one row a candidate, and `ok` (R', T),
+    the candidates whose score counts."""
+    L = seqs2.shape[1]
     T = pos_top.shape[1]
     W = L + 2 * dp_pad
     wstart = pos_top - dp_pad
@@ -344,12 +371,26 @@ def _stage_dp(idx: dict, sctab: dict, seqs2, quals2, lens2, pos_top,
     q = quals2.repeat_interleave(T, dim=0)
     rl = lens2.repeat_interleave(T).contiguous()
     pen, scp_cum = _sw.dp_inputs(sctab, q, rl)
-    score = dp_score(rd, pen.contiguous(), rl, ref.contiguous(),
-                     scp_cum.contiguous(), ov=ov, **sc_const).reshape(R, T)
     # sentinel (invalid) candidates must stay invalid: their all-N windows
     # would otherwise "score" better than real but poor placements
     ok = dp_rows[:, None] & (pos_top < BIG - (1 << 20)) & (pos_top >= 0)
-    return torch.where(ok, score, NEG_INF)
+    return dict(args=(rd, pen.contiguous(), rl, ref.contiguous(),
+                      scp_cum.contiguous()), ov=ov, ok=ok)
+
+
+def _dp_run(prep: dict | None, sc_const: dict):
+    """The DP fill on _dp_prep's inputs (None without them): the module's
+    dp_score, looked up at each call and launched eagerly, never from a
+    CUDA graph, so that a wrapper on it sees every call. (C,) int32."""
+    if prep is None:
+        return None
+    return dp_score(*prep["args"], ov=prep["ov"], **sc_const)
+
+
+def _dp_keep(score, prep: dict):
+    """The fill's scores as (R', T), NEG_INF where prep's `ok` is not."""
+    ok = prep["ok"]
+    return torch.where(ok, score.reshape(ok.shape), NEG_INF)
 
 
 def _stage_primary_fin(idx: dict, sctab: dict, seqs2, quals2, lens2,
@@ -637,14 +678,57 @@ def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
     compacted lanes in the extras (splanes32/16, spl_cov, spl_nsel,
     splanes32b/16b, spl_nsel2); spl_kss holds the site table's four
     device arrays, spl_nceil the N ceiling (I, S), spl_introns (min, max).
-    In RNA mode with SB >= B every row's grid ships."""
+    In RNA mode with SB >= B every row's grid ships.
+
+    The step is its three parts in turn: _packed_a, _dp_run, _packed_b."""
+    core = _packed_a(idx, sctab, seq_words, n_words, quals, qual_const,
+                     lens, minsc_i, minsc_s, gap1=gap1, B=B, L=L,
+                     max_seeds=max_seeds, n_seeds=n_seeds,
+                     locs_per_seg=locs_per_seg, top_cands=top_cands,
+                     min_seg_len=min_seg_len, ftab_k=ftab_k,
+                     fb_bucket=fb_bucket, dp_bucket=dp_bucket, dp_pad=dp_pad,
+                     no_dp=no_dp, nofw=nofw, norc=norc, seeder=seeder,
+                     fb_seeder=fb_seeder, VC=VC)
+    fastpack, merged, extras = _packed_b(
+        idx, sctab, core, _dp_run(core["dp"], sc_const), minsc_i, minsc_s,
+        B=B, L=L, K2=K2, KF=KF, khits=khits, SB=SB, omit_sec=omit_sec,
+        MB=MB, spliced=spliced, spl_margin=spl_margin, spl_kss=spl_kss,
+        spl_nceil=spl_nceil, spl_introns=spl_introns, SPL=SPL)
+    if not extras:
+        return fastpack, merged
+    return fastpack, merged, extras
+
+
+def _packed_a(idx: dict, sctab: dict, seq_words, n_words, quals,
+              qual_const: int, lens, minsc_i, minsc_s, *, gap1: int, B: int,
+              L: int, max_seeds: int, n_seeds: int, locs_per_seg: int,
+              top_cands: int, min_seg_len: int, ftab_k: int, fb_bucket: int,
+              dp_bucket: int, dp_pad: int, no_dp: bool, nofw: bool,
+              norc: bool, seeder: str, fb_seeder: str, VC: int = 0) -> dict:
+    """Segment A of the packed SE step: unpack the reads, then _se_core_a
+    (candidates, the fallback re-seed, the DP's inputs). Returns its core
+    dict with the unpacked reads (`seqs`) and `lens` added."""
     seqs, quals = _unpack_reads(seq_words, n_words, quals, qual_const,
                                 lens, L)
-    merged, st = _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s,
-                          gap1, B, max_seeds, n_seeds, locs_per_seg,
-                          top_cands, min_seg_len, ftab_k, K2, fb_bucket,
-                          dp_bucket, dp_pad, no_dp, nofw, norc, seeder,
-                          fb_seeder, sc_const, verify_cands=VC)
+    core = _se_core_a(idx, sctab, seqs, quals, lens, minsc_i, minsc_s,
+                      gap1, B, max_seeds, n_seeds, locs_per_seg, top_cands,
+                      min_seg_len, ftab_k, fb_bucket, dp_bucket, dp_pad,
+                      no_dp, nofw, norc, seeder, fb_seeder, VC)
+    core.update(seqs=seqs, lens=lens)
+    return core
+
+
+def _packed_b(idx: dict, sctab: dict, core: dict, dp_out, minsc_i,
+              minsc_s, *, B: int, L: int, K2: int, KF: int,
+              khits: int | None = None, SB: int = 0, omit_sec: bool = False,
+              MB: int = 0, spliced: bool = False, spl_margin: int = 0,
+              spl_kss=None, spl_nceil=None, spl_introns=None, SPL=None):
+    """Segment B of the packed SE step on segment A's core and the DP's
+    output: the DP merge-back and fw/rc merge (_se_core_b), the fastpack
+    with its tiers, in RNA mode the splice pass 1, and the slow rows'
+    grids. Returns (fastpack, merged, extras), extras possibly empty."""
+    lens, seqs = core["lens"], core["seqs"]
+    merged, st = _se_core_b(core, dp_out, B, K2)
     minsc = _min_scores(minsc_i, minsc_s, lens)
     fastpack, need, bex = _stage_fastpack(idx, sctab, merged, st, minsc,
                                           B, K2, KF, khits, omit_sec, MB)
@@ -666,8 +750,6 @@ def _stage_align_packed(idx: dict, sctab: dict, seq_words, n_words, quals,
         bex = dict(bex, splanes32=sp32, splanes16=sp16, spl_cov=spl_cov,
                    spl_nsel=spl_nsel, splanes32b=sp32b, splanes16b=sp16b,
                    spl_nsel2=spl_nsel2)
-    if SB == 0 and not bex:
-        return fastpack, merged
     extras = dict(bex)
     if SB >= B and spliced:
         # RNA: ship every row's grid with the fastpack — junction rescue,
@@ -707,7 +789,22 @@ def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
     pass seeds n_seeds seeds with `seeder`; reads it cannot place re-seed
     with `fb_seeder` (FB_TABLE_SEEDS dense table seeds, or max_seeds
     maximal segments). Returns (merged (B, K2, 3) packed [score, pos,
-    flags], st)."""
+    flags], st). It is _se_core_a, _dp_run and _se_core_b in turn."""
+    core = _se_core_a(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1,
+                      B, max_seeds, n_seeds, locs_per_seg, top_cands,
+                      min_seg_len, ftab_k, fb_bucket, dp_bucket, dp_pad,
+                      no_dp, nofw, norc, seeder, fb_seeder, verify_cands)
+    return _se_core_b(core, _dp_run(core["dp"], sc_const), B, K2)
+
+
+def _se_core_a(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
+               max_seeds, n_seeds, locs_per_seg, top_cands, min_seg_len,
+               ftab_k, fb_bucket, dp_bucket, dp_pad, no_dp, nofw, norc,
+               seeder, fb_seeder, verify_cands: int = 0) -> dict:
+    """_se_core up to the DP fill. Returns the core dict: `st` (the
+    candidate dict), `dp` (_dp_prep's inputs for the reads one gap could
+    improve, compacted into dp_bucket reads; None with no_dp) and, with
+    `dp`, the compaction's `used` mask and `rankd` ranks."""
     st = _stage_candidates(idx, sctab, seqs, quals, lens, n_seeds,
                            locs_per_seg, top_cands, min_seg_len, seeder,
                            ftab_k, verify_cands=verify_cands)
@@ -715,7 +812,7 @@ def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
         st["score"][:B] = NEG_INF
     if norc:
         st["score"][B:] = NEG_INF
-    pos, score = st["pos"], st["score"]
+    score = st["score"]
     min_scs = _min_scores(minsc_i, minsc_s, lens)
     row_best = score.amax(dim=1)
     read_best = torch.maximum(row_best[:B], row_best[B:])
@@ -742,35 +839,45 @@ def _se_core(idx, sctab, seqs, quals, lens, minsc_i, minsc_s, gap1, B,
         exh_rc = torch.where(use, st2["exhausted"][slot + fb_bucket],
                              st["exhausted"][B:])
         st["exhausted"] = torch.cat([exh_fw, exh_rc])
-        pos, score = st["pos"], st["score"]
-        row_best = score.amax(dim=1)
+        row_best = st["score"].amax(dim=1)
         read_best = torch.maximum(row_best[:B], row_best[B:])
 
+    if no_dp:
+        return dict(st=st, dp=None)
+    # gapped rescue for reads whose best ungapped score one gap could
+    # beat, compacted into a fixed dp_bucket of reads
+    dpmask = read_best < -gap1
+    rankd = torch.cumsum(dpmask.to(I32), dim=0) - 1
+    used = dpmask & (rankd < dp_bucket)
+    sel = _topk01(dpmask, dp_bucket)[1].long()
+    rows = torch.cat([sel, sel + B])
+    m2 = torch.cat([used[sel], used[sel]])
+    Tdp = min(2, st["pos"].shape[1])
+    dp = _dp_prep(idx, sctab, st["seqs2"][rows], st["quals2"][rows],
+                  st["lens2"][rows], st["pos"][rows, :Tdp], m2, dp_pad)
+    return dict(st=st, dp=dp, used=used, rankd=rankd)
+
+
+def _se_core_b(core: dict, dp_out, B: int, K2: int):
+    """_se_core from the DP fill's output (None with no_dp) on: the DP
+    scores merged back into their reads' rows, then _stage_merge.
+    Returns (merged, st)."""
+    st = core["st"]
+    pos, score = st["pos"], st["score"]
     dp_sc = None
-    if not no_dp:
-        # gapped rescue for reads whose best ungapped score one gap could
-        # beat, compacted into a fixed dp_bucket of reads
-        dpmask = read_best < -gap1
-        rankd = torch.cumsum(dpmask.to(I32), dim=0) - 1
-        used = dpmask & (rankd < dp_bucket)
-        sel = _topk01(dpmask, dp_bucket)[1].long()
-        rows = torch.cat([sel, sel + B])
-        m2 = torch.cat([used[sel], used[sel]])
-        Tdp = min(2, pos.shape[1])
-        dpv = _stage_dp(idx, sctab, st["seqs2"][rows], st["quals2"][rows],
-                        st["lens2"][rows], pos[rows, :Tdp], m2, dp_pad,
-                        sc_const)
-        slotd = rankd.clamp(0, dp_bucket - 1).long()
+    if core["dp"] is not None:
+        dpv = _dp_keep(dp_out, core["dp"])                 # (2 * bucket, Tdp)
+        nb, Tdp = dpv.shape[0] // 2, dpv.shape[1]
+        used = core["used"]
+        slotd = core["rankd"].clamp(0, nb - 1).long()
         fw_dp = torch.where(used[:, None], dpv[slotd], NEG_INF)
-        rc_dp = torch.where(used[:, None], dpv[slotd + dp_bucket], NEG_INF)
+        rc_dp = torch.where(used[:, None], dpv[slotd + nb], NEG_INF)
         T = score.shape[1]
         dp_sc = torch.cat(
             [torch.cat([fw_dp, rc_dp]),
              torch.full((2 * B, T - Tdp), NEG_INF, dtype=I32,
                         device=score.device)], 1)
-
-    merged = _stage_merge(pos, score, dp_sc, B, K2)
-    return merged, st
+    return _stage_merge(pos, score, dp_sc, B, K2), st
 
 
 def _stage_merge(pos, score, dp_score, B: int, K2: int):
@@ -788,6 +895,113 @@ def _stage_merge(pos, score, dp_score, B: int, K2: int):
                      torch.zeros((B, T), dtype=I32, device=sc.device)], 1)
     fl2 = fw2 | (gap2.to(I32) << 1)
     return torch.stack(_sort_desc(sc2, pos2, fl2, k=K2), dim=2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the packed SE step
+# ---------------------------------------------------------------------------
+
+# Batch shapes an Aligner keeps step graphs of. Each shape holds a memory
+# pool of its own for as long as the Aligner lives; a stream's batches come
+# in one full shape, or a few where trimmed or mixed read lengths change L.
+STEP_GRAPH_SHAPES = 4
+
+
+class StepGraphs:
+    """An Aligner's CUDA graphs of the packed SE step, one _StepGraph per
+    batch shape. The step's static options are fixed for an Aligner, so
+    the shape is what varies between batches: B, L, whether the batch
+    carries per-base qualities, and its constant quality. A shape is
+    captured the second time it comes: its first batch runs eagerly,
+    which loads every kernel the capture records, and a stream's short
+    last batch is never captured. At most STEP_GRAPH_SHAPES shapes are
+    kept, each in a memory pool of its own."""
+
+    def __init__(self):
+        self.seen: set = set()
+        self.graphs: dict = {}
+
+    @staticmethod
+    def key(B: int, L: int, quals, qual_const: int) -> tuple:
+        """A batch's shape: B reads padded to L, per-base qualities or not
+        (quals None), and the constant quality."""
+        return (B, L, quals is None, qual_const)
+
+    def choose(self, device: torch.device, spliced: bool, key) -> str:
+        """'replay' (the shape has its graphs), 'capture' (make them now)
+        or 'eager'. Only a non-spliced step on a CUDA device is captured:
+        the spliced step bakes the growing site table into its launches."""
+        if device.type != "cuda" or spliced:
+            return "eager"
+        if key in self.graphs:
+            return "replay"
+        if key in self.seen and len(self.graphs) < STEP_GRAPH_SHAPES:
+            return "capture"
+        self.seen.add(key)
+        return "eager"
+
+
+class _StepGraph:
+    """One batch shape's packed SE step as two CUDA graphs around the
+    eager DP call (_dp_run): segment A (_packed_a) and segment B
+    (_packed_b), captured once on a side stream into one memory pool and
+    replayed on the current stream. A batch's packed arrays reach the
+    static inputs through pinned staging, the DP's output is copied into
+    segment B's static input, and what run returns lives in the graphs'
+    memory until the next replay overwrites it."""
+
+    DTYPES = (torch.int64, torch.int64, I32, I32)   # seq_w, n_w, quals, lens
+
+    def __init__(self, arrays, device: torch.device):
+        self.stage = [None if a is None
+                      else torch.empty(a.shape, dtype=dt, pin_memory=True)
+                      for a, dt in zip(arrays, self.DTYPES)]
+        self.inp = [None if h is None
+                    else torch.empty(h.shape, dtype=h.dtype, device=device)
+                    for h in self.stage]
+        self.copied = None      # event: the last upload left the staging
+        self.ga = self.gb = None
+
+    def upload(self, arrays) -> None:
+        """The batch's (seq_w, n_w, quals or None, lens) into the static
+        inputs. Waits only for the last upload's copies out of staging."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        for a, h, d in zip(arrays, self.stage, self.inp):
+            if a is not None:
+                np.copyto(h.numpy(), a)
+                d.copy_(h, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+
+    def capture(self, seg_a, seg_b) -> None:
+        """Record seg_a(seq_w, n_w, quals, lens) -> core and
+        seg_b(core, the DP's output or None) -> the step's outputs."""
+        # thread-local: the finish threads may gather, copy and allocate
+        # while the main thread captures
+        side = torch.cuda.Stream()
+        ga, gb = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(ga, stream=side,
+                              capture_error_mode="thread_local"):
+            self.core = seg_a(*self.inp)
+        dp = self.core["dp"]
+        self.dp_in = (None if dp is None else
+                      torch.empty(dp["args"][0].shape[0], dtype=I32,
+                                  device=dp["args"][0].device))
+        with torch.cuda.graph(gb, pool=ga.pool(), stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = seg_b(self.core, self.dp_in)
+        self.ga, self.gb = ga, gb
+
+    def run(self, sc_const: dict):
+        """The step on the uploaded batch: segment A, the eager DP fill
+        with the scoring integers sc_const, segment B."""
+        self.ga.replay()
+        out = _dp_run(self.core["dp"], sc_const)
+        if out is not None:
+            self.dp_in.copy_(out)
+        self.gb.replay()
+        return self.out
 
 
 # ---------------------------------------------------------------------------
@@ -850,6 +1064,9 @@ class Aligner:
         self.min_seg_len = min_anchor(fm.n)
         self.sctab = scoring.device_tables(self.device)
         self.sc_const = scoring.dp_consts()
+        self._minsc = _min_consts(float(scoring.score_min.I),
+                                  float(scoring.score_min.S), self.device)
+        self._graphs = StepGraphs()
         self.metrics = Metrics()
         self.ssdb = SpliceSiteDB()
         # graph-index extras (SNP-aware scoring on the host finish)
@@ -902,14 +1119,18 @@ class Aligner:
     # ---- device orchestration ----
 
     def device_align_fast(self, batch: ReadBatch):
-        """Upload the transfer-packed batch, run _stage_align_packed, and
-        start the result copies to the host. Returns (fastpack, merged,
-        extras, ready): fastpack and extras are host tensors that are
-        complete once `ready` (a CUDA event, None on the CPU) has been
-        waited on; merged (B, K2, 3) stays on the device for slow-row
-        gathers (gather_merged_async). Its spans submit.pack (the packing
-        and uploads), submit.step (queueing the step) and submit.d2h
-        (the copies) feed Metrics.t_pack."""
+        """Upload the transfer-packed batch, run the packed step
+        (_packed_a, _dp_run, _packed_b), and start the result copies to
+        the host. Returns (fastpack, merged, extras, ready): fastpack and
+        extras are host tensors that are complete once `ready` (a CUDA
+        event, None on the CPU) has been waited on; merged (B, K2, 3) stays
+        on the device for slow-row gathers (gather_merged_async). A batch
+        shape that comes back replays segments A and B from CUDA graphs
+        (StepGraphs.choose); merged is then copied out of the graphs'
+        memory. Counters: step_reads (every read), step_graph_reads (those
+        replayed). Its spans submit.pack (the packing and uploads),
+        submit.step (queueing the step) and submit.d2h (the copies) feed
+        Metrics.t_pack."""
         o = self.opts
         B = len(batch)
         L = batch.seqs.shape[1]
@@ -920,51 +1141,89 @@ class Aligner:
         m.seeds += 2 * B * o.n_seeds
         m.table_probes += 2 * B * o.n_seeds
         m.candidates += 2 * B * o.verify_cands
+        _metrics.count("step_reads", B)
+        sc = self.scoring
+        a_kw, b_kw = self._step_args(B, L)
         with _metrics.span("submit.pack", None, m, "t_pack"):
             seq_w, n_w, quals, qconst, lens = batch.packed()
-            up = self._up
-            dev_in = (up(seq_w.astype(np.int64), torch.int64),
-                      up(n_w.astype(np.int64), torch.int64),
-                      None if quals is None else up(quals, I32), qconst,
-                      up(lens, I32))
-        sc = self.scoring
-        K2 = min(2 * o.top_cands, max(8, o.khits + 3))
-        spl_kw = {}
+            key = StepGraphs.key(B, L, quals, qconst)
+            how = self._graphs.choose(self.device, o.spliced, key)
+            if how == "eager":
+                up = self._up
+                dev_in = (up(seq_w.astype(np.int64), torch.int64),
+                          up(n_w.astype(np.int64), torch.int64),
+                          None if quals is None else up(quals, I32),
+                          up(lens, I32))
+            else:
+                if how == "capture":
+                    self._graphs.graphs[key] = _StepGraph(
+                        (seq_w, n_w, quals, lens), self.device)
+                graph = self._graphs.graphs[key]
+                graph.upload((seq_w, n_w, quals, lens))
         if o.spliced:
             # the step's splice pass-1 buckets: TB triggered rows (junction
             # reads are routinely about half an RNA batch), AB anchor-scan
             # rows, NL result lanes; the anchor scan's tile count comes
             # from max_intron on the host, so no device value decides it
             TB = min(B, max(256, 5 * B // 8))
-            spl_kw = dict(
+            b_kw.update(
+                spliced=True, spl_margin=self._spl_margin(batch),
                 spl_kss=self.ssdb.device_arrays4(self.device),
                 spl_nceil=(float(sc.n_ceil.I), float(sc.n_ceil.S)),
                 spl_introns=(o.min_intron, o.max_intron),
                 SPL=(TB, o.pairs_per_read, min(TB, max(128, TB // 4)), 4,
                      2 * TB, o.dta,
                      max(1, min(8, -(-o.max_intron // 65536)))))
+
+        def seg_a(seq_w, n_w, quals, lens):
+            return _packed_a(self.idx, self.sctab, seq_w, n_w, quals, qconst,
+                             lens, *self._minsc, **a_kw)
+
+        def seg_b(core, dp_out):
+            return _packed_b(self.idx, self.sctab, core, dp_out,
+                             *self._minsc, **b_kw)
+
         with _metrics.span("submit.step", None, m, "t_pack"):
-            fp, merged, extras = _stage_align_packed(
-                self.idx, self.sctab, *dev_in,
-                float(sc.score_min.I), float(sc.score_min.S),
-                min(sc.read_gap_open(), sc.ref_gap_open()),
-                B, L, o.max_seeds, o.n_seeds, o.locs_per_seg, o.top_cands,
-                self.min_seg_len, self.fm.ftab_k, K2,
-                max(1, min(o.khits, 5)), min(B, max(32, B // 8)),
-                min(B, max(64, B // 8)), o.dp_pad, o.no_dp, o.nofw, o.norc,
-                self.seeder, self.fb_seeder,
-                self.sc_const, khits=o.khits,
-                SB=B if o.spliced else min(B, max(64, B // 16)),
-                omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)),
-                VC=o.verify_cands, spliced=o.spliced,
-                spl_margin=self._spl_margin(batch), **spl_kw)
+            if how == "eager":
+                core = seg_a(*dev_in)
+                fp, merged, extras = seg_b(
+                    core, _dp_run(core["dp"], self.sc_const))
+            else:
+                if how == "capture":
+                    graph.capture(seg_a, seg_b)
+                fp, merged, extras = graph.run(self.sc_const)
+                # the finishes gather slow rows from merged up to `depth`
+                # batches later, after later replays
+                merged = merged.clone()
+                _metrics.count("step_graph_reads", B)
         with _metrics.span("submit.d2h", None, m, "t_pack"):
             host, ready = _to_host_async({"fp": fp, **extras})
-        if spl_kw:
+        if o.spliced:
             # lanes were enumerated against this site table; the finish
             # re-runs rows that sites published later could affect
             host["spl_ssv"] = self.ssdb.version()
         return host.pop("fp"), merged, host, ready
+
+    def _step_args(self, B: int, L: int) -> tuple[dict, dict]:
+        """The static arguments of the packed step's segments for a batch
+        of B reads padded to L: (_packed_a's, _packed_b's), the spliced
+        step's aside."""
+        o = self.opts
+        sc = self.scoring
+        a_kw = dict(gap1=min(sc.read_gap_open(), sc.ref_gap_open()), B=B,
+                    L=L, max_seeds=o.max_seeds, n_seeds=o.n_seeds,
+                    locs_per_seg=o.locs_per_seg, top_cands=o.top_cands,
+                    min_seg_len=self.min_seg_len, ftab_k=self.fm.ftab_k,
+                    fb_bucket=min(B, max(32, B // 8)),
+                    dp_bucket=min(B, max(64, B // 8)), dp_pad=o.dp_pad,
+                    no_dp=o.no_dp, nofw=o.nofw, norc=o.norc,
+                    seeder=self.seeder, fb_seeder=self.fb_seeder,
+                    VC=o.verify_cands)
+        b_kw = dict(B=B, L=L, K2=min(2 * o.top_cands, max(8, o.khits + 3)),
+                    KF=max(1, min(o.khits, 5)), khits=o.khits,
+                    SB=B if o.spliced else min(B, max(64, B // 16)),
+                    omit_sec=o.omit_sec_seq, MB=min(B, max(32, B // 16)))
+        return a_kw, b_kw
 
     def _dev_oriented(self, batch: ReadBatch):
         """(seqs2, quals2, lens2) device tensors for `batch` (both
